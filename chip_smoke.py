@@ -1,0 +1,499 @@
+"""Drive the PyTorch/CUDA port (denseslam_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py             # from the repo root, on a machine with a card
+    python3 chip_smoke.py --profile build/profile  # + profiler tables of one chunk
+    python3 chip_smoke.py --reps 5    # 5 samples of each throughput number
+
+Phases, one JSON line each; any failure raises and exits non-zero:
+
+  1. env / build   card name and power limit, torch and CUDA versions; both
+                   kernels compiled from denseslam_tpu_torch/csrc/ by nvcc.
+  2. kernels       each kernel against its plain PyTorch version at the
+                   shapes of the slice: the fusion sampler on the (u, v, z)
+                   of a KITTI-scale street frame (V = 8192 blocks), exact;
+                   the SGM aggregation on a 370x1226x128 cost volume, exact
+                   on integer-valued f32 costs, within rtol 1.5e-2 / atol 2
+                   in bf16. Times of kernel, plain version and library call.
+  3. slice         stereo depth + fuse_sequence over 4 chunks of 10 frames
+                   of the synthetic street at the scripts/bench_full.py
+                   configuration; launch counts read around exactly this
+                   run; overflow 0; SGM depth scored against the rendered
+                   depth; the first 2 frames (fusion) and frame 0 (stereo)
+                   rerun on the CPU and held against the card.
+  4. throughput    frames/s of stereo + fusion and of the fusion tail alone
+                   (the bench.py workload), host clock around work that
+                   ends in a synchronize; the median of --reps samples.
+
+The line before the last two holds every kernel with its numbers; the
+line before the last is the card's name and power limit as nvidia-smi
+prints them; the last line is the result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# NVIDIA's H100 SXM data sheet: device memory rate and the float32 rate
+# outside the tensor cores (the bounds are stated against these peaks).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+CHUNK = 10
+N_CHUNKS = 4
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def gpu_line() -> str:
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return r.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Mean device time of `fn` over `reps` back-to-back calls (CUDA
+    events, after `warm` untimed calls). The calls are queued behind a
+    sleep kernel of about 0.1 s, so a wrapper whose host cost exceeds its
+    kernel's time still runs back to back on the card; a function whose
+    host loop outlasts the sleep (the plain SGM) is timed with its gaps."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Host time of one call of `fn` (its enqueue cost), queued behind a
+    sleep kernel so that nothing waits on the card."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def bound_ms(nbytes: float, nops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def slice_config():
+    """scripts/bench_full.py:51-83 in the port's config classes."""
+    from denseslam_tpu_torch.config import (SlideWindowParams, StereoConfig,
+                                            SystemConfig, TsdfConfig,
+                                            VoxelDecayParams)
+    from denseslam_tpu_torch.utils.camera import Intrinsics, StereoRig
+    intr = Intrinsics(fx=707.09, fy=707.09, cx=601.89, cy=183.11,
+                      width=1226, height=370)
+    tsdf = TsdfConfig(
+        voxel_size_m=0.06, trunc_dist_m=0.24, table_slots=1 << 17,
+        max_visible_blocks=1 << 13, max_alloc_per_frame=1 << 13,
+        max_depth_m=50.0, alloc_subsample=2, sampler="pallas",
+        storage_dtype="bfloat16")
+    cfg = SystemConfig(
+        rig=StereoRig(intr=intr, baseline_m=0.537), tsdf=tsdf,
+        decay=VoxelDecayParams(enabled=True, min_decay_age=30,
+                               max_decay_weight=2),
+        slide_window=SlideWindowParams(enabled=True, max_age=60),
+        stereo=StereoConfig(cost_dtype="bfloat16"))
+    return dataclasses.replace(
+        cfg, pipeline=dataclasses.replace(cfg.pipeline, fusion_db_capacity=8))
+
+
+def check_sampler(cfg, dev, gpu):
+    """Kernel 1 against its plain version on frame 0 of the street."""
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.ops import sampling
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    pose = synthetic.make_trajectory(1)[0]
+    gray, depth = synthetic.render_view(pose, intr, synthetic.street_scene(),
+                                        device=dev)
+    depth = torch.clamp(torch.round(depth * 1e3), 0, 65535) * 1e-3
+    T = torch.as_tensor(pose, device=dev)
+    m = tsdf_ops.make_map(tc, device=dev)
+    m, slots, mask = tsdf_ops.allocate_for_frame(m, depth, T, intr, tc)
+    u, v, z, _ = tsdf_ops._fusion_geometry(m, slots, mask, T, intr, tc)
+    z = torch.where(mask[:, None], z, torch.zeros_like(z))
+    combo = tsdf_ops._quantized_combo(depth, tsdf_ops.pack_gray(gray))
+    args = (combo, u, v, z, intr.width, intr.height)
+
+    got = sampling.sample_blocks(*args)
+    want = sampling.sample_blocks_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("sample", "flags", "overflow"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"tile_sample {name} differs from plain")
+    err = int((got[0] - want[0]).abs().max())
+
+    ui = sampling.round_i32(u).clamp(0, intr.width - 1)
+    vi = sampling.round_i32(v).clamp(0, intr.height - 1)
+    flat = (vi * intr.width + ui).long()
+    ms = cuda_ms(lambda: sampling.sample_blocks(*args), 50)
+    plain_ms = cuda_ms(lambda: sampling.sample_blocks_plain(*args), 10)
+    library_ms = cuda_ms(lambda: torch.take(combo, flat), 50)
+    wrapper_us = host_us(lambda: sampling.sample_blocks(*args))
+
+    nvox = u.numel()
+    nbytes = 3 * 4 * nvox + combo.numel() * 4 + nvox * (4 + 1) + u.shape[0]
+    # per voxel: 2 roundings, 6 bound tests, 4 min/max, 4 tile tests,
+    # index arithmetic (3) and the flag packing (2)
+    bnd, by = bound_ms(nbytes, 21 * nvox)
+    rec = dict(name="tile_sample", route="cuda",
+               source="denseslam_tpu_torch/csrc/tile_sample.cu",
+               replaces="denseslam_tpu/ops/sampling.py:269",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+               bound_by=by, library_ms=library_ms)
+    emit(dict(phase="kernel", name=rec["name"], shape=list(u.shape),
+              live_blocks=int(mask.sum()), overflow_blocks=int(got[2].sum()),
+              exact=True, kernel_ms=ms, plain_ms=plain_ms,
+              library_ms=library_ms, library="torch.take",
+              bound_ms=bnd, bound_by=by, wrapper_host_us=wrapper_us, gpu=gpu))
+    return rec
+
+
+def check_sgm(cfg, dev, gpu):
+    """Kernel 2 against its plain version on a KITTI-size cost volume."""
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.ops import sgm
+    from denseslam_tpu_torch.ops import stereo
+
+    sc = cfg.stereo
+    pose = synthetic.make_trajectory(1)
+    left, right, _ = synthetic.render_stereo_trajectory(
+        pose, cfg.rig, synthetic.street_scene(), device=dev)
+    cost = stereo.cost_volume(left[0], right[0], sc)
+    p1, p2 = sc.sgm_p1, sc.sgm_p2
+
+    ci = torch.round(cost)
+    for backend in ("xla", "pallas"):
+        got = sgm.sgm_aggregate(ci, p1, p2, backend)
+        want = sgm.sgm_aggregate_plain(ci, p1, p2, backend)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            d = float((got - want).abs().max())
+            raise AssertionError(f"sgm f32 {backend}: max |diff| {d}")
+    del ci, got, want
+
+    cb = cost.to(torch.bfloat16)
+    got = sgm.sgm_aggregate(cb, p1, p2, sc.sgm_backend).float()
+    want = sgm.sgm_aggregate_plain(cb, p1, p2, sc.sgm_backend).float()
+    torch.testing.assert_close(got, want, rtol=1.5e-2, atol=2.0)
+    err = float((got - want).abs().max())
+    del got, want
+
+    ms = cuda_ms(lambda: sgm.sgm_aggregate(cb, p1, p2, sc.sgm_backend), 10)
+    wrapper_us = host_us(lambda: sgm.sgm_aggregate(cb, p1, p2, sc.sgm_backend),
+                         10)
+    plain_ms = cuda_ms(
+        lambda: sgm.sgm_aggregate_plain(cb, p1, p2, sc.sgm_backend), 2, warm=1)
+    n = cb.numel()
+    # per element and direction: 2 adds of P1, 3 minimums, the add and the
+    # subtract of the step, one term of the min over D; 3 direction sums
+    bnd, by = bound_ms(2 * n * cb.element_size(), (4 * 8 + 3) * n)
+    rec = dict(name="sgm_path", route="cuda",
+               source="denseslam_tpu_torch/csrc/sgm.cu",
+               replaces="denseslam_tpu/ops/sgm_pallas.py:144",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+               bound_by=by, library_ms=None)
+    emit(dict(phase="kernel", name=rec["name"], shape=list(cb.shape),
+              f32_integer_exact=True, bf16_max_abs_err=err, kernel_ms=ms,
+              plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by,
+              wrapper_host_us=wrapper_us, gpu=gpu))
+    return rec
+
+
+def drive(cfg, dev, run):
+    """Stereo depth + fuse_sequence over the run's frames, chunk by chunk,
+    on a fresh map. Returns (map, depths, seconds of the chunks after the
+    first, which is the warm-up)."""
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import stereo
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    m = tsdf_ops.make_map(cfg.tsdf, device=dev)
+    db = dense_slam.make_fusion_db(cfg, device=dev)
+    torch.cuda.synchronize()
+    depths = []
+    for c in range(N_CHUNKS):
+        if c == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        sl = slice(c * CHUNK, (c + 1) * CHUNK)
+        d = torch.stack([
+            stereo.compute_depth(run["lefts"][i], run["rights"][i], cfg.rig,
+                                 cfg.stereo)[0]
+            for i in range(sl.start, sl.stop)])
+        m, db = dense_slam.fuse_sequence(m, db, d, run["lefts"][sl],
+                                         run["T"][sl], run["fids"][sl], cfg)
+        depths.append(d)
+    torch.cuda.synchronize()
+    return m, torch.cat(depths), time.perf_counter() - t0
+
+
+def run_slice(cfg, dev):
+    """The main path: 40 street frames through stereo + fusion, with the
+    launch counts set to 0 just before and read just after."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.eval import depth_metrics
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    n = CHUNK * N_CHUNKS
+    poses = synthetic.make_trajectory(n, step_m=0.4, yaw_rate=0.003)
+    lefts, rights, gts = synthetic.render_stereo_trajectory(
+        poses, cfg.rig, synthetic.street_scene(), device=dev)
+    run = dict(lefts=lefts, rights=rights,
+               T=torch.as_tensor(poses, device=dev),
+               fids=torch.arange(n, dtype=torch.int32, device=dev))
+    torch.cuda.synchronize()
+
+    kernels.reset_counts()
+    m, depth, _ = drive(cfg, dev, run)
+    launches = dict(kernels.launch_counts)
+
+    overflow = int(m.overflow)
+    blocks = int(tsdf_ops.num_allocated_blocks(m))
+    if overflow != 0:
+        raise AssertionError(f"map overflow {overflow}")
+    if blocks <= 0:
+        raise AssertionError("no blocks allocated")
+    for name, cnt in launches.items():
+        if cnt <= 0:
+            raise AssertionError(f"kernel {name} never launched on the path")
+    dn = depth.cpu().numpy()
+    if dn.shape != tuple(gts.shape) or not np.isfinite(dn).all():
+        raise AssertionError("depth has the wrong shape or non-finite values")
+    if not torch.isfinite(m.tsdf.float()).all():
+        raise AssertionError("non-finite tsdf")
+    q = depth_metrics.depth_metrics(dn, gts.cpu().numpy())
+    if not (q["d1_25"] > 0.8 and q["coverage"] > 0.3):
+        raise AssertionError(f"SGM depth off the rendered depth: {q}")
+    emit(dict(phase="slice", frames=n, blocks=blocks, overflow=overflow,
+              decayed_blocks=int(m.decayed_blocks), launches=launches,
+              absrel=q["absrel"], d1_25=q["d1_25"], mae_m=q["mae"],
+              coverage=q["coverage"]))
+    return dict(run, depth=depth, launches=launches)
+
+
+def check_against_cpu(cfg, dev, run):
+    """Frame 0's stereo and frames 0-1's fusion rerun on the CPU (the plain
+    versions) and held against the card."""
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import stereo
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    cpu = torch.device("cpu")
+    dg = run["depth"][0].cpu().numpy()
+    dc, _ = stereo.compute_depth(run["lefts"][0].cpu(), run["rights"][0].cpu(),
+                                 cfg.rig, cfg.stereo)
+    dc = dc.numpy()
+    # the box-filter cumsums add in another order on the two devices, which
+    # can flip a near-tie of the WTA (the CPU tests' tolerance)
+    agree = float(((dg > 0) == (dc > 0)).mean())
+    both = (dg > 0) & (dc > 0)
+    close = float((np.abs(dg[both] - dc[both]) <= 1e-3 * dc[both]).mean())
+    if agree < 0.99 or close < 0.99:
+        raise AssertionError(f"stereo card vs CPU: valid {agree}, close {close}")
+
+    maps = []
+    for d in (dev, cpu):
+        m = tsdf_ops.make_map(cfg.tsdf, device=d)
+        db = dense_slam.make_fusion_db(cfg, device=d)
+        m, db = dense_slam.fuse_sequence(
+            m, db, run["depth"][:2].to(d), run["lefts"][:2].to(d),
+            run["T"][:2].to(d), run["fids"][:2].to(d), cfg)
+        maps.append(m)
+    mg, mc = maps
+    if not torch.equal(mg.table.keys.cpu(), mc.table.keys):
+        raise AssertionError("hash tables differ between card and CPU")
+    if not torch.equal(mg.weight.cpu(), mc.weight):
+        raise AssertionError("weights differ between card and CPU")
+    tg, tcp = mg.tsdf.cpu().float(), mc.tsdf.float()
+    tsdf_err = float((tg - tcp).abs().max())
+    tsdf_frac = float((tg != tcp).float().mean())
+    if tsdf_err > 2 ** -7 or tsdf_frac > 1e-3:
+        raise AssertionError(f"tsdf card vs CPU: {tsdf_err}, {tsdf_frac}")
+    emit(dict(phase="cpu_reference", stereo_valid_agree=agree,
+              stereo_depth_close=close, tables_equal=True,
+              weights_equal=True, tsdf_max_abs_err=tsdf_err,
+              tsdf_frac_differ=tsdf_frac))
+
+
+def throughput(cfg, dev, run, gpu, reps: int):
+    """Frames/s on the host clock around work that ends in a synchronize:
+    stereo + fusion over chunks 2-4 of the slice's frames, and the fusion
+    tail alone on bench.py's workload (10 rendered street frames fused
+    over and over, 3 warm-up chunks, 12 timed). `reps` samples of each,
+    taken in turns."""
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    poses = synthetic.make_trajectory(CHUNK, step_m=0.8, yaw_rate=0.003)
+    grays, depths = synthetic.render_trajectory(
+        poses, cfg.rig.intr, synthetic.street_scene(), device=dev)
+    T = torch.as_tensor(poses, device=dev)
+    fids = torch.arange(CHUNK, dtype=torch.int32, device=dev)
+
+    def fusion_fps():
+        m = tsdf_ops.make_map(cfg.tsdf, device=dev)
+        db = dense_slam.make_fusion_db(cfg, device=dev)
+        warm, timed = 3, 12
+        for i in range(warm):
+            m, db = dense_slam.fuse_sequence(m, db, depths, grays, T,
+                                             fids + i * CHUNK, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(timed):
+            m, db = dense_slam.fuse_sequence(m, db, depths, grays, T,
+                                             fids + (warm + i) * CHUNK, cfg)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if int(m.overflow) != 0:
+            raise AssertionError(f"map overflow {int(m.overflow)}")
+        return timed * CHUNK / dt
+
+    samples = {"stereo_fusion": [], "fusion_tail": []}
+    for _ in range(reps):
+        samples["stereo_fusion"].append(
+            CHUNK * (N_CHUNKS - 1) / drive(cfg, dev, run)[2])
+        samples["fusion_tail"].append(fusion_fps())
+    q = {k: np.percentile(v, [25, 50, 75]).tolist() for k, v in samples.items()}
+    emit(dict(phase="throughput", unit="frames/s",
+              stereo_fusion_fps=q["stereo_fusion"][1],
+              fusion_tail_fps=q["fusion_tail"][1], quartiles=q,
+              samples=samples, gpu=gpu))
+
+
+def profile_chunk(cfg, dev, run, out: str):
+    """torch.profiler over one chunk (10 frames), three ways: stereo alone,
+    fusion alone, and both. Device time is the sum of the kernels' own
+    times; the tables go to <out>/profile_<part>.txt."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import stereo
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    m = tsdf_ops.make_map(cfg.tsdf, device=dev)
+    db = dense_slam.make_fusion_db(cfg, device=dev)
+    sl = slice(0, CHUNK)
+    depth = run["depth"][sl]
+
+    def depths():
+        return torch.stack([stereo.compute_depth(
+            run["lefts"][i], run["rights"][i], cfg.rig, cfg.stereo)[0]
+            for i in range(CHUNK)])
+
+    def fuse(m, db, d):
+        return dense_slam.fuse_sequence(m, db, d, run["lefts"][sl],
+                                        run["T"][sl], run["fids"][sl], cfg)
+
+    parts = {"stereo": lambda m, db: (depths(), m, db)[1:],
+             "fusion": lambda m, db: fuse(m, db, depth),
+             "stereo_fusion": lambda m, db: fuse(m, db, depths())}
+    os.makedirs(out, exist_ok=True)
+    for part, fn in parts.items():
+        m, db = fn(m, db)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            m, db = fn(m, db)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = prof.key_averages()
+        kernels = [e for e in rows
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        attr = ("self_device_time_total"
+                if kernels and hasattr(kernels[0], "self_device_time_total")
+                else "self_cuda_time_total")
+        kernels.sort(key=lambda e: -getattr(e, attr))
+        device_ms = sum(getattr(e, attr) for e in kernels) / 1e3
+        with open(os.path.join(out, f"profile_{part}.txt"), "w") as fh:
+            fh.write(rows.table(sort_by="self_cuda_time_total", row_limit=60))
+        emit(dict(phase="profile", part=part, frames=CHUNK, wall_ms=wall_ms,
+                  device_ms=device_ms,
+                  device_busy_share=device_ms / wall_ms,
+                  launches=sum(e.count for e in kernels),
+                  host_syncs=sum(e.count for e in rows
+                                 if e.key == "aten::_local_scalar_dense"),
+                  top=[dict(name=e.key[:80], ms=getattr(e, attr) / 1e3,
+                            calls=e.count) for e in kernels[:8]]))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="DIR",
+                    help="profile one chunk; write the tables into DIR")
+    ap.add_argument("--reps", type=int, default=1,
+                    help="samples of each throughput number (median printed)")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available; this script drives "
+              "the port on the GPU only", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from denseslam_tpu_torch import kernels
+
+    gpu = gpu_line()
+    dev = torch.device("cuda")
+    emit(dict(phase="env", nvidia_smi=gpu, torch=torch.__version__,
+              cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+              count=torch.cuda.device_count()))
+    t0 = time.perf_counter()
+    built = kernels.build_all()
+    emit(dict(phase="build", seconds_each=built,
+              seconds_total=time.perf_counter() - t0))
+
+    cfg = slice_config()
+    recs = [check_sampler(cfg, dev, gpu), check_sgm(cfg, dev, gpu)]
+    run = run_slice(cfg, dev)
+    for rec in recs:
+        rec["launches"] = run["launches"][rec["name"]]
+    check_against_cpu(cfg, dev, run)
+    throughput(cfg, dev, run, gpu, args.reps)
+    if args.profile:
+        profile_chunk(cfg, dev, run, args.profile)
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    emit({"kernels": [{k: rec[k] for k in keys} for rec in recs]})
+    print(gpu_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

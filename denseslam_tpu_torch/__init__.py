@@ -1,0 +1,31 @@
+"""PyTorch / CUDA port of the dense-mapping path of `denseslam_tpu`.
+
+The JAX package beside this one is the reference: every function here is
+held against its JAX counterpart on the same inputs (tests/test_torch_*.py).
+This package imports neither `jax` nor `denseslam_tpu`; it keeps its own
+copies of what it needs.
+
+Layer map (the ported slice):
+  config.py         — the configuration dataclasses (same fields, defaults)
+  utils/            — camera model, the pose helpers the slice needs
+  ops/hash.py       — packed-key open-addressing voxel-block table
+  ops/sampling.py   — fusion image sampler (kernel 1: csrc/tile_sample.cu)
+  ops/tsdf.py       — allocate / integrate / decay / slide window
+  ops/sgm.py        — SGM path aggregation (kernel 2: csrc/sgm.cu)
+  ops/stereo.py     — ZSAD cost volume, WTA, LR check, depth
+  models/dense_slam.py — fusion DB, fuse_keyframe, fuse_sequence
+  io/synthetic.py   — analytic street scene renderer (test and smoke input)
+  io/convert.py     — JAX-package state (as numpy) <-> port state
+  eval/depth_metrics.py — depth-vs-GT metrics (numpy)
+  kernels.py        — nvcc build of csrc/ at first use, ctypes bindings
+
+Numerics: the JAX package pins f32 "highest" matmul precision, so TF32 is
+turned off here for both matmuls and cuDNN convolutions.
+"""
+
+import torch as _torch
+
+__version__ = "0.1.0"
+
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,132 @@
+"""Dense-mapping step of the pipeline (port of the fusion tail of
+denseslam_tpu/models/dense_slam.py): the fused-keyframe DB and
+`fuse_keyframe` / `fuse_sequence`.
+
+The JAX package donates map and DB to each step; here both are updated in
+place and returned.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..config import SystemConfig
+from ..device import resolve_device
+from ..ops import tsdf as tsdf_ops
+
+
+class FusionDB(NamedTuple):
+    """Ring buffer of fused keyframes — the de-fusion replay source.
+
+    Quantized storage is mm depth + 8-bit gray, as in the JAX package
+    (there u16 + u8). Depth is held as int32 here, because uint16 tensors
+    do not support the indexing and casts the DB needs on every backend;
+    io/convert.py casts at the boundary."""
+    depth: torch.Tensor     # i32 mm (C, H, W)  (f32 m when not quantized)
+    gray: torch.Tensor      # u8 (C, H, W)      (f32 when not quantized)
+    T_fused: torch.Tensor   # f32 (C, 4, 4) pose used at fusion time
+    frame_id: torch.Tensor  # i32 (C,) global frame number, -1 = empty
+    valid: torch.Tensor     # bool (C,)
+    head: torch.Tensor      # i32 () next write slot
+
+    @property
+    def quantized(self) -> bool:
+        return self.depth.dtype == torch.int32
+
+
+def make_fusion_db(cfg: SystemConfig, device=None) -> FusionDB:
+    """Empty DB on `device` (None = the CUDA card; raises without one)."""
+    dev = resolve_device(device)
+    c = cfg.pipeline.fusion_db_capacity
+    h, w = cfg.rig.intr.height, cfg.rig.intr.width
+    quant = cfg.pipeline.fusion_db_quantized
+    return FusionDB(
+        depth=torch.zeros((c, h, w), dtype=torch.int32 if quant else torch.float32,
+                          device=dev),
+        gray=torch.zeros((c, h, w), dtype=torch.uint8 if quant else torch.float32,
+                         device=dev),
+        T_fused=torch.eye(4, dtype=torch.float32, device=dev).repeat(c, 1, 1),
+        frame_id=torch.full((c,), -1, dtype=torch.int32, device=dev),
+        valid=torch.zeros((c,), dtype=torch.bool, device=dev),
+        head=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def _depth_mm(depth: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(depth * 1e3), 0, 65535)
+
+
+def db_quantize_depth(db: FusionDB, depth: torch.Tensor) -> torch.Tensor:
+    """Depth as fusion must consume it for the DB replay to be exact:
+    mm-rounded when the DB is quantized, identity otherwise."""
+    if db.quantized:
+        return _depth_mm(depth).to(torch.float32) * 1e-3
+    return depth
+
+
+def db_depth(db: FusionDB, slot) -> torch.Tensor:
+    """Replay-side depth of a DB slot (dequantized)."""
+    d = db.depth[slot]
+    if db.quantized:
+        return d.to(torch.float32) * 1e-3
+    return d
+
+
+def db_gray(db: FusionDB, slot) -> torch.Tensor:
+    return db.gray[slot].to(torch.float32)
+
+
+def db_push(db: FusionDB, depth, gray, T_wc, frame_id) -> FusionDB:
+    """Record one fused frame at `head`, in place."""
+    # a (1,) index tensor: indexing with the 0-d head would read it back
+    # to the host
+    i = db.head.long().reshape(1)
+    if db.quantized:
+        depth = _depth_mm(depth).to(torch.int32)
+        # pack_gray truncates to int, so u8 truncation replays exactly
+        gray = torch.clamp(gray, 0, 255).to(torch.uint8)
+    db.depth.index_copy_(0, i, depth.to(db.depth.dtype)[None])
+    db.gray.index_copy_(0, i, gray.to(db.gray.dtype)[None])
+    db.T_fused.index_copy_(0, i, T_wc.to(db.T_fused.dtype)[None])
+    db.frame_id.index_copy_(0, i, torch.as_tensor(
+        frame_id, dtype=torch.int32, device=db.frame_id.device).reshape(1))
+    db.valid.index_fill_(0, i, True)
+    return db._replace(head=((db.head + 1) % db.depth.shape[0]).to(torch.int32))
+
+
+def fuse_keyframe(m: tsdf_ops.MapState, db: FusionDB, depth, gray, T_wc,
+                  frame_id, cfg: SystemConfig) -> Tuple[tsdf_ops.MapState, FusionDB]:
+    """allocate -> integrate -> DB record -> slide-window / decay ->
+    advance. In place on map and DB."""
+    intr = cfg.rig.intr
+    tc = cfg.tsdf
+    if cfg.pipeline.bilateral_filter:
+        raise NotImplementedError(
+            "pipeline.bilateral_filter is not ported yet (ROADMAP.md Queue A, A8)")
+    depth = db_quantize_depth(db, depth)
+    color = tsdf_ops.pack_gray(gray) if tc.fuse_color else None
+    m, slots, mask = tsdf_ops.allocate_for_frame(m, depth, T_wc, intr, tc)
+    m = tsdf_ops.integrate(m, slots, mask, depth, color, T_wc, intr, tc)
+    db = db_push(db, depth, gray, T_wc, frame_id)
+    if cfg.slide_window.enabled and cfg.decay.enabled:
+        m = tsdf_ops.decay_and_slide(
+            m, cfg.decay.max_decay_weight, cfg.decay.min_decay_age,
+            cfg.slide_window.max_age)
+    elif cfg.slide_window.enabled:
+        m = tsdf_ops.slide_window(m, cfg.slide_window.max_age)
+    elif cfg.decay.enabled:
+        m = tsdf_ops.decay(m, cfg.decay.max_decay_weight,
+                           cfg.decay.min_decay_age)
+    return tsdf_ops.advance_frame(m), db
+
+
+def fuse_sequence(m: tsdf_ops.MapState, db: FusionDB, depths, grays, T_wcs,
+                  frame_ids, cfg: SystemConfig):
+    """Fuse a batch of keyframes (N, H, W) in order: the JAX version's
+    `lax.scan` over the frame axis, as a Python loop."""
+    for i in range(depths.shape[0]):
+        m, db = fuse_keyframe(m, db, depths[i], grays[i], T_wcs[i],
+                              frame_ids[i], cfg)
+    return m, db

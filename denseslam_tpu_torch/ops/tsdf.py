@@ -1,0 +1,412 @@
+"""Voxel-hashed TSDF volume: allocate / integrate / de-integrate / decay /
+sliding window (port of denseslam_tpu/ops/tsdf.py).
+
+A block is 8x8x8 voxels stored flat as 512 lanes of a slot-indexed pool;
+block identity is a packed int32 key (ops/hash.py). All per-voxel math is
+structure-of-arrays, in the JAX version's op order, so that keys, samples
+and updates agree with the reference.
+
+The JAX package donates the map to each step and gets a new one back.
+Here every function that changes the map updates its tensors IN PLACE and
+returns the map (with new 0-d counters); use the returned map, and clone a
+map first where the old state is still needed.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import TsdfConfig
+from ..device import resolve_device
+from ..utils import lie
+from ..utils.camera import Intrinsics
+from . import hash as vhash
+from . import sampling
+
+BLOCK = 8
+BLOCK_VOL = BLOCK * BLOCK * BLOCK  # 512
+
+
+def _voxel_off_xyz(device):
+    """Three (512,) int32 tensors: voxel offsets within a block, x fastest."""
+    idx = torch.arange(BLOCK_VOL, dtype=torch.int32, device=device)
+    return idx % BLOCK, (idx // BLOCK) % BLOCK, idx // (BLOCK * BLOCK)
+
+
+# -- packed RGB helpers ------------------------------------------------------
+
+def pack_rgb(r, g, b) -> torch.Tensor:
+    """Float [0,255] channels -> packed int32 (r | g<<8 | b<<16)."""
+    ri = torch.clamp(r, 0, 255).to(torch.int32)
+    gi = torch.clamp(g, 0, 255).to(torch.int32)
+    bi = torch.clamp(b, 0, 255).to(torch.int32)
+    return ri | (gi << 8) | (bi << 16)
+
+
+def unpack_rgb(p: torch.Tensor):
+    return (
+        (p & 0xFF).to(torch.float32),
+        ((p >> 8) & 0xFF).to(torch.float32),
+        ((p >> 16) & 0xFF).to(torch.float32),
+    )
+
+
+def pack_gray(gray: torch.Tensor) -> torch.Tensor:
+    return pack_rgb(gray, gray, gray)
+
+
+class MapState(NamedTuple):
+    """One submap's TSDF volume (the same fields, in the same order, as the
+    JAX MapState; scalars are 0-d int32 tensors on the map's device)."""
+    table: vhash.HashTable          # packed-key table (S,)
+    tsdf: torch.Tensor              # f32|bf16 (S, 512), init +1
+    weight: torch.Tensor            # f32|bf16 (S, 512)
+    color: torch.Tensor             # i32 (S, 512) packed RGB
+    alloc_frame: torch.Tensor       # i32 (S,)
+    last_seen: torch.Tensor         # i32 (S,)
+    frame: torch.Tensor             # i32 ()
+    decayed_blocks: torch.Tensor    # i32 ()
+    overflow: torch.Tensor          # i32 ()
+
+    @property
+    def num_slots(self) -> int:
+        return self.tsdf.shape[0]
+
+
+_STORAGE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def storage_dtype(cfg: TsdfConfig) -> torch.dtype:
+    return _STORAGE[cfg.storage_dtype]
+
+
+def make_map(cfg: TsdfConfig, device=None) -> MapState:
+    """Fresh map on `device` (None = the CUDA card; raises without one)."""
+    dev = resolve_device(device)
+    s = cfg.table_slots
+    sd = storage_dtype(cfg)
+
+    def scalar():
+        return torch.zeros((), dtype=torch.int32, device=dev)
+
+    return MapState(
+        table=vhash.make_table(s, dev),
+        tsdf=torch.ones((s, BLOCK_VOL), dtype=sd, device=dev),
+        weight=torch.zeros((s, BLOCK_VOL), dtype=sd, device=dev),
+        color=torch.zeros((s, BLOCK_VOL), dtype=torch.int32, device=dev),
+        alloc_frame=torch.zeros((s,), dtype=torch.int32, device=dev),
+        last_seen=torch.zeros((s,), dtype=torch.int32, device=dev),
+        frame=scalar(),
+        decayed_blocks=scalar(),
+        overflow=scalar(),
+    )
+
+
+def num_allocated_blocks(m: MapState) -> torch.Tensor:
+    return m.table.valid.to(torch.int32).sum()
+
+
+def _check_supported(cfg: TsdfConfig) -> None:
+    if cfg.bilinear_fusion:
+        raise NotImplementedError(
+            "bilinear_fusion is not ported yet (ROADMAP.md Queue A, A8)")
+    if not cfg.gray_color_fusion:
+        raise NotImplementedError(
+            "gray_color_fusion=False (true-RGB fusion, TPU kernel B2) is "
+            "not ported yet (ROADMAP.md Queue B, B2)")
+    if cfg.sampler not in ("gather", "pallas"):
+        raise ValueError(f"unknown sampler {cfg.sampler!r}")
+
+
+# ---------------------------------------------------------------------------
+# Allocation
+# ---------------------------------------------------------------------------
+
+def touched_block_keys(depth: torch.Tensor, T_wc: torch.Tensor,
+                       intr: Intrinsics, cfg: TsdfConfig) -> torch.Tensor:
+    """Packed keys of blocks in the truncation band of each depth sample —
+    (k*H*W/s^2,) int32, EMPTY_KEY where invalid."""
+    s = cfg.alloc_subsample
+    if s > 1:
+        depth = depth[::s, ::s]
+    h, w = depth.shape
+    dev = depth.device
+    mu = cfg.trunc_dist_m
+    block_m = cfg.block_size_m
+    inv_block = 1.0 / block_m
+    v = (torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+         + 0.0) * float(s)
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, :] * float(s)
+    dirx = ((u - intr.cx) / intr.fx).expand(h, w)
+    diry = ((v - intr.cy) / intr.fy).expand(h, w)
+    valid = (depth > cfg.min_depth_m) & (depth < cfg.max_depth_m)
+
+    k = max(3, math.ceil(2.0 * mu / block_m) + 2)
+    R = T_wc[:3, :3]
+    t = T_wc[:3, 3]
+
+    keys = []
+    for i in range(k):
+        d = depth + (-mu + 2.0 * mu * i / (k - 1))
+        pcx = dirx * d
+        pcy = diry * d
+        pcz = d
+        wx = R[0, 0] * pcx + R[0, 1] * pcy + R[0, 2] * pcz + t[0]
+        wy = R[1, 0] * pcx + R[1, 1] * pcy + R[1, 2] * pcz + t[1]
+        wz = R[2, 0] * pcx + R[2, 1] * pcy + R[2, 2] * pcz + t[2]
+        bx = _floor_i32(wx * inv_block)
+        by = _floor_i32(wy * inv_block)
+        bz = _floor_i32(wz * inv_block)
+        keys.append(vhash.pack_xyz(bx, by, bz, valid).reshape(-1))
+    return torch.cat(keys, dim=0)
+
+
+def _floor_i32(x: torch.Tensor) -> torch.Tensor:
+    """floor -> int32; far-out values (invalid pixels only) are clamped so
+    the conversion stays defined — they pack to EMPTY_KEY either way."""
+    return torch.floor(x).clamp_(-(2 ** 30), 2 ** 30).to(torch.int32)
+
+
+def allocate_for_frame(m: MapState, depth: torch.Tensor, T_wc: torch.Tensor,
+                       intr: Intrinsics, cfg: TsdfConfig):
+    """Allocate blocks touched by this frame; returns (map, visible_slots
+    (max_visible_blocks,), visible_mask)."""
+    keys = touched_block_keys(depth, T_wc, intr, cfg)
+    uniq, umask, total = vhash.unique_keys(keys, cfg.max_visible_blocks)
+    return allocate_keys(m, uniq, umask, total, cfg)
+
+
+def allocate_keys(m: MapState, uniq: torch.Tensor, umask: torch.Tensor,
+                  total: torch.Tensor, cfg: TsdfConfig):
+    """Insert pre-deduplicated keys; clears freshly claimed rows and stamps
+    alloc_frame / last_seen. Updates the map in place."""
+    table, slots, fresh = vhash.insert_keys(m.table, uniq, umask,
+                                            cfg.probe_len)
+    live = umask & (slots >= 0)
+    n = slots.shape[0]
+    ones = torch.ones((n, BLOCK_VOL), dtype=m.tsdf.dtype, device=slots.device)
+    vhash.masked_set_(m.tsdf, slots, ones, fresh)
+    vhash.masked_set_(m.weight, slots, torch.zeros_like(ones), fresh)
+    vhash.masked_set_(m.color, slots,
+                      torch.zeros((n, BLOCK_VOL), dtype=torch.int32,
+                                  device=slots.device), fresh)
+    frame_b = m.frame.expand(n)
+    vhash.masked_set_(m.alloc_frame, slots, frame_b, fresh)
+    vhash.masked_set_(m.last_seen, slots, frame_b, live)
+
+    dropped = torch.clamp(total - cfg.max_visible_blocks, min=0)
+    failed = (umask & (slots < 0)).to(torch.int32).sum()
+    m = m._replace(table=table,
+                   overflow=(m.overflow + dropped + failed).to(torch.int32))
+    return m, torch.where(live, slots, torch.full_like(slots, -1)), live
+
+
+# ---------------------------------------------------------------------------
+# Integrate / de-integrate
+# ---------------------------------------------------------------------------
+
+def _fusion_geometry(m: MapState, visible_slots, visible_mask, T_wc,
+                     intr: Intrinsics, cfg: TsdfConfig):
+    """Camera-frame voxel positions for the visible set, SoA: returns
+    (u, v, z) each (V, 512) and the safe slot index per row."""
+    vsz = cfg.voxel_size_m
+    T_cw = lie.inv_T(T_wc)
+    R = T_cw[:3, :3]
+    t = T_cw[:3, 3]
+    safe = torch.where(visible_mask, visible_slots,
+                       torch.zeros_like(visible_slots))
+    bkeys = m.table.keys[safe.long()]
+    bx, by, bz = vhash.unpack_xyz(bkeys)
+    ox, oy, oz = _voxel_off_xyz(bkeys.device)
+    wx = ((bx[:, None] * BLOCK + ox[None, :]).to(torch.float32) + 0.5) * vsz
+    wy = ((by[:, None] * BLOCK + oy[None, :]).to(torch.float32) + 0.5) * vsz
+    wz = ((bz[:, None] * BLOCK + oz[None, :]).to(torch.float32) + 0.5) * vsz
+    px = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + t[0]
+    py = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + t[1]
+    pz = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + t[2]
+    zc = torch.where(pz.abs() > 1e-9, pz, torch.full_like(pz, 1e-9))
+    u = px / zc * intr.fx + intr.cx
+    v = py / zc * intr.fy + intr.cy
+    return u, v, pz, safe
+
+
+def _quantized_combo(depth: torch.Tensor, color_packed) -> torch.Tensor:
+    """The packed (d_mm << 8 | gray) image both samplers read; 0 where the
+    depth is invalid."""
+    d_mm = torch.clamp(torch.round(depth * 1000.0), 0, 65535).to(torch.int32)
+    if color_packed is not None:
+        g8 = torch.clamp(color_packed & 0xFF, 0, 255)
+    else:
+        g8 = torch.zeros_like(d_mm)
+    return torch.where(depth > 0, (d_mm << 8) | g8, torch.zeros_like(d_mm))
+
+
+def _sample(u, v, z, visible_mask, depth, color_packed, intr, cfg, m):
+    """Per-voxel depth (m) and luminance samples -> (d_samp, d_valid,
+    gray_samp or None, map)."""
+    if cfg.sampler == "pallas":
+        # kernel 1 with the JAX tile sampler's post-fallback semantics;
+        # overflow blocks beyond the fallback cap lose their out-of-tile
+        # samples and are counted like dropped allocations
+        combo = _quantized_combo(depth, color_packed)
+        z_gated = torch.where(visible_mask[:, None], z, torch.zeros_like(z))
+        d_mm, gray, fits, n_over = sampling.tile_sample(
+            combo, u, v, z_gated, intr.width, intr.height,
+            cfg.pallas_overflow_cap)
+        m = m._replace(overflow=(m.overflow + torch.clamp(
+            n_over - cfg.pallas_overflow_cap, min=0)).to(torch.int32))
+        d_samp = d_mm * 1e-3
+        d_valid = fits & (d_samp > 0)
+        d_samp = torch.where(d_valid, d_samp, torch.zeros_like(d_samp))
+        return d_samp, d_valid, (gray if color_packed is not None else None), m
+
+    # "gather": nearest sample, one gather per voxel (ITM's choice)
+    ui = sampling.round_i32(u)
+    vi = sampling.round_i32(v)
+    inb = (ui >= 0) & (ui < intr.width) & (vi >= 0) & (vi < intr.height)
+    flat = (vi.clamp(0, intr.height - 1) * intr.width
+            + ui.clamp(0, intr.width - 1)).long()
+    gray_samp = None
+    if color_packed is not None:
+        got = _quantized_combo(depth, color_packed).reshape(-1)[flat]
+        d_samp = (got >> 8).to(torch.float32) * 1e-3
+        gray_samp = (got & 0xFF).to(torch.float32)
+    else:
+        d_samp = depth.reshape(-1)[flat]
+    d_valid = inb & (d_samp > 0)
+    d_samp = torch.where(d_valid, d_samp, torch.zeros_like(d_samp))
+    return d_samp, d_valid, gray_samp, m
+
+
+def integrate(m: MapState, visible_slots, visible_mask, depth,
+              color_packed: Optional[torch.Tensor], T_wc,
+              intr: Intrinsics, cfg: TsdfConfig, sign: float = 1.0) -> MapState:
+    """TSDF fusion over the visible block set, in place. sign=+1
+    integrates, -1 de-integrates (the exact inverse when replayed with the
+    identical view and pose)."""
+    _check_supported(cfg)
+    mu = cfg.trunc_dist_m
+    u, v, z, safe = _fusion_geometry(m, visible_slots, visible_mask, T_wc,
+                                     intr, cfg)
+    d_samp, d_valid, gray_samp, m = _sample(
+        u, v, z, visible_mask, depth, color_packed, intr, cfg, m)
+
+    sdf = d_samp - z
+    upd = (visible_mask[:, None] & d_valid & (z > 1e-3)
+           & (sdf > -mu) & (d_samp > cfg.min_depth_m))
+    eta = torch.clamp(sdf / mu, -1.0, 1.0)
+
+    zero = torch.zeros_like(sdf)
+    if cfg.weights.depth_weighting:
+        wp = cfg.weights
+        w_new = torch.clamp(
+            wp.max_new_w * (1.0 - torch.clamp(d_samp / wp.max_distance,
+                                              0.0, 1.0)), min=1.0)
+    else:
+        w_new = torch.ones_like(sdf)
+    w_new = torch.where(upd, w_new, zero)
+
+    safe_l = safe.long()
+    old_t = m.tsdf[safe_l].to(torch.float32)
+    old_w = m.weight[safe_l].to(torch.float32)
+
+    if sign > 0:
+        new_w = torch.clamp(old_w + w_new, max=cfg.max_weight)
+        num = old_t * old_w + eta * w_new
+        new_t = torch.where(new_w > 0, num / torch.clamp(new_w, min=1e-6),
+                            torch.ones_like(num))
+    else:
+        new_w = torch.clamp(old_w - w_new, min=0.0)
+        num = old_t * old_w - eta * w_new
+        new_t = torch.where(new_w > 1e-6, num / torch.clamp(new_w, min=1e-6),
+                            torch.ones_like(num))
+
+    vhash.masked_set_(m.tsdf, visible_slots, new_t.to(m.tsdf.dtype),
+                      visible_mask)
+    vhash.masked_set_(m.weight, visible_slots, new_w.to(m.weight.dtype),
+                      visible_mask)
+
+    if color_packed is not None and sign > 0:
+        cr = cg = cb = gray_samp         # luminance came with the depth
+        c_upd = upd & (sdf.abs() < 0.5 * mu)
+        cw = torch.where(c_upd, w_new, zero)
+        orr, og, ob = unpack_rgb(m.color[safe_l])
+        tot = torch.clamp(old_w + cw, min=1e-6)
+        nr = (orr * old_w + cr * cw) / tot
+        ng = (og * old_w + cg * cw) / tot
+        nb = (ob * old_w + cb * cw) / tot
+        vhash.masked_set_(m.color, visible_slots, pack_rgb(nr, ng, nb),
+                          visible_mask)
+    return m
+
+
+def deintegrate(m, visible_slots, visible_mask, depth, color_packed, T_wc,
+                intr, cfg):
+    return integrate(m, visible_slots, visible_mask, depth, color_packed,
+                     T_wc, intr, cfg, sign=-1.0)
+
+
+# ---------------------------------------------------------------------------
+# Map regularisation: decay & sliding window
+# ---------------------------------------------------------------------------
+
+def decay(m: MapState, max_decay_weight: float, min_decay_age: int,
+          force_all: bool = False,
+          only_mask: Optional[torch.Tensor] = None) -> MapState:
+    """Voxel GC: zero voxels with weight <= max_decay_weight in blocks older
+    than min_decay_age; reclaim blocks left empty. In place."""
+    age = m.frame - m.alloc_frame
+    eligible = m.table.valid
+    if not force_all:
+        eligible = eligible & (age >= min_decay_age)
+    if only_mask is not None:
+        eligible = eligible & only_mask
+    kill = eligible[:, None] & (m.weight <= max_decay_weight) & (m.weight > 0)
+    m.weight.masked_fill_(kill, 0.0)
+    empty = eligible & (m.weight <= 0.0).all(dim=-1)
+    return _free_blocks(m, empty, kill, empty.to(torch.int32).sum())
+
+
+def slide_window(m: MapState, max_age: int,
+                 by_last_seen: bool = False) -> MapState:
+    """Evict blocks whose age exceeds the window. In place."""
+    ref_frame = m.last_seen if by_last_seen else m.alloc_frame
+    old = m.table.valid & ((m.frame - ref_frame) > max_age)
+    return _free_blocks(m, old)
+
+
+def decay_and_slide(m: MapState, max_decay_weight: float, min_decay_age: int,
+                    max_age: int) -> MapState:
+    """slide_window() then decay() in one pool pass (the fuse_keyframe tail
+    order); decayed_blocks counts only blocks decay frees after the slide
+    already evicted its set. In place."""
+    age = m.frame - m.alloc_frame
+    eligible = m.table.valid & (age >= min_decay_age)
+    kill = eligible[:, None] & (m.weight <= max_decay_weight) & (m.weight > 0)
+    m.weight.masked_fill_(kill, 0.0)
+    empty = eligible & (m.weight <= 0.0).all(dim=-1)
+    old = m.table.valid & (age > max_age)
+    return _free_blocks(m, empty | old, kill,
+                        (empty & ~old).to(torch.int32).sum())
+
+
+def _free_blocks(m: MapState, drop: torch.Tensor, kill=None,
+                 decayed=None) -> MapState:
+    """Free the blocks in `drop` (S,) and reset their rows (plus the voxels
+    in `kill`, if given) to free space, in place; count `decayed`."""
+    gone = drop[:, None]
+    m.tsdf.masked_fill_(gone if kill is None else (gone | kill), 1.0)
+    m.weight.masked_fill_(gone, 0.0)
+    m.color.masked_fill_(gone, 0)
+    m.table.keys.masked_fill_(drop, vhash.EMPTY_KEY)
+    if decayed is not None:
+        m = m._replace(
+            decayed_blocks=(m.decayed_blocks + decayed).to(torch.int32))
+    return m
+
+
+def advance_frame(m: MapState) -> MapState:
+    return m._replace(frame=(m.frame + 1).to(torch.int32))

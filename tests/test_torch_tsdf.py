@@ -1,0 +1,123 @@
+"""ops/tsdf.py port vs the JAX fusion tail on rendered frames:
+allocate_for_frame -> integrate -> decay_and_slide -> advance_frame, for
+both samplers and both storage dtypes, and integrate/deintegrate.
+
+The JAX functions run eagerly (op by op), as tests/test_sampling.py runs
+them, so no XLA fusion contracts their multiply-adds; the port then
+reproduces every leaf of the map BIT FOR BIT — keys, tsdf, weight, color,
+stamps and counters (tolerance: none)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from denseslam_tpu.config import tiny_test_config
+from denseslam_tpu.io import synthetic as js
+from denseslam_tpu.ops import tsdf as jt
+from denseslam_tpu_torch.io import convert
+from denseslam_tpu_torch.ops import tsdf as pt
+
+
+@pytest.fixture(scope="module")
+def frames():
+    cfg = tiny_test_config(width=96, height=72)
+    poses = js.make_trajectory(3, step_m=0.1, yaw_rate=0.02)
+    grays, depths = js.render_trajectory(poses, cfg.rig.intr)
+    return cfg, poses, np.asarray(grays), np.asarray(depths)
+
+
+def _leaves(m_jax):
+    out = []
+    for x in jax.tree.leaves(m_jax):
+        a = np.asarray(x)
+        out.append(a.view(np.uint16) if a.dtype.name == "bfloat16" else a)
+    return out
+
+
+def _assert_maps_equal(m_jax, m_port):
+    names = ["keys", "tsdf", "weight", "color", "alloc_frame", "last_seen",
+             "frame", "decayed_blocks", "overflow"]
+    for n, a, b in zip(names, _leaves(m_jax), convert.map_state_to_numpy(m_port)):
+        assert np.array_equal(a, b), n
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sampler", ["gather", "pallas"])
+def test_fusion_tail_matches_jax_bit_for_bit(frames, sampler, storage):
+    cfg, poses, grays, depths = frames
+    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, sampler=sampler, storage_dtype=storage,
+        # a small cap so the pallas path exercises the over-cap accounting
+        pallas_overflow_cap=2))
+    pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    m = jt.make_map(tc)
+    mp = pt.make_map(pcfg.tsdf, device="cpu")
+    for f in range(2):
+        T, d, g = jnp.asarray(poses[f + 1]), jnp.asarray(depths[f]), grays[f]
+        m, s, k = jt.allocate_for_frame(m, d, T, intr, tc)
+        m = jt.integrate(m, s, k, d, jt.pack_gray(jnp.asarray(g)), T, intr, tc)
+        m = jt.decay_and_slide(m, 2, 1, 1)
+        m = jt.advance_frame(m)
+
+        Tp, dp = torch.tensor(poses[f + 1]), torch.tensor(depths[f])
+        mp, sp, kp = pt.allocate_for_frame(mp, dp, Tp, pcfg.rig.intr, pcfg.tsdf)
+        np.testing.assert_array_equal(np.asarray(s), sp.numpy())
+        mp = pt.integrate(mp, sp, kp, dp, pt.pack_gray(torch.tensor(g)), Tp,
+                          pcfg.rig.intr, pcfg.tsdf)
+        mp = pt.decay_and_slide(mp, 2, 1, 1)
+        mp = pt.advance_frame(mp)
+        _assert_maps_equal(m, mp)
+    assert int(mp.decayed_blocks) > 0 or int(pt.num_allocated_blocks(mp)) > 0
+
+
+@pytest.mark.parametrize("sampler", ["gather", "pallas"])
+def test_integrate_then_deintegrate_restores_the_map(frames, sampler):
+    """tsdf.py:316-318: de-integration replaying the same view and pose is
+    integrate's exact inverse; the port's deintegrate also equals JAX's."""
+    cfg, poses, grays, depths = frames
+    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(cfg.tsdf,
+                                                            sampler=sampler))
+    pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    T, d = jnp.asarray(poses[0]), jnp.asarray(depths[0])
+    col = jt.pack_gray(jnp.asarray(grays[0]))
+    m0, s, k = jt.allocate_for_frame(jt.make_map(tc), d, T, intr, tc)
+    m1 = jt.integrate(m0, s, k, d, col, T, intr, tc)
+    m2 = jt.deintegrate(m1, s, k, d, col, T, intr, tc)
+
+    Tp, dp = torch.tensor(poses[0]), torch.tensor(depths[0])
+    colp = pt.pack_gray(torch.tensor(grays[0]))
+    mp, sp, kp = pt.allocate_for_frame(pt.make_map(pcfg.tsdf, device="cpu"),
+                                       dp, Tp, pcfg.rig.intr, pcfg.tsdf)
+    w0, t0 = mp.weight.clone(), mp.tsdf.clone()
+    mp = pt.integrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
+    assert (mp.weight > 0).any()
+    _assert_maps_equal(m1, mp)
+    mp = pt.deintegrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
+    _assert_maps_equal(m2, mp)
+    assert torch.equal(mp.weight, w0) and torch.equal(mp.tsdf, t0)
+
+
+def test_decay_and_slide_window_passes_match_jax(frames):
+    """decay / slide_window on their own (the non-fused tail branches)."""
+    cfg, poses, grays, depths = frames
+    pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    T, d = jnp.asarray(poses[0]), jnp.asarray(depths[0])
+    m, s, k = jt.allocate_for_frame(jt.make_map(tc), d, T, intr, tc)
+    m = jt.integrate(m, s, k, d, None, T, intr, tc)
+    m = m._replace(frame=jnp.int32(5),
+                   weight=m.weight * jnp.asarray(
+                       np.random.default_rng(1).integers(1, 4, (1, 512)),
+                       jnp.float32))
+    mp = convert.map_state_from_numpy([np.asarray(x) for x in
+                                       jax.tree.leaves(m)], device="cpu")
+    _assert_maps_equal(jt.decay(m, 2, 3), pt.decay(mp, 2, 3))
+    mp = convert.map_state_from_numpy([np.asarray(x) for x in
+                                       jax.tree.leaves(m)], device="cpu")
+    _assert_maps_equal(jt.slide_window(m, 4), pt.slide_window(mp, 4))
