@@ -1,14 +1,15 @@
 """Drive the PyTorch/CUDA port (denseslam_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repo root, on a machine with a card
-    python3 chip_smoke.py --profile build/profile  # + profiler tables of one chunk
+    python3 chip_smoke.py --profile build/profile  # + profiler tables of one chunk of each path
     python3 chip_smoke.py --reps 5    # 5 samples of each throughput number
 
 Phases, one JSON line each; any failure raises and exits non-zero:
 
-  1. env / build   card name and power limit, torch and CUDA versions; both
-                   kernels compiled from denseslam_tpu_torch/csrc/ by nvcc.
-  2. kernels       each kernel against its plain PyTorch version at the
+  1. env / build   card name and power limit, torch and CUDA versions; the
+                   kernel sources of denseslam_tpu_torch/csrc/ compiled by
+                   nvcc, all at once (B1 and B2 share one source).
+  2. kernels       B1 and B3 against their plain PyTorch versions at the
                    shapes of the slice: the fusion sampler on the (u, v, z)
                    of a KITTI-scale street frame (V = 8192 blocks), exact;
                    the SGM aggregation on a 370x1226x128 cost volume, exact
@@ -19,10 +20,26 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    configuration; launch counts read around exactly this
                    run; overflow 0; SGM depth scored against the rendered
                    depth; the first 2 frames (fusion) and frame 0 (stereo)
-                   rerun on the CPU and held against the card.
-  4. throughput    frames/s of stereo + fusion and of the fusion tail alone
-                   (the bench.py workload), host clock around work that
-                   ends in a synchronize; the median of --reps samples.
+                   rerun on the CPU and held against the card, and frame
+                   1's fusion intermediates compared between the two.
+  4. kernel (B2)   the true-RGB sampler against its plain version on frame
+                   0 of the RGB-D slice (V = 8192 blocks), exact; times of
+                   kernel, plain version and library call (two torch.take).
+  5. rgbd          the RGB-D throughput path, process_sequence_rgbd, over
+                   48 street frames (3 chunks of 16) at the RGB-D drive
+                   configuration of scripts/long_drive_eval.py with
+                   true-RGB fusion; launch counts read around exactly this
+                   run; B2 once per fused keyframe, overflow 0, tracking on
+                   >= 95% of frames, final position within 3% of the
+                   distance travelled.
+  6. rgbd_cpu_reference  frames 0-4 rerun on the card and on the CPU with
+                   the same RANSAC draws: VO poses within 1 mm / 1e-4 rad;
+                   the CPU fusing with the card's poses gives the card's
+                   keys, weights and colours, tsdf within 1e-6.
+  7. throughput    frames/s of stereo + fusion, of the fusion tail alone
+                   (the bench.py workload) and of the RGB-D path, host
+                   clock around work that ends in a synchronize; the median
+                   of --reps samples.
 
 The line before the last two holds every kernel with its numbers; the
 line before the last is the card's name and power limit as nvidia-smi
@@ -34,6 +51,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -51,6 +69,8 @@ F32_OPS_PER_S = 67e12
 
 CHUNK = 10
 N_CHUNKS = 4
+RGBD_FRAMES = 48
+RGBD_CHUNK = 16
 
 
 def emit(obj) -> None:
@@ -124,6 +144,243 @@ def slice_config():
         stereo=StereoConfig(cost_dtype="bfloat16"))
     return dataclasses.replace(
         cfg, pipeline=dataclasses.replace(cfg.pipeline, fusion_db_capacity=8))
+
+
+def rgbd_config():
+    """The RGB-D drive of scripts/long_drive_eval.py:137-166 (--sensor rgbd)
+    in the port's config classes, with tsdf.gray_color_fusion=False: the
+    fusion samples true RGB through kernel B2."""
+    from denseslam_tpu_torch.config import (PipelineConfig, SlideWindowParams,
+                                            StereoConfig, SystemConfig,
+                                            TsdfConfig, VoxelDecayParams)
+    from denseslam_tpu_torch.utils.camera import Intrinsics, StereoRig
+    w, h = 1226, 370
+    intr = Intrinsics(fx=707.09, fy=707.09, cx=(w - 1) / 2.0,
+                      cy=(h - 1) / 2.0, width=w, height=h)
+    tsdf = TsdfConfig(
+        voxel_size_m=0.06, trunc_dist_m=0.24, table_slots=1 << 17,
+        max_visible_blocks=1 << 13, max_alloc_per_frame=1 << 13,
+        max_depth_m=40.0, sampler="pallas", alloc_subsample=2,
+        gray_color_fusion=False)
+    return SystemConfig(
+        rig=StereoRig(intr=intr, baseline_m=0.537), tsdf=tsdf,
+        stereo=StereoConfig(cost_dtype="bfloat16"),
+        decay=VoxelDecayParams(enabled=True, min_decay_age=30,
+                               max_decay_weight=2),
+        slide_window=SlideWindowParams(enabled=True, max_age=60),
+        pipeline=PipelineConfig(keyframe_every=4, fusion_db_capacity=64,
+                                sensor="rgbd"))
+
+
+def rgbd_frames(cfg, dev, seed: int = 0):
+    """The RGB-D slice's input: 48 street frames along
+    make_trajectory(48, step_m=0.25, yaw_rate=0.003), rendered on the card,
+    under the sensor model of scripts/long_drive_eval.py:50-62, 240-254
+    (gain ramp of amplitude 0.15, photometric noise 2.0, 1% relative depth
+    noise, 5% holes, no depth past max_depth_m), and every frame's RANSAC
+    draws: all of it drawn from one seeded CPU generator."""
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.ops import ransac
+
+    n = RGBD_FRAMES
+    poses = synthetic.make_trajectory(n, step_m=0.25, yaw_rate=0.003)
+    grays, depths = synthetic.render_trajectory(
+        poses, cfg.rig.intr, synthetic.street_scene(), device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(n, dtype=torch.float32)
+    gain = (1.0 + 0.15 * torch.sin(2 * math.pi * t / 150.0))[:, None, None]
+    photo = torch.randn(grays.shape, generator=gen)
+    rel = torch.randn(grays.shape, generator=gen)
+    holes = torch.rand(grays.shape, generator=gen) < 0.05
+    grays = torch.clamp(grays * gain.to(dev) + 2.0 * photo.to(dev), 0, 255)
+    noisy = depths * (1.0 + 0.01 * rel.to(dev))
+    drop = holes.to(dev) | (depths <= 0) | (depths > cfg.tsdf.max_depth_m)
+    depths = torch.where(drop, 0.0, noisy)
+    draws = torch.stack([ransac.draw_hypotheses(cfg.frontend.ransac_iters,
+                                                gen) for _ in range(n)])
+    torch.cuda.synchronize()
+    # on the card before the drive, so that no chunk copies them there
+    draws = draws.to(dev)
+    return dict(poses=poses, grays=grays, depths=depths, draws=draws,
+                fids=torch.arange(n, dtype=torch.int32, device=dev))
+
+
+def check_sampler_rgb(cfg, dev, gpu, fr):
+    """Kernel B2 against its plain version on frame 0 of the RGB-D slice."""
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import sampling
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    depth = dense_slam._depth_mm(fr["depths"][0]).to(torch.float32) * 1e-3
+    T = torch.as_tensor(fr["poses"][0], device=dev)
+    m = tsdf_ops.make_map(tc, device=dev)
+    m, slots, mask = tsdf_ops.allocate_for_frame(m, depth, T, intr, tc)
+    u, v, z, _ = tsdf_ops._fusion_geometry(m, slots, mask, T, intr, tc)
+    z = torch.where(mask[:, None], z, torch.zeros_like(z))
+    img1, img2 = tsdf_ops.rgb_images(depth,
+                                     tsdf_ops.pack_gray(fr["grays"][0]))
+    args = (img1, img2, u, v, z, intr.width, intr.height)
+
+    got = sampling.sample_blocks_rgb(*args)
+    want = sampling.sample_blocks_rgb_plain(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out1", "out2", "flags", "overflow"), got, want):
+        if not torch.equal(a, b):
+            raise AssertionError(f"tile_sample_rgb {name} differs from plain")
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, want))
+
+    ui = sampling.round_i32(u).clamp(0, intr.width - 1)
+    vi = sampling.round_i32(v).clamp(0, intr.height - 1)
+    flat = (vi * intr.width + ui).long()
+    ms = cuda_ms(lambda: sampling.sample_blocks_rgb(*args), 50)
+    plain_ms = cuda_ms(lambda: sampling.sample_blocks_rgb_plain(*args), 10)
+    library_ms = cuda_ms(lambda: (torch.take(img1, flat),
+                                  torch.take(img2, flat)), 50)
+    wrapper_us = host_us(lambda: sampling.sample_blocks_rgb(*args))
+
+    nvox = u.numel()
+    nbytes = (3 * 4 * nvox + 2 * img1.numel() * 4 + nvox * (4 + 4 + 1)
+              + u.shape[0])
+    # kernel 1's 21 operations per voxel and 6 more to unpack and repack
+    bnd, by = bound_ms(nbytes, 27 * nvox)
+    rec = dict(name="tile_sample_rgb", route="cuda",
+               source="denseslam_tpu_torch/csrc/tile_sample.cu",
+               replaces="denseslam_tpu/ops/sampling.py:240",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+               bound_by=by, library_ms=library_ms)
+    emit(dict(phase="kernel", name=rec["name"], shape=list(u.shape),
+              live_blocks=int(mask.sum()), overflow_blocks=int(got[3].sum()),
+              exact=True, kernel_ms=ms, plain_ms=plain_ms,
+              library_ms=library_ms, library="2x torch.take", bytes=nbytes,
+              bound_ms=bnd, bound_by=by, wrapper_host_us=wrapper_us, gpu=gpu))
+    return rec
+
+
+def drive_rgbd(cfg, fr):
+    """process_sequence_rgbd over the frames of `fr`, RGBD_CHUNK at a time,
+    from a fresh state on their device. Returns (map, stats concatenated
+    over the chunks, seconds of the chunks after the first, which is the
+    warm-up; None for a single chunk)."""
+    from denseslam_tpu_torch.models import dense_slam, frontend
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    d = fr["grays"].device
+    n = fr["grays"].shape[0]
+    st = frontend.init_frontend(cfg, device=d)
+    m = tsdf_ops.make_map(cfg.tsdf, device=d)
+    db = dense_slam.make_fusion_db(cfg, device=d)
+    stats, t0 = [], None
+    for c in range(0, n, RGBD_CHUNK):
+        if c == RGBD_CHUNK:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        sl = slice(c, min(c + RGBD_CHUNK, n))
+        st, m, db, s = dense_slam.process_sequence_rgbd(
+            st, m, db, fr["grays"][sl], fr["depths"][sl], fr["fids"][sl],
+            cfg, draws=fr["draws"][sl])
+        stats.append(s)
+    torch.cuda.synchronize()
+    keys = ("T_wc", "tracking_ok", "num_inliers", "fused")
+    out = {k: torch.cat([s[k] for s in stats]) for k in keys}
+    return m, out, (time.perf_counter() - t0 if t0 is not None else None)
+
+
+def run_rgbd(cfg, fr):
+    """The RGB-D main path: 48 frames through process_sequence_rgbd, with
+    the launch counts set to 0 just before and read just after."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    kernels.reset_counts()
+    m, stats, _ = drive_rgbd(cfg, fr)
+    launches = dict(kernels.launch_counts)
+
+    fused = int(stats["fused"].sum())
+    overflow = int(m.overflow)
+    if launches["tile_sample_rgb"] != fused or fused == 0:
+        raise AssertionError(f"B2 launched {launches['tile_sample_rgb']} "
+                             f"times for {fused} fused keyframes")
+    if overflow != 0:
+        raise AssertionError(f"map overflow {overflow}")
+    ok = stats["tracking_ok"].cpu().numpy()
+    track = float(ok[1:].mean())
+    if track < 0.95:
+        raise AssertionError(f"tracking held on {track:.3f} of the frames")
+    T = stats["T_wc"].cpu().numpy()
+    if T.shape != (RGBD_FRAMES, 4, 4) or not np.isfinite(T).all():
+        raise AssertionError("poses have the wrong shape or non-finite values")
+    gt = fr["poses"][:, :3, 3]
+    travelled = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    pos_err = np.linalg.norm(T[:, :3, 3] - gt, axis=1)
+    if pos_err[-1] > 0.03 * travelled:
+        raise AssertionError(f"final position off by {pos_err[-1]:.3f} m "
+                             f"over {travelled:.2f} m")
+    if not torch.isfinite(m.tsdf).all():
+        raise AssertionError("non-finite tsdf")
+    blocks = int(tsdf_ops.num_allocated_blocks(m))
+    colour = tsdf_ops.unpack_rgb(m.color[m.weight > 0])
+    emit(dict(phase="rgbd", frames=RGBD_FRAMES, fused=fused,
+              launches=launches, overflow=overflow, blocks=blocks,
+              decayed_blocks=int(m.decayed_blocks), tracking_ok_share=track,
+              inliers_median=float(np.median(
+                  stats["num_inliers"].cpu().numpy()[1:])),
+              travelled_m=travelled, final_pos_err_m=float(pos_err[-1]),
+              final_pos_err_share=float(pos_err[-1] / travelled),
+              ate_rmse_m=float(np.sqrt((pos_err ** 2).mean())),
+              fused_colour_mean=[float(c.mean()) for c in colour]))
+    return dict(launches=launches, stats=stats)
+
+
+def check_rgbd_against_cpu(cfg, dev, fr):
+    """Frames 0-4 rerun on the card and on the CPU with the same draws: the
+    VO poses agree, and the CPU fusing the card's keyframes at the card's
+    poses rebuilds the card's map."""
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    n = 5
+    cpu = torch.device("cpu")
+    sub = {k: (v[:n] if k != "poses" else v) for k, v in fr.items()}
+    mg, sg, _ = drive_rgbd(cfg, sub)
+    sub_cpu = {k: (v.to(cpu) if isinstance(v, torch.Tensor) else v)
+               for k, v in sub.items()}
+    _, sc, _ = drive_rgbd(cfg, sub_cpu)
+    Tg, Tc = sg["T_wc"].cpu().double(), sc["T_wc"].double()
+    t_err = float((Tg[:, :3, 3] - Tc[:, :3, 3]).norm(dim=-1).max())
+    # the angle of R_card^T R_cpu from its skew part (arccos of the trace
+    # is ill-conditioned at small angles)
+    Rd = Tg[:, :3, :3].transpose(1, 2) @ Tc[:, :3, :3]
+    W = (Rd - Rd.transpose(1, 2)) / 2
+    r_err = float(torch.stack([W[:, 2, 1], W[:, 0, 2], W[:, 1, 0]], -1)
+                  .norm(dim=-1).arcsin().max())
+    if t_err > 1e-3 or r_err > 1e-4:
+        raise AssertionError(f"VO card vs CPU: {t_err} m, {r_err} rad")
+    if not torch.equal(sg["fused"].cpu(), sc["fused"]):
+        raise AssertionError("card and CPU fused different keyframes")
+
+    mc = tsdf_ops.make_map(cfg.tsdf, device=cpu)
+    db = dense_slam.make_fusion_db(cfg, device=cpu)
+    for i in torch.nonzero(sc["fused"]).flatten().tolist():
+        mc, db = dense_slam.fuse_keyframe(
+            mc, db, sub_cpu["depths"][i], sub_cpu["grays"][i],
+            sg["T_wc"][i].cpu(), i, cfg)
+    for name in ("weight", "color"):
+        if not torch.equal(getattr(mg, name).cpu(), getattr(mc, name)):
+            raise AssertionError(f"{name} differs between card and CPU")
+    if not torch.equal(mg.table.keys.cpu(), mc.table.keys):
+        raise AssertionError("hash tables differ between card and CPU")
+    tg = mg.tsdf.cpu()
+    tsdf_err = float((tg - mc.tsdf).abs().max())
+    tsdf_frac = float((tg != mc.tsdf).float().mean())
+    if tsdf_err > 1e-6:
+        raise AssertionError(f"tsdf card vs CPU: {tsdf_err}, {tsdf_frac}")
+    emit(dict(phase="rgbd_cpu_reference", frames=n,
+              fused=int(sc["fused"].sum()), vo_pos_err_m=t_err,
+              vo_rot_err_rad=r_err, tables_equal=True, weights_equal=True,
+              colours_equal=True, tsdf_max_abs_err=tsdf_err,
+              tsdf_frac_differ=tsdf_frac))
 
 
 def check_sampler(cfg, dev, gpu):
@@ -285,8 +542,8 @@ def run_slice(cfg, dev):
         raise AssertionError(f"map overflow {overflow}")
     if blocks <= 0:
         raise AssertionError("no blocks allocated")
-    for name, cnt in launches.items():
-        if cnt <= 0:
+    for name in ("tile_sample", "sgm_path"):     # the kernels of this path
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the path")
     dn = depth.cpu().numpy()
     if dn.shape != tuple(gts.shape) or not np.isfinite(dn).all():
@@ -341,18 +598,66 @@ def check_against_cpu(cfg, dev, run):
     tsdf_frac = float((tg != tcp).float().mean())
     if tsdf_err > 2 ** -7 or tsdf_frac > 1e-3:
         raise AssertionError(f"tsdf card vs CPU: {tsdf_err}, {tsdf_frac}")
+
+    # frame 1's fusion intermediates on both devices, from the card's map
+    # after frame 0: which op, if any, first differs
+    m0 = tsdf_ops.make_map(cfg.tsdf, device=dev)
+    db0 = dense_slam.make_fusion_db(cfg, device=dev)
+    m0, _ = dense_slam.fuse_keyframe(m0, db0, run["depth"][0], run["lefts"][0],
+                                     run["T"][0], 0, cfg)
+    inter = [fusion_intermediates(cfg, clone_map(m0, d), run["depth"][1].to(d),
+                                  run["lefts"][1].to(d), run["T"][1].to(d))
+             for d in (dev, cpu)]
+    differ = {}
+    for key in inter[0]:
+        a, b = inter[0][key].cpu(), inter[1][key]
+        diff = a != b
+        differ[key] = dict(frac=float(diff.float().mean()),
+                           max_abs=float((a.double() - b.double()).abs().max()))
     emit(dict(phase="cpu_reference", stereo_valid_agree=agree,
               stereo_depth_close=close, tables_equal=True,
               weights_equal=True, tsdf_max_abs_err=tsdf_err,
-              tsdf_frac_differ=tsdf_frac))
+              tsdf_frac_differ=tsdf_frac, frame1_intermediates=differ))
 
 
-def throughput(cfg, dev, run, gpu, reps: int):
+def clone_map(m, device):
+    """A copy of map `m` on `device`."""
+    from denseslam_tpu_torch.ops import hash as vhash
+    return m._replace(table=vhash.HashTable(keys=m.table.keys.to(device,
+                                                                 copy=True)),
+                      **{f: getattr(m, f).to(device, copy=True)
+                         for f in m._fields if f != "table"})
+
+
+def fusion_intermediates(cfg, m, depth, gray, T):
+    """The intermediate values of ops/tsdf.py `integrate` for one frame
+    fused into map `m` (changed in place), as fuse_keyframe computes them,
+    plus eta with the truncation distance divided as a Python number."""
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    depth = dense_slam._depth_mm(depth).to(torch.float32) * 1e-3
+    color = tsdf_ops.pack_gray(gray)
+    m, slots, mask = tsdf_ops.allocate_for_frame(m, depth, T, intr, tc)
+    u, v, z, safe = tsdf_ops._fusion_geometry(m, slots, mask, T, intr, tc)
+    d_samp, d_valid, _, _ = tsdf_ops._sample(u, v, z, mask, depth, color,
+                                             intr, tc, m)
+    sdf = d_samp - z
+    out = dict(slots=slots, u=u, v=v, z=z, d_samp=d_samp, sdf=sdf,
+               eta=tsdf_ops._true_div(sdf, tc.trunc_dist_m),
+               eta_python_divisor=sdf / tc.trunc_dist_m)
+    m = tsdf_ops.integrate(m, slots, mask, depth, color, T, intr, tc)
+    rows = safe.long()
+    out.update(weight=m.weight[rows].float(), tsdf=m.tsdf[rows].float())
+    return out
+
+
+def throughput(cfg, dev, run, gpu, reps: int, rgbd_cfg, rgbd_fr):
     """Frames/s on the host clock around work that ends in a synchronize:
-    stereo + fusion over chunks 2-4 of the slice's frames, and the fusion
+    stereo + fusion over chunks 2-4 of the slice's frames, the fusion
     tail alone on bench.py's workload (10 rendered street frames fused
-    over and over, 3 warm-up chunks, 12 timed). `reps` samples of each,
-    taken in turns."""
+    over and over, 3 warm-up chunks, 12 timed), and the RGB-D path over
+    chunks 2-3 of its 48 frames. `reps` samples of each, taken in turns."""
     from denseslam_tpu_torch.io import synthetic
     from denseslam_tpu_torch.models import dense_slam
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
@@ -381,24 +686,69 @@ def throughput(cfg, dev, run, gpu, reps: int):
             raise AssertionError(f"map overflow {int(m.overflow)}")
         return timed * CHUNK / dt
 
-    samples = {"stereo_fusion": [], "fusion_tail": []}
+    samples = {"stereo_fusion": [], "fusion_tail": [], "rgbd": []}
     for _ in range(reps):
         samples["stereo_fusion"].append(
             CHUNK * (N_CHUNKS - 1) / drive(cfg, dev, run)[2])
         samples["fusion_tail"].append(fusion_fps())
+        samples["rgbd"].append(
+            (RGBD_FRAMES - RGBD_CHUNK) / drive_rgbd(rgbd_cfg, rgbd_fr)[2])
     q = {k: np.percentile(v, [25, 50, 75]).tolist() for k, v in samples.items()}
     emit(dict(phase="throughput", unit="frames/s",
               stereo_fusion_fps=q["stereo_fusion"][1],
-              fusion_tail_fps=q["fusion_tail"][1], quartiles=q,
-              samples=samples, gpu=gpu))
+              fusion_tail_fps=q["fusion_tail"][1], rgbd_fps=q["rgbd"][1],
+              quartiles=q, samples=samples, gpu=gpu))
+
+
+def profile_part(part: str, frames: int, fn, state, out: str):
+    """Run `fn(state) -> state` once to warm up, then once under
+    torch.profiler. Device time is the sum of the kernels' own times; the
+    table goes to <out>/profile_<part>.txt. Returns the state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state = fn(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = fn(state)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = prof.key_averages()
+    kernels = [e for e in rows
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    attr = ("self_device_time_total"
+            if kernels and hasattr(kernels[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    kernels.sort(key=lambda e: -getattr(e, attr))
+    device_ms = sum(getattr(e, attr) for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+    # the host waits for the card in these runtime calls (a value read
+    # back, a blocking copy); not counted: the closing synchronize and the
+    # one the profiler makes when it starts
+    runtime = {e.key: e.count for e in rows if e.key.startswith("cuda")}
+    syncs = sum(runtime.get(k, 0) for k in (
+        "cudaStreamSynchronize", "cudaDeviceSynchronize",
+        "cudaEventSynchronize", "cudaMemcpy")) - 2
+    with open(os.path.join(out, f"profile_{part}.txt"), "w") as fh:
+        fh.write(rows.table(sort_by="self_cuda_time_total", row_limit=60))
+    emit(dict(phase="profile", part=part, frames=frames, wall_ms=wall_ms,
+              device_ms=device_ms, device_busy_share=device_ms / wall_ms,
+              launches=launches, host_syncs=syncs,
+              scalar_reads=sum(e.count for e in rows
+                               if e.key == "aten::_local_scalar_dense"),
+              runtime_calls=runtime,
+              per_frame=dict(device_ms=device_ms / frames,
+                             launches=launches / frames,
+                             host_syncs=syncs / frames),
+              top=[dict(name=e.key[:80], ms=getattr(e, attr) / 1e3,
+                        calls=e.count) for e in kernels[:8]]))
+    return state
 
 
 def profile_chunk(cfg, dev, run, out: str):
     """torch.profiler over one chunk (10 frames), three ways: stereo alone,
-    fusion alone, and both. Device time is the sum of the kernels' own
-    times; the tables go to <out>/profile_<part>.txt."""
-    from torch.profiler import ProfilerActivity, profile
-
+    fusion alone, and both."""
     from denseslam_tpu_torch.models import dense_slam
     from denseslam_tpu_torch.ops import stereo
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
@@ -417,37 +767,108 @@ def profile_chunk(cfg, dev, run, out: str):
         return dense_slam.fuse_sequence(m, db, d, run["lefts"][sl],
                                         run["T"][sl], run["fids"][sl], cfg)
 
-    parts = {"stereo": lambda m, db: (depths(), m, db)[1:],
-             "fusion": lambda m, db: fuse(m, db, depth),
-             "stereo_fusion": lambda m, db: fuse(m, db, depths())}
+    parts = {"stereo": lambda st: (depths(), st)[1],
+             "fusion": lambda st: fuse(*st, depth),
+             "stereo_fusion": lambda st: fuse(*st, depths())}
     os.makedirs(out, exist_ok=True)
+    state = (m, db)
     for part, fn in parts.items():
-        m, db = fn(m, db)
+        state = profile_part(part, CHUNK, fn, state, out)
+
+
+def profile_rgbd_chunk(cfg, dev, fr, poses, out: str):
+    """torch.profiler over the first RGB-D chunk (16 frames), three ways:
+    the VO alone (rgbd_vo_step from a fresh state), the fusion alone
+    (fuse_keyframe of the chunk's keyframes at the VO's poses `poses`), and
+    process_sequence_rgbd."""
+    from denseslam_tpu_torch.models import dense_slam, frontend
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    sl = slice(0, RGBD_CHUNK)
+    g, d, fids, draws = (fr[k][sl] for k in ("grays", "depths", "fids",
+                                              "draws"))
+    kf = range(0, RGBD_CHUNK, cfg.pipeline.keyframe_every)
+
+    def vo(state):
+        st = frontend.init_frontend(cfg, device=dev)
+        for i in range(RGBD_CHUNK):
+            st, _ = frontend.rgbd_vo_step(st, g[i], d[i], cfg, raw=draws[i])
+        return state
+
+    def fusion(state):
+        m, db = state
+        for i in kf:
+            m, db = dense_slam.fuse_keyframe(m, db, d[i], g[i], poses[i],
+                                             fids[i], cfg)
+        return m, db
+
+    def both(state):
+        m, db = state
+        st = frontend.init_frontend(cfg, device=dev)
+        _, m, db, _ = dense_slam.process_sequence_rgbd(st, m, db, g, d, fids,
+                                                       cfg, draws=draws)
+        return m, db
+
+    state = (tsdf_ops.make_map(cfg.tsdf, device=dev),
+             dense_slam.make_fusion_db(cfg, device=dev))
+    for part, fn in (("rgbd_vo", vo), ("rgbd_fusion", fusion),
+                     ("rgbd", both)):
+        state = profile_part(part, RGBD_CHUNK, fn, state, out)
+    profile_vo_stages(vo)
+
+
+def profile_vo_stages(vo):
+    """The VO's device time and kernel launches by stage: one profiled run
+    of `vo` (16 rgbd_vo_step calls) with each stage function of
+    models/frontend.py wrapped in a profiler range."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from denseslam_tpu_torch.models import frontend
+
+    stages = [(frontend.feat_ops, "detect"), (frontend.feat_ops, "bucket"),
+              (frontend.matching, "predict_uv"),
+              (frontend.matching, "match_temporal"),
+              (frontend.matching, "refine_temporal_subpix"),
+              (frontend.matching, "remove_outliers"),
+              (frontend.ransac, "estimate_stereo_motion")]
+    saved = [getattr(mod, name) for mod, name in stages]
+
+    def labelled(name, fn):
+        def run(*args, **kwargs):
+            with record_function("vo." + name):
+                return fn(*args, **kwargs)
+        return run
+
+    try:
+        for (mod, name), fn in zip(stages, saved):
+            setattr(mod, name, labelled(name, fn))
+        vo(None)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            m, db = fn(m, db)
+            vo(None)
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = prof.key_averages()
-        kernels = [e for e in rows
-                   if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        attr = ("self_device_time_total"
-                if kernels and hasattr(kernels[0], "self_device_time_total")
-                else "self_cuda_time_total")
-        kernels.sort(key=lambda e: -getattr(e, attr))
-        device_ms = sum(getattr(e, attr) for e in kernels) / 1e3
-        with open(os.path.join(out, f"profile_{part}.txt"), "w") as fh:
-            fh.write(rows.table(sort_by="self_cuda_time_total", row_limit=60))
-        emit(dict(phase="profile", part=part, frames=CHUNK, wall_ms=wall_ms,
-                  device_ms=device_ms,
-                  device_busy_share=device_ms / wall_ms,
-                  launches=sum(e.count for e in kernels),
-                  host_syncs=sum(e.count for e in rows
-                                 if e.key == "aten::_local_scalar_dense"),
-                  top=[dict(name=e.key[:80], ms=getattr(e, attr) / 1e3,
-                            calls=e.count) for e in kernels[:8]]))
+    finally:
+        for (mod, name), fn in zip(stages, saved):
+            setattr(mod, name, fn)
+
+    def kernels_under(ev):
+        ks = list(ev.kernels)
+        for child in ev.cpu_children:
+            ks += kernels_under(child)
+        return ks
+
+    by_stage = {}
+    for ev in prof.events():
+        if ev.name.startswith("vo."):
+            ks = kernels_under(ev)
+            acc = by_stage.setdefault(ev.name[3:], [0.0, 0])
+            acc[0] += sum(k.duration for k in ks) / 1e3
+            acc[1] += len(ks)
+    emit(dict(phase="profile", part="rgbd_vo_stages", frames=RGBD_CHUNK,
+              per_frame={k: dict(device_ms=v[0] / RGBD_CHUNK,
+                                 launches=v[1] / RGBD_CHUNK)
+                         for k, v in by_stage.items()}))
 
 
 def main(argv=None) -> int:
@@ -481,9 +902,20 @@ def main(argv=None) -> int:
     for rec in recs:
         rec["launches"] = run["launches"][rec["name"]]
     check_against_cpu(cfg, dev, run)
-    throughput(cfg, dev, run, gpu, args.reps)
+
+    rcfg = rgbd_config()
+    fr = rgbd_frames(rcfg, dev)
+    rec = check_sampler_rgb(rcfg, dev, gpu, fr)
+    rgbd = run_rgbd(rcfg, fr)
+    rec["launches"] = rgbd["launches"][rec["name"]]
+    recs.append(rec)
+    check_rgbd_against_cpu(rcfg, dev, fr)
+
+    throughput(cfg, dev, run, gpu, args.reps, rcfg, fr)
     if args.profile:
         profile_chunk(cfg, dev, run, args.profile)
+        profile_rgbd_chunk(rcfg, dev, fr, rgbd["stats"]["T_wc"],
+                           args.profile)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

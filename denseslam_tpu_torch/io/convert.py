@@ -4,6 +4,9 @@ A map is the sequence of its leaves in the JAX `MapState` order —
 table.keys, tsdf, weight, color, alloc_frame, last_seen, frame,
 decayed_blocks, overflow — the order io/checkpoint.py of the JAX package
 writes. A fusion DB is depth, gray, T_fused, frame_id, valid, head.
+Features are uv, cls, desc, score, valid; a frontend state is the leaves
+of the JAX `FrontendState` (`jax.tree.leaves` order), whose PRNG key the
+port does not keep.
 
 bf16 planes arrive as `ml_dtypes.bfloat16` arrays or as their uint16 bits
 and are reinterpreted bit for bit; they leave as uint16 bits (the
@@ -23,6 +26,8 @@ import torch
 from ..config import SystemConfig
 from ..device import resolve_device
 from ..models.dense_slam import FusionDB
+from ..models.frontend import FrontendState
+from ..ops.features import Features
 from ..ops.hash import HashTable
 from ..ops.tsdf import MapState
 from ..utils.camera import Intrinsics, StereoRig
@@ -105,6 +110,53 @@ def fusion_db_to_numpy(db: FusionDB) -> List[np.ndarray]:
         depth = depth.astype(np.uint16)
     return [depth, gray, cpu(db.T_fused), cpu(db.frame_id).astype(np.int32),
             cpu(db.valid), cpu(db.head).astype(np.int32)]
+
+
+_FEATURE_DTYPES = (torch.float32, torch.int32, torch.float32, torch.float32,
+                   torch.bool)
+
+
+def features_from_numpy(leaves: Sequence, device=None) -> Features:
+    """JAX Features leaves (uv, cls, desc, score, valid) -> port Features."""
+    dev = resolve_device(device)
+    return Features(*(torch.tensor(np.asarray(a), dtype=dt, device=dev)
+                      for a, dt in zip(leaves, _FEATURE_DTYPES)))
+
+
+def features_to_numpy(f: Features) -> List[np.ndarray]:
+    return [t.detach().cpu().numpy() for t in f]
+
+
+# FrontendState's fields after the two feature sets, in the JAX order;
+# the JAX state has its PRNG key between prior_ok and frame
+_STATE_DTYPES = (("disp_l", torch.float32), ("disp_r", torch.float32),
+                 ("T_wc", torch.float32), ("T_delta_prev", torch.float32),
+                 ("initialized", torch.bool), ("prior_ok", torch.bool),
+                 ("frame", torch.int32), ("img_l", torch.float32),
+                 ("img_r", torch.float32), ("exposure", torch.float32))
+_KEY_AT = 16
+
+
+def frontend_state_from_numpy(leaves: Sequence, device=None) -> FrontendState:
+    """JAX FrontendState leaves (numpy, key included) -> port state; the
+    key is dropped (the port takes its RANSAC draws as an argument)."""
+    dev = resolve_device(device)
+    leaves = list(leaves)
+    rest = leaves[10:_KEY_AT] + leaves[_KEY_AT + 1:]
+    return FrontendState(
+        feats_l=features_from_numpy(leaves[:5], dev),
+        feats_r=features_from_numpy(leaves[5:10], dev),
+        **{name: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+           for (name, dt), a in zip(_STATE_DTYPES, rest)})
+
+
+def frontend_state_to_numpy(st: FrontendState, key) -> List[np.ndarray]:
+    """Port state -> JAX FrontendState leaves, with `key` (numpy) in the
+    key's place."""
+    rest = [getattr(st, name).detach().cpu().numpy()
+            for name, _ in _STATE_DTYPES]
+    leaves = features_to_numpy(st.feats_l) + features_to_numpy(st.feats_r)
+    return leaves + rest[:6] + [np.asarray(key)] + rest[6:]
 
 
 def _rig(v) -> StereoRig:

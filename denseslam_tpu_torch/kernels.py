@@ -42,11 +42,13 @@ NVCC_FLAGS = [
 # p = device pointer, i = int, f = float; the stream is appended.
 KERNELS = {
     "tile_sample": ("tile_sample.cu", "tile_sample_launch", "piiiipppippp"),
+    "tile_sample_rgb": ("tile_sample.cu", "tile_sample_rgb_launch",
+                        "ppiiiipppipppp"),
     "sgm_path": ("sgm.cu", "sgm_path_launch", "ppppiiiiiiffi"),
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}
-_libs: Dict[str, ctypes.CDLL] = {}
+_fns: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_counts() -> None:
@@ -73,19 +75,19 @@ def _lib_path(src: str) -> Path:
 
 def build_all() -> Dict[str, float]:
     """Compile every kernel source that has no up-to-date library yet, all
-    nvcc processes started together. Returns {kernel: seconds} for the
+    nvcc processes started together. Returns {source: seconds} for the
     ones built; the ptxas report of each lands beside it as `.log`."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for name, (src, _, _) in KERNELS.items():
+    for src in sorted({src for src, _, _ in KERNELS.values()}):
         out = _lib_path(src)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         log = open(out.with_suffix(".log"), "w")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[name] = (subprocess.Popen(cmd, stdout=log,
+        procs[src] = (subprocess.Popen(cmd, stdout=log,
                                         stderr=subprocess.STDOUT),
                        time.perf_counter(), tmp, out, log)
     built = {}
@@ -101,21 +103,22 @@ def build_all() -> Dict[str, float]:
     return built
 
 
-def _library(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
-    if lib is not None:
-        return lib
+def _entry(name: str):
+    """The C entry point of kernel `name`, its library built and loaded at
+    first use."""
+    fn = _fns.get(name)
+    if fn is not None:
+        return fn
     src, fn_name, codes = KERNELS[name]
     path = _lib_path(src)
     if not path.exists():
         build_all()
-    lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, fn_name)
+    fn = getattr(ctypes.CDLL(str(path)), fn_name)
     types = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
     fn.argtypes = [types[c] for c in codes] + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    _libs[name] = lib
-    return lib
+    _fns[name] = fn
+    return fn
 
 
 def check_tensor(t: torch.Tensor, name: str, dtype, shape,
@@ -137,8 +140,8 @@ def check_tensor(t: torch.Tensor, name: str, dtype, shape,
 def launch(name: str, device: torch.device, *args) -> None:
     """Launch kernel `name` on the current stream of `device`; tensors pass
     as pointers (None as a null pointer). Raises on a launch error."""
-    src, fn_name, codes = KERNELS[name]
-    fn = getattr(_library(name), fn_name)
+    codes = KERNELS[name][2]
+    fn = _entry(name)
     if len(args) != len(codes):
         raise TypeError(f"{name}: {len(args)} arguments, expected {len(codes)}")
     conv = []

@@ -1,6 +1,7 @@
-"""Dense-mapping step of the pipeline (port of the fusion tail of
-denseslam_tpu/models/dense_slam.py): the fused-keyframe DB and
-`fuse_keyframe` / `fuse_sequence`.
+"""The pipeline's device programs (port of part of
+denseslam_tpu/models/dense_slam.py): the fused-keyframe DB,
+`fuse_keyframe` / `fuse_sequence`, and the RGB-D throughput path
+`process_sequence_rgbd`.
 
 The JAX package donates map and DB to each step; here both are updated in
 place and returned.
@@ -8,13 +9,17 @@ place and returned.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import SystemConfig
 from ..device import resolve_device
+from ..ops import features as feat_ops
+from ..ops import ransac
 from ..ops import tsdf as tsdf_ops
+from . import frontend as fe
+from .backend import signature_device
 
 
 class FusionDB(NamedTuple):
@@ -130,3 +135,74 @@ def fuse_sequence(m: tsdf_ops.MapState, db: FusionDB, depths, grays, T_wcs,
         m, db = fuse_keyframe(m, db, depths[i], grays[i], T_wcs[i],
                               frame_ids[i], cfg)
     return m, db
+
+
+def _virtual_right_features(feats_l: feat_ops.Features,
+                            disp: torch.Tensor) -> feat_ops.Features:
+    """Virtual right-view features from per-feature (virtual) disparity:
+    the RGB-D sensor's depth in the backend's stereo currency."""
+    ok = disp > 0.5
+    uv_r = feats_l.uv - torch.stack(
+        [torch.clamp(disp, min=0.5), torch.zeros_like(disp)], dim=-1)
+    return feats_l._replace(uv=uv_r, valid=feats_l.valid & ok)
+
+
+def _stack_features(fs) -> feat_ops.Features:
+    return feat_ops.Features(*(torch.stack(x) for x in zip(*fs)))
+
+
+def process_sequence_rgbd(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
+                          db: FusionDB, grays: torch.Tensor,
+                          depths: torch.Tensor, frame_ids: torch.Tensor,
+                          cfg: SystemConfig,
+                          draws: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None):
+    """RGB-D throughput path: per frame `rgbd_vo_step`, then, on keyframes
+    where tracking holds, `fuse_keyframe` of the sensor depth (no stereo
+    matcher runs). grays / depths (N, H, W), frame_ids (N,) int32.
+
+    draws (N, K, 3) are the per-frame RANSAC draws; when None they are
+    drawn, all at once, from `generator` (K = cfg.frontend.ransac_iters).
+    Draws that are not on the frames' device are copied there once; a copy
+    from the host waits for the card, so keep them (or the generator) on
+    the card.
+
+    The JAX version is one `lax.scan` with a `lax.cond` on the keyframe
+    test; here that test is the one value read back to the host per frame.
+
+    Returns (fe_state, map, db, stats): stats hold T_wc, tracking_ok,
+    num_inliers, fused, feats_l, feats_r and sig, stacked over frames."""
+    n = grays.shape[0]
+    dev = grays.device
+    if draws is None:
+        if generator is None:
+            raise ValueError("process_sequence_rgbd needs `draws` or a "
+                             "torch.Generator")
+        draws = torch.stack([ransac.draw_hypotheses(
+            cfg.frontend.ransac_iters, generator) for _ in range(n)])
+    draws = draws.to(dev)
+    every = cfg.pipeline.keyframe_every
+    per_frame = []
+    for i in range(n):
+        g, d, fid = grays[i], depths[i], frame_ids[i]
+        fe_state, vo = fe.rgbd_vo_step(fe_state, g, d, cfg, raw=draws[i])
+        is_kf = vo.tracking_ok & (torch.remainder(fid, every) == 0)
+        if bool(is_kf):                  # the frame's one host read
+            m, db = fuse_keyframe(m, db, d, g, vo.T_wc, fid, cfg)
+        per_frame.append(dict(
+            T_wc=vo.T_wc,
+            tracking_ok=vo.tracking_ok,
+            num_inliers=vo.num_inliers,
+            fused=is_kf,
+            feats_l=fe_state.feats_l,
+            feats_r=_virtual_right_features(fe_state.feats_l,
+                                            fe_state.disp_l),
+            sig=signature_device(fe_state.feats_l),
+        ))
+    stats = {}
+    for key in per_frame[0]:
+        vals = [f[key] for f in per_frame]
+        stats[key] = (_stack_features(vals)
+                      if isinstance(vals[0], feat_ops.Features)
+                      else torch.stack(vals))
+    return fe_state, m, db, stats

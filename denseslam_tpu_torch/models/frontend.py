@@ -1,0 +1,178 @@
+"""Sparse VO frontend as a state machine (port of
+denseslam_tpu/models/frontend.py): the state, `init_frontend` and the RGB-D
+step `rgbd_vo_step`. The stereo `vo_step` comes with the stereo VO
+(ROADMAP.md Queue A, A4).
+
+The JAX state carries a PRNG key for the RANSAC draws; here the draws are
+an argument of the step, or come from a `torch.Generator` the caller
+passes, so the state has no key. No function here reads a value back to
+the host.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from ..config import SystemConfig
+from ..device import resolve_device
+from ..ops import features as feat_ops
+from ..ops import matching, ransac
+from ..utils import lie
+
+
+class FrontendState(NamedTuple):
+    feats_l: feat_ops.Features   # previous-frame left features
+    feats_r: feat_ops.Features   # previous-frame right features
+    disp_l: torch.Tensor         # (N,) prev-left disparity, -1 invalid
+    disp_r: torch.Tensor         # (N,) prev-right disparity, -1 invalid
+    T_wc: torch.Tensor           # current camera-to-world estimate
+    T_delta_prev: torch.Tensor   # last inter-frame motion
+    initialized: torch.Tensor    # bool () has a previous frame
+    prior_ok: torch.Tensor       # bool () last RANSAC succeeded
+    frame: torch.Tensor          # i32 () frame counter
+    img_l: torch.Tensor          # (H, W) previous left image
+    img_r: torch.Tensor          # (H, W) previous right image
+    exposure: torch.Tensor       # f32 () exposure compensation
+
+
+class VOOutput(NamedTuple):
+    T_wc: torch.Tensor
+    T_delta: torch.Tensor        # prev-cam -> curr-cam
+    num_inliers: torch.Tensor
+    num_quads: torch.Tensor
+    tracking_ok: torch.Tensor    # bool ()
+    flow_uv_prev: torch.Tensor   # (M, 2)
+    flow_uv_curr: torch.Tensor   # (M, 2)
+    flow_valid: torch.Tensor     # (M,)
+
+
+def _empty_features(cfg: SystemConfig, dev) -> feat_ops.Features:
+    n = cfg.frontend.max_features
+    return feat_ops.Features(
+        uv=torch.zeros((n, 2), dtype=torch.float32, device=dev),
+        cls=torch.zeros((n,), dtype=torch.int32, device=dev),
+        desc=torch.zeros((n, feat_ops.desc_dim(cfg.frontend)),
+                         dtype=torch.float32, device=dev),
+        score=torch.zeros((n,), dtype=torch.float32, device=dev),
+        valid=torch.zeros((n,), dtype=torch.bool, device=dev),
+    )
+
+
+def init_frontend(cfg: SystemConfig, T_init: Optional[torch.Tensor] = None,
+                  device=None) -> FrontendState:
+    """Fresh state on `device` (None = the CUDA card; raises without one)."""
+    dev = resolve_device(device)
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    n = cfg.frontend.max_features
+    h, w = cfg.rig.intr.height, cfg.rig.intr.width
+    return FrontendState(
+        feats_l=_empty_features(cfg, dev),
+        feats_r=_empty_features(cfg, dev),
+        disp_l=torch.full((n,), -1.0, device=dev),
+        disp_r=torch.full((n,), -1.0, device=dev),
+        T_wc=eye if T_init is None else T_init.to(dev, torch.float32),
+        T_delta_prev=eye,
+        initialized=torch.zeros((), dtype=torch.bool, device=dev),
+        prior_ok=torch.zeros((), dtype=torch.bool, device=dev),
+        frame=torch.zeros((), dtype=torch.int32, device=dev),
+        img_l=torch.zeros((h, w), dtype=torch.float32, device=dev),
+        img_r=torch.zeros((h, w), dtype=torch.float32, device=dev),
+        exposure=torch.ones((), dtype=torch.float32, device=dev),
+    )
+
+
+def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
+                 depth: torch.Tensor, cfg: SystemConfig,
+                 raw: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[FrontendState, VOOutput]:
+    """One frame of RGB-D VO: the depth image synthesises virtual right-view
+    observations (disparity = fx * B / Z at each feature), so temporal
+    matching, flow consensus and the 4-way-reprojection RANSAC run as on
+    the stereo quad problem. `raw` / `generator`: the RANSAC draws (see
+    ops/ransac.py)."""
+    fc = cfg.frontend
+    intr = cfg.rig.intr
+    f_lc = feat_ops.detect(gray, fc)
+    f_lc = feat_ops.bucket(f_lc, intr.width, intr.height, fc)
+
+    # virtual disparity of the current features from the depth image
+    ui = torch.clamp(torch.round(f_lc.uv[:, 0]).to(torch.int32), 0,
+                     intr.width - 1)
+    vi = torch.clamp(torch.round(f_lc.uv[:, 1]).to(torch.int32), 0,
+                     intr.height - 1)
+    z = depth.reshape(-1)[(vi * intr.width + ui).long()]
+    disp_lc = torch.where(f_lc.valid & (z > 0.1),
+                          intr.fx * cfg.rig.baseline_m / torch.clamp(z, min=0.1),
+                          -1.0)
+
+    if fc.use_motion_prior_gate:
+        trusted = state.initialized & state.prior_ok
+        pred, pok = matching.predict_uv(
+            state.feats_l.uv, torch.where(trusted, state.disp_l, -1.0),
+            state.T_delta_prev, intr.fx, intr.fy, intr.cx, intr.cy,
+            cfg.rig.baseline_m)
+        m = matching.match_temporal(f_lc, state.feats_l, fc, pred, pok)
+    else:
+        m = matching.match_temporal(f_lc, state.feats_l, fc)
+
+    n = f_lc.uv.shape[0]
+    i_lc = torch.arange(n, dtype=torch.int32, device=gray.device)
+    ok = (m >= 0) & f_lc.valid & (disp_lc > 0.5)
+    mi = torch.clamp(m, min=0).long()
+    disp_lp = state.disp_l[mi]
+    ok = ok & (disp_lp > 0.5)
+    uv_lp = state.feats_l.uv[mi]
+    uv_lc_m = f_lc.uv
+    if fc.subpixel_refine:
+        # temporal leg only: the right views are virtual
+        uv_lc_m = matching.refine_temporal_subpix(
+            state.img_l, gray, uv_lp, f_lc.uv, ok, fc,
+            disp_prev=disp_lp, T_pred=state.T_delta_prev, rig=cfg.rig)
+    zc = torch.zeros_like(disp_lc)
+    q = matching.QuadMatches(
+        idx_lc=i_lc, idx_rc=i_lc, idx_lp=m, idx_rp=m,
+        uv_lc=uv_lc_m,
+        uv_rc=uv_lc_m - torch.stack([disp_lc, zc], dim=-1),
+        uv_lp=uv_lp,
+        uv_rp=uv_lp - torch.stack([disp_lp, zc], dim=-1),
+        valid=ok,
+    )
+    q = matching.remove_outliers(q, fc)
+    res = ransac.estimate_stereo_motion(q, cfg.rig, fc, raw=raw,
+                                        T_init=state.T_delta_prev,
+                                        generator=generator)
+
+    use_est = state.initialized & res.ok
+    T_delta = torch.where(use_est, res.T_delta, state.T_delta_prev)
+    T_delta = torch.where(state.initialized, T_delta,
+                          torch.eye(4, dtype=torch.float32, device=gray.device))
+    T_wc = state.T_wc @ lie.inv_T(T_delta)
+
+    new_state = FrontendState(
+        feats_l=f_lc,
+        feats_r=state.feats_r,
+        disp_l=disp_lc,
+        disp_r=state.disp_r,
+        T_wc=T_wc,
+        T_delta_prev=T_delta,
+        initialized=torch.ones((), dtype=torch.bool, device=gray.device),
+        prior_ok=use_est,
+        frame=(state.frame + 1).to(torch.int32),
+        img_l=gray,
+        img_r=state.img_r,
+        exposure=state.exposure,
+    )
+    out = VOOutput(
+        T_wc=T_wc,
+        T_delta=T_delta,
+        num_inliers=res.num_inliers,
+        num_quads=q.valid.to(torch.int32).sum().to(torch.int32),
+        tracking_ok=use_est | ~state.initialized,
+        flow_uv_prev=q.uv_lp,
+        flow_uv_curr=q.uv_lc,
+        flow_valid=q.valid & state.initialized,
+    )
+    return new_state, out

@@ -1,0 +1,305 @@
+"""Descriptor matching, the temporal half (port of
+denseslam_tpu/ops/matching.py): the squared-L2 cost matrix as one matmul,
+mutual nearest neighbours, the motion-prior gate, neighbourhood flow
+consensus, and subpixel refinement of the temporal leg by bilinear patch
+correlation.
+
+The stereo half (`quad_match`, `match_stereo`, `refine_quad_subpix`,
+`estimate_gain`) comes with the stereo VO (ROADMAP.md Queue A, A4).
+
+The cost matrices are float32 matmuls (TF32 off); they sum in another
+order than XLA:CPU, so a near-tie argmin can pick the other neighbour
+(tests/test_torch_matching.py states the agreement rates).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import FrontendConfig
+from .features import Features
+
+_INF = 1e9
+
+
+def _pair_cost(a: Features, b: Features) -> torch.Tensor:
+    """Squared L2 descriptor distance (Na, Nb)."""
+    dots = a.desc @ b.desc.T
+    na = (a.desc * a.desc).sum(dim=-1)
+    nb = (b.desc * b.desc).sum(dim=-1)
+    return na[:, None] + nb[None, :] - 2.0 * dots
+
+
+def mutual_nn(cost: torch.Tensor) -> torch.Tensor:
+    """Mutual nearest neighbour: (Na,) index into b, -1 when unmatched.
+    argmin keeps the first minimum, as jnp.argmin does."""
+    fwd = torch.argmin(cost, dim=1)
+    bwd = torch.argmin(cost, dim=0)
+    best = torch.gather(cost, 1, fwd[:, None])[:, 0]
+    rows = torch.arange(cost.shape[0], device=cost.device)
+    ok = (best < _INF * 0.5) & (bwd[fwd] == rows)
+    return torch.where(ok, fwd, -1).to(torch.int32)
+
+
+class QuadMatches(NamedTuple):
+    """Circularly-consistent quad matches, indexed by current-left feature."""
+    idx_lc: torch.Tensor  # i32 (M,) index into curr-left features
+    idx_rc: torch.Tensor  # i32 (M,)
+    idx_lp: torch.Tensor  # i32 (M,)
+    idx_rp: torch.Tensor  # i32 (M,)
+    uv_lc: torch.Tensor   # f32 (M, 2)
+    uv_rc: torch.Tensor
+    uv_lp: torch.Tensor
+    uv_rp: torch.Tensor
+    valid: torch.Tensor   # bool (M,)
+
+
+def flow_consensus(uv: torch.Tensor, flow_u: torch.Tensor,
+                   flow_v: torch.Tensor, disp: Optional[torch.Tensor],
+                   valid: torch.Tensor, k: int, tol_flow: float,
+                   tol_disp: float, min_support: int) -> torch.Tensor:
+    """Neighbourhood flow-consensus inlier mask (M,): a match survives when
+    >= min_support of its k nearest matched neighbours in the image agree
+    in flow (and disparity) within tolerance. k rounds of argmin-extract,
+    as the JAX version does."""
+    m = uv.shape[0]
+    d2 = (uv * uv).sum(dim=-1)
+    dist = d2[:, None] + d2[None, :] - 2.0 * (uv @ uv.T)
+    ok = valid[:, None] & valid[None, :]
+    dist = torch.where(ok, dist, _INF)
+    eye = torch.eye(m, dtype=torch.bool, device=uv.device)
+    dist = torch.where(eye, _INF, dist)
+    support = torch.zeros((m,), dtype=torch.int32, device=uv.device)
+    for round_i in range(k):
+        nbr = torch.argmin(dist, dim=1)
+        best = torch.gather(dist, 1, nbr[:, None])[:, 0]
+        nbr_ok = best < _INF * 0.5
+        du = (flow_u - flow_u[nbr]).abs()
+        dv = (flow_v - flow_v[nbr]).abs()
+        agree = nbr_ok & (du <= tol_flow) & (dv <= tol_flow)
+        if disp is not None:
+            agree = agree & ((disp - disp[nbr]).abs() <= tol_disp)
+        support = support + agree.to(torch.int32)
+        if round_i + 1 < k:
+            dist = dist.scatter(1, nbr[:, None], _INF)
+    return valid & (support >= min_support)
+
+
+def remove_outliers(q: QuadMatches, cfg: FrontendConfig) -> QuadMatches:
+    """Flow + disparity consensus over quad matches."""
+    if not cfg.outlier_removal:
+        return q
+    keep = flow_consensus(
+        q.uv_lc,
+        q.uv_lc[:, 0] - q.uv_lp[:, 0],
+        q.uv_lc[:, 1] - q.uv_lp[:, 1],
+        q.uv_lc[:, 0] - q.uv_rc[:, 0],
+        q.valid,
+        k=cfg.outlier_knn,
+        tol_flow=cfg.outlier_flow_tol_px,
+        tol_disp=cfg.outlier_disp_tol_px,
+        min_support=cfg.outlier_min_support,
+    )
+    return q._replace(valid=keep)
+
+
+def _bilinear_patches(img: torch.Tensor, uv: torch.Tensor, half: int,
+                      ext: int = 0, scale: Optional[torch.Tensor] = None,
+                      ext_v: Optional[int] = None) -> torch.Tensor:
+    """Bilinear-sampled square patches around subpixel centers: (M, Sv, Su)
+    with S = 2*(half+ext)+1, sampled at uv + scale * integer offsets."""
+    h, w = img.shape
+    flat = img.reshape(-1)
+    dev = img.device
+    if scale is None:
+        # unit stride: one gather of the (Sv+1, Su+1) integer super-patch;
+        # the four bilinear corners are shifted slices of it
+        ev = ext if ext_v is None else ext_v
+        su_ = 2 * (half + ext) + 1
+        sv_ = 2 * (half + ev) + 1
+        u0f = torch.floor(uv[:, 0])
+        v0f = torch.floor(uv[:, 1])
+        fu = (uv[:, 0] - u0f)[:, None, None]
+        fv = (uv[:, 1] - v0f)[:, None, None]
+        co = torch.arange(su_ + 1, dtype=torch.int32, device=dev) - (half + ext)
+        ro = torch.arange(sv_ + 1, dtype=torch.int32, device=dev) - (half + ev)
+        vi = torch.clamp(v0f.to(torch.int32)[:, None] + ro[None, :], 0, h - 1)
+        ui = torch.clamp(u0f.to(torch.int32)[:, None] + co[None, :], 0, w - 1)
+        sup = flat[(vi[:, :, None] * w + ui[:, None, :]).long()]
+        p00 = sup[:, :-1, :-1]
+        p01 = sup[:, :-1, 1:]
+        p10 = sup[:, 1:, :-1]
+        p11 = sup[:, 1:, 1:]
+        return (p00 * (1 - fu) * (1 - fv) + p01 * fu * (1 - fv)
+                + p10 * (1 - fu) * fv + p11 * fu * fv)
+    offs = torch.arange(-(half + ext), half + ext + 1, dtype=torch.float32,
+                        device=dev)
+    sc = scale[:, None, None]
+    n = offs.numel()
+    su = (uv[:, 0, None, None] + sc * offs[None, None, :]).expand(-1, n, n)
+    sv = (uv[:, 1, None, None] + sc * offs[None, :, None]).expand(-1, n, n)
+    su = torch.clamp(su, 0.0, w - 1.001)    # border samples degrade to clamp
+    sv = torch.clamp(sv, 0.0, h - 1.001)
+    u0 = torch.floor(su).to(torch.int32)
+    v0 = torch.floor(sv).to(torch.int32)
+    fu = su - u0
+    fv = sv - v0
+    idx = (v0 * w + u0).long()
+    p00 = flat[idx]
+    p01 = flat[idx + 1]
+    p10 = flat[idx + w]
+    p11 = flat[idx + w + 1]
+    return (p00 * (1 - fu) * (1 - fv) + p01 * fu * (1 - fv)
+            + p10 * (1 - fu) * fv + p11 * fu * fv)
+
+
+def _zssd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Zero-mean SSD over the trailing (S, S) dims -> (M,)."""
+    am = a - a.mean(dim=(-2, -1), keepdim=True)
+    bm = b - b.mean(dim=(-2, -1), keepdim=True)
+    d = am - bm
+    return (d * d).sum(dim=(-2, -1))
+
+
+def _parabolic(c_m, c_0, c_p):
+    """Subpixel offset of a quadratic through 3 cost samples, clipped."""
+    den = c_m - 2.0 * c_0 + c_p
+    off = torch.where(den.abs() > 1e-9, 0.5 * (c_m - c_p) / den, 0.0)
+    return torch.clamp(off, -0.6, 0.6)
+
+
+def _refine_leg(anchor: torch.Tensor, img: torch.Tensor, uv: torch.Tensor,
+                half: int, search: int, du_only: bool) -> torch.Tensor:
+    """Correlate `anchor` patches (M, S, S) against `img` on a bilinear grid
+    around `uv` (integer shifts within +-search); return refined uv."""
+    r = search
+    s = 2 * half + 1
+    ext = _bilinear_patches(img, uv, half, ext=r, ext_v=0 if du_only else r)
+    n_dv = 1 if du_only else (2 * r + 1)
+    costs = []
+    for dy in range(n_dv):
+        yy = 0 if du_only else dy
+        row = [_zssd(anchor, ext[:, yy:yy + s, dx:dx + s])
+               for dx in range(2 * r + 1)]
+        costs.append(torch.stack(row, dim=-1))          # (M, 2r+1)
+    c = torch.stack(costs, dim=-2)                      # (M, n_dv, 2r+1)
+    m = c.shape[0]
+    flatc = c.reshape(m, -1)
+    best = torch.argmin(flatc, dim=-1)
+    by = best // (2 * r + 1)
+    bx = best % (2 * r + 1)
+    # clamp to the interior so the parabolic neighbours exist
+    bx_i = torch.clamp(bx, 1, 2 * r - 1)
+    rows = torch.gather(c, 1, by[:, None, None].expand(-1, 1, c.shape[2]))[:, 0, :]
+    cx0 = torch.gather(rows, 1, bx_i[:, None] - 1)[:, 0]
+    cx1 = torch.gather(rows, 1, bx_i[:, None])[:, 0]
+    cx2 = torch.gather(rows, 1, bx_i[:, None] + 1)[:, 0]
+    du = bx_i.to(torch.float32) - r + _parabolic(cx0, cx1, cx2)
+    if du_only:
+        dv = torch.zeros_like(du)
+    else:
+        by_i = torch.clamp(by, 1, 2 * r - 1)
+        cols = torch.gather(c, 2, bx_i[:, None, None].expand(-1, c.shape[1], 1))[:, :, 0]
+        cy0 = torch.gather(cols, 1, by_i[:, None] - 1)[:, 0]
+        cy1 = torch.gather(cols, 1, by_i[:, None])[:, 0]
+        cy2 = torch.gather(cols, 1, by_i[:, None] + 1)[:, 0]
+        dv = by_i.to(torch.float32) - r + _parabolic(cy0, cy1, cy2)
+    # flat cost surface (textureless patch): keep the original position
+    spread = flatc.amax(dim=-1) - flatc.amin(dim=-1)
+    flat_ok = spread > 1e-3
+    du = torch.where(flat_ok, du, 0.0)
+    dv = torch.where(flat_ok, dv, 0.0)
+    return uv + torch.stack([du, dv], dim=-1)
+
+
+def _valid_first(valid: torch.Tensor, cap: int) -> torch.Tensor:
+    """The first `cap` row indices with the valid rows first, in index order
+    (`jnp.argsort(~valid, stable=True)[:cap]`)."""
+    return torch.argsort((~valid).to(torch.int32), stable=True)[:cap]
+
+
+def refine_temporal_subpix(img_prev: torch.Tensor, img_curr: torch.Tensor,
+                           uv_prev: torch.Tensor, uv_curr: torch.Tensor,
+                           valid: torch.Tensor, cfg: FrontendConfig,
+                           disp_prev: Optional[torch.Tensor] = None,
+                           T_pred: Optional[torch.Tensor] = None,
+                           rig=None) -> torch.Tensor:
+    """2D temporal-leg refinement for single-image sensors: anchor at the
+    previous frame's position, correlate in the current frame; only the
+    first refine_cap valid-compacted rows run. Returns refined uv_curr.
+
+    With (disp_prev, T_pred, rig) the anchor is resampled at the predicted
+    per-feature scale z_curr / z_prev (forward-motion compensation)."""
+    m = uv_curr.shape[0]
+    cap = min(cfg.refine_cap, m)
+    order = _valid_first(valid, cap)
+    half = cfg.refine_patch // 2
+    if disp_prev is not None and T_pred is not None and rig is not None:
+        uv_p = uv_prev[order]
+        disp = torch.clamp(disp_prev[order], min=0.5)
+        z_p = rig.intr.fx * rig.baseline_m / disp
+        x_p = (uv_p[:, 0] - rig.intr.cx) / rig.intr.fx * z_p
+        y_p = (uv_p[:, 1] - rig.intr.cy) / rig.intr.fy * z_p
+        z_c = (T_pred[2, 0] * x_p + T_pred[2, 1] * y_p
+               + T_pred[2, 2] * z_p + T_pred[2, 3])
+        scale = torch.clamp(z_c / torch.clamp(z_p, min=0.5), 0.75, 1.3)
+        scale = torch.where(disp_prev[order] > 0.5, scale, 1.0)
+        anchor = _bilinear_patches(img_prev, uv_p, half, scale=scale)
+    else:
+        anchor = _bilinear_patches(img_prev, uv_prev[order], half)
+    ref = _refine_leg(anchor, img_curr, uv_curr[order], half,
+                      cfg.refine_search, du_only=False)
+    ref = torch.where(valid[order][:, None], ref, uv_curr[order])
+    out = uv_curr.clone()
+    out[order] = ref
+    return out
+
+
+def predict_uv(uv: torch.Tensor, disp: torch.Tensor, T_pred: torch.Tensor,
+               fx: float, fy: float, cx: float, cy: float,
+               baseline_m: float, right: bool = False):
+    """Project previous features into the current frame under a motion
+    prior. Returns (uv_pred (N, 2), ok (N,))."""
+    ok = disp > 0.5
+    d = torch.clamp(disp, min=0.5)
+    z = fx * baseline_m / d
+    x = (uv[:, 0] - cx) / fx * z
+    y = (uv[:, 1] - cy) / fy * z
+    if right:
+        x = x + baseline_m
+    R = T_pred[:3, :3]
+    t = T_pred[:3, 3]
+    px = R[0, 0] * x + R[0, 1] * y + R[0, 2] * z + t[0]
+    py = R[1, 0] * x + R[1, 1] * y + R[1, 2] * z + t[1]
+    pz = R[2, 0] * x + R[2, 1] * y + R[2, 2] * z + t[2]
+    if right:
+        px = px - baseline_m
+    ok = ok & (pz > 0.1)
+    zs = torch.clamp(pz, min=0.1)
+    up = px / zs * fx + cx
+    vp = py / zs * fy + cy
+    return torch.stack([up, vp], dim=-1), ok
+
+
+def match_temporal(a: Features, b: Features, cfg: FrontendConfig,
+                   uv_pred_b: Optional[torch.Tensor] = None,
+                   pred_ok_b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Curr -> prev matches within the motion gate; (Na,) idx / -1. With a
+    motion prior, admissible pairs are the union of the wide gate and a
+    tight predictive_gate_px window around each prediction."""
+    cost = _pair_cost(a, b)
+    base_ok = (a.valid[:, None] & b.valid[None, :]
+               & (a.cls[:, None] == b.cls[None, :]))
+    du = a.uv[:, 0][:, None] - b.uv[:, 0][None, :]
+    dv = a.uv[:, 1][:, None] - b.uv[:, 1][None, :]
+    ok = (base_ok & (du.abs() <= cfg.match_radius_px)
+          & (dv.abs() <= cfg.match_radius_px))
+    if uv_pred_b is not None:
+        dup = a.uv[:, 0][:, None] - uv_pred_b[:, 0][None, :]
+        dvp = a.uv[:, 1][:, None] - uv_pred_b[:, 1][None, :]
+        g = cfg.predictive_gate_px
+        near = (dup.abs() <= g) & (dvp.abs() <= g)
+        ok = ok | (base_ok & pred_ok_b[None, :] & near)
+    return mutual_nn(torch.where(ok, cost, _INF))

@@ -1,0 +1,178 @@
+"""Stereo visual odometry: RANSAC + Gauss-Newton on 4-way reprojection
+(port of denseslam_tpu/ops/ransac.py).
+
+All K hypotheses run together as a batch dimension: each GN iteration is
+one set of (K, 3)-point tensor ops, inlier counting one (K, N) reduction,
+and the refit a masked GN over all matches.
+
+The hypotheses' correspondence draws are an argument: `raw` (K, 3)
+non-negative integers. Parity tests pass in the JAX package's threefry
+draws; without them the draws come from the `generator` the caller gives
+(there is no global RNG here).
+
+Returns T_prev_curr ("T_delta"): p_curr = R p_prev + t.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..config import FrontendConfig
+from ..utils import lie
+from ..utils.camera import StereoRig
+from .matching import QuadMatches
+from .smallsolve import solve_spd6
+
+_RAW_HIGH = 2 ** 31 - 1     # jax.random.randint(..., 0, iinfo(int32).max)
+
+
+class VOResult(NamedTuple):
+    T_delta: torch.Tensor      # (4, 4) prev-cam -> curr-cam
+    inliers: torch.Tensor      # bool (N,)
+    num_inliers: torch.Tensor  # i32 ()
+    ok: torch.Tensor           # bool () solution trustworthy
+
+
+def draw_hypotheses(k: int, generator: torch.Generator,
+                    device=None) -> torch.Tensor:
+    """(k, 3) int64 draws in [0, 2^31 - 1) from `generator`, on `device`."""
+    raw = torch.randint(0, _RAW_HIGH, (k, 3), generator=generator,
+                        device=generator.device)
+    return raw.to(device) if device is not None else raw
+
+
+def triangulate_prev(q: QuadMatches, rig: StereoRig):
+    """Previous-frame 3D points from stereo disparity."""
+    intr = rig.intr
+    disp = torch.clamp(q.uv_lp[:, 0] - q.uv_rp[:, 0], min=1e-3)
+    base = rig.baseline_m
+    z = intr.fx * base / disp
+    x = (q.uv_lp[:, 0] - intr.cx) * base / disp
+    y = (q.uv_lp[:, 1] - intr.cy) * base / disp * (intr.fx / intr.fy)
+    pts = torch.stack([x, y, z], dim=-1)
+    ok = q.valid & (disp > 0.5) & (z > 0.1) & (z < 100.0)
+    return pts, ok
+
+
+def _reproject_residuals(T, pts_prev, obs_l, obs_r, rig: StereoRig):
+    """4-way reprojection residuals (..., N, 4): left u, v + right u, v.
+    T (..., 4, 4) and pts_prev (..., N, 3) broadcast."""
+    intr = rig.intr
+    p = lie.transform_points(T, pts_prev)
+    z = torch.clamp(p[..., 2], min=1e-6)
+    ul = p[..., 0] / z * intr.fx + intr.cx
+    vl = p[..., 1] / z * intr.fy + intr.cy
+    ur = (p[..., 0] - rig.baseline_m) / z * intr.fx + intr.cx
+    vr = vl
+    return torch.stack([ul - obs_l[..., 0], vl - obs_l[..., 1],
+                        ur - obs_r[..., 0], vr - obs_r[..., 1]], dim=-1), p
+
+
+def _gn_jacobian(p, rig: StereoRig):
+    """Analytic Jacobian of the 4 residuals w.r.t. the left-multiplied
+    twist [v, w]: (..., N, 4, 6)."""
+    intr = rig.intr
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    z = torch.clamp(z, min=1e-6)
+    iz = 1.0 / z
+    iz2 = iz * iz
+    zero = torch.zeros_like(z)
+
+    def duv_dp(xc):
+        du = torch.stack([intr.fx * iz, zero, -intr.fx * xc * iz2], dim=-1)
+        dv = torch.stack([zero, intr.fy * iz, -intr.fy * y * iz2], dim=-1)
+        return du, dv
+
+    dul, dvl = duv_dp(x)
+    dur, dvr = duv_dp(x - rig.baseline_m)
+    J_p = torch.stack([dul, dvl, dur, dvr], dim=-2)      # (..., N, 4, 3)
+    # dp/dxi = [I | -[p]x]
+    px = torch.stack([
+        torch.stack([zero, z, -y], dim=-1),
+        torch.stack([-z, zero, x], dim=-1),
+        torch.stack([y, -x, zero], dim=-1),
+    ], dim=-2)                                            # (..., N, 3, 3)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(px.shape)
+    dp_dxi = torch.cat([eye, px], dim=-1)                # (..., N, 3, 6)
+    return J_p @ dp_dxi                                  # (..., N, 4, 6)
+
+
+def _gn_refine(T0, pts_prev, obs_l, obs_r, weights, rig, iters: int):
+    """Masked Gauss-Newton, batched over leading dims: T0 (..., 4, 4),
+    pts_prev / obs (..., N, 3|2), weights (..., N)."""
+    T = T0
+    eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
+    for _ in range(iters):
+        r, p = _reproject_residuals(T, pts_prev, obs_l, obs_r, rig)
+        J = _gn_jacobian(p, rig)
+        JTw = J * weights[..., None, None]
+        A = torch.einsum("...nri,...nrj->...ij", JTw, J)
+        b = torch.einsum("...nri,...nr->...i", JTw, r)
+        damp = 1e-6 * torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) + 1e-9
+        xi = -solve_spd6(A + damp[..., None, None] * eye6, b)
+        xi = torch.clamp(xi, -0.5, 0.5)           # guard divergent steps
+        T = lie.se3_exp(xi) @ T
+    return T
+
+
+def estimate_stereo_motion(q: QuadMatches, rig: StereoRig,
+                           cfg: FrontendConfig,
+                           raw: Optional[torch.Tensor] = None,
+                           T_init: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> VOResult:
+    """RANSAC + refit over quad matches. `raw` (K, 3) are the hypothesis
+    draws (K = cfg.ransac_iters); when None they are drawn from
+    `generator`."""
+    dev = q.uv_lc.device
+    pts_prev, ok = triangulate_prev(q, rig)
+    obs_l = q.uv_lc
+    obs_r = q.uv_rc
+    n_ok = ok.to(torch.int32).sum()
+
+    k = cfg.ransac_iters
+    if raw is None:
+        if generator is None:
+            raise ValueError("estimate_stereo_motion needs `raw` draws or a "
+                             "torch.Generator")
+        raw = draw_hypotheses(k, generator, dev)
+    if tuple(raw.shape) != (k, 3):
+        raise ValueError(f"raw draws of shape {tuple(raw.shape)}, expected {(k, 3)}")
+    # hypotheses: K x 3 correspondences among the valid matches (valid
+    # indices first; the modulo keeps the draws on them)
+    order = torch.argsort((~ok).to(torch.int32), stable=True)
+    denom = torch.clamp(n_ok, min=3)
+    sel = order[torch.remainder(raw.to(dev, torch.int64), denom)]   # (K, 3)
+
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    T0 = eye if T_init is None else T_init
+    w3 = torch.ones((k, 3), dtype=torch.float32, device=dev)
+    T_hyp = _gn_refine(T0.expand(k, 4, 4), pts_prev[sel], obs_l[sel],
+                       obs_r[sel], w3, rig, cfg.gn_iters)      # (K, 4, 4)
+
+    def count(T):
+        r, _ = _reproject_residuals(T, pts_prev, obs_l, obs_r, rig)
+        good = (r.abs() < cfg.ransac_thresh_px).all(dim=-1) & ok
+        return good.to(torch.int32).sum(dim=-1), good
+
+    counts, inlier_sets = count(T_hyp)                         # (K,), (K, N)
+    # first max; a (1,) index, since a 0-d one is read back to the host
+    best = torch.argmax(counts).reshape(1)
+    best_inliers = inlier_sets.index_select(0, best)[0]
+    best_T = T_hyp.index_select(0, best)[0]
+
+    w = best_inliers.to(torch.float32)
+    if cfg.edge_reweighting:
+        # features near the horizontal image centre weigh more in the refit
+        cu = rig.intr.cx
+        w = w / ((obs_l[:, 0] - cu).abs() / abs(cu) + 0.05)
+    T_refined = _gn_refine(best_T, pts_prev, obs_l, obs_r, w, rig,
+                           cfg.refine_iters)
+    num, final_inliers = count(T_refined)
+    num = num.to(torch.int32)
+    ok_solution = num >= 6
+    T_final = torch.where(ok_solution, T_refined, T0)
+    return VOResult(T_delta=T_final, inliers=final_inliers,
+                    num_inliers=num, ok=ok_solution)

@@ -41,8 +41,8 @@ def path_plain(cost: torch.Tensor, axis: int, reverse: bool,
     """One path direction from a zero carry. axis 0 walks H (vertical
     paths), axis 1 walks W (horizontal paths)."""
     vol = cost if axis == 0 else cost.transpose(0, 1)       # (T, S, D)
-    p1t = torch.tensor(p1, dtype=cost.dtype, device=cost.device)
-    p2t = torch.tensor(p2, dtype=cost.dtype, device=cost.device)
+    p1t = torch.full((), p1, dtype=cost.dtype, device=cost.device)
+    p2t = torch.full((), p2, dtype=cost.dtype, device=cost.device)
     out = torch.empty_like(vol)
     prev = torch.zeros_like(vol[0])
     order = range(vol.shape[0] - 1, -1, -1) if reverse else range(vol.shape[0])

@@ -1,0 +1,74 @@
+"""Small fixed-size linear solves as unrolled elementwise programs (port of
+denseslam_tpu/ops/smallsolve.py).
+
+The same unrolled Cholesky / adjugate forms as the JAX version, in the
+same op order, batched over leading dimensions, so the solves agree with
+the reference to float32 rounding (tests/test_torch_ransac.py)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def solve_spd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 6x6 symmetric-positive-definite solve via unrolled Cholesky.
+
+    A: (..., 6, 6) SPD (GN normal equations + damping), b: (..., 6)."""
+    n = 6
+    L = [[None] * n for _ in range(n)]
+    for j in range(n):
+        s = A[..., j, j]
+        for k in range(j):
+            s = s - L[j][k] * L[j][k]
+        d = torch.sqrt(torch.clamp(s, min=1e-20))
+        L[j][j] = d
+        inv = 1.0 / d
+        for i2 in range(j + 1, n):
+            s2 = A[..., i2, j]
+            for k in range(j):
+                s2 = s2 - L[i2][k] * L[j][k]
+            L[i2][j] = s2 * inv
+    y = [None] * n                      # forward: L y = b
+    for i2 in range(n):
+        s = b[..., i2]
+        for k in range(i2):
+            s = s - L[i2][k] * y[k]
+        y[i2] = s / L[i2][i2]
+    x = [None] * n                      # backward: L^T x = y
+    for i2 in reversed(range(n)):
+        s = y[i2]
+        for k in range(i2 + 1, n):
+            s = s - L[k][i2] * x[k]
+        x[i2] = s / L[i2][i2]
+    return torch.stack(x, dim=-1)
+
+
+def inv3x3(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse (adjugate / determinant); a
+    near-singular determinant is replaced by eps."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    c00 = e * i - f * h
+    c01 = c * h - b * i
+    c02 = b * f - c * e
+    c10 = f * g - d * i
+    c11 = a * i - c * g
+    c12 = c * d - a * f
+    c20 = d * h - e * g
+    c21 = b * g - a * h
+    c22 = a * e - b * d
+    det = a * c00 + b * c10 + c * c20
+    det = torch.where(det.abs() < eps, torch.full_like(det, eps), det)
+    inv = torch.stack([
+        torch.stack([c00, c01, c02], dim=-1),
+        torch.stack([c10, c11, c12], dim=-1),
+        torch.stack([c20, c21, c22], dim=-1),
+    ], dim=-2)
+    return inv / det[..., None, None]
+
+
+def solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched 3x3 solve via the closed-form inverse. A: (..., 3, 3),
+    b: (..., 3)."""
+    return torch.einsum("...ij,...j->...i", inv3x3(A), b)

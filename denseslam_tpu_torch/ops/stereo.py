@@ -89,7 +89,7 @@ def _right_argmin(cost: torch.Tensor) -> torch.Tensor:
     0 where no sheared value is below the invalid marker — the JAX
     version's running strict-< argmin over D column shifts."""
     h, w, d = cost.shape
-    big = torch.tensor(_BIG, dtype=cost.dtype, device=cost.device)
+    big = torch.full((), _BIG, dtype=cost.dtype, device=cost.device)
     padded = torch.cat([cost, big.expand(h, d, d)], dim=1).contiguous()
     sheared = padded.as_strided((h, w, d), ((w + d) * d, d, d + 1))
     idx = torch.argmin(sheared, dim=-1).to(torch.int32)
@@ -121,7 +121,7 @@ def disparity_from_cost(cost: torch.Tensor, cfg: StereoConfig,
         c_at = _pick(raw_cost, best, torch.ones_like(valid))
         lane = torch.arange(d, dtype=torch.int32, device=cost.device)
         far = (lane - best[..., None]).abs() > 2
-        big = torch.tensor(_BIG, dtype=raw_cost.dtype, device=cost.device)
+        big = torch.full((), _BIG, dtype=raw_cost.dtype, device=cost.device)
         second = torch.where(far, raw_cost, big).amin(dim=-1).to(torch.float32)
         unique = c_at <= cfg.uniq_ratio * second
         disp = torch.where(unique, disp, torch.zeros_like(disp))

@@ -105,6 +105,14 @@ def make_map(cfg: TsdfConfig, device=None) -> MapState:
     )
 
 
+def _true_div(x: torch.Tensor, s: float) -> torch.Tensor:
+    """x / s with one rounding on every device. A CUDA tensor divided by a
+    Python number is multiplied by the number's reciprocal (two roundings),
+    which moves some quotients by an ulp against the CPU and the
+    reference; a 0-d tensor divisor takes the true division."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
 def num_allocated_blocks(m: MapState) -> torch.Tensor:
     return m.table.valid.to(torch.int32).sum()
 
@@ -113,10 +121,6 @@ def _check_supported(cfg: TsdfConfig) -> None:
     if cfg.bilinear_fusion:
         raise NotImplementedError(
             "bilinear_fusion is not ported yet (ROADMAP.md Queue A, A8)")
-    if not cfg.gray_color_fusion:
-        raise NotImplementedError(
-            "gray_color_fusion=False (true-RGB fusion, TPU kernel B2) is "
-            "not ported yet (ROADMAP.md Queue B, B2)")
     if cfg.sampler not in ("gather", "pallas"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
 
@@ -140,8 +144,8 @@ def touched_block_keys(depth: torch.Tensor, T_wc: torch.Tensor,
     v = (torch.arange(h, dtype=torch.float32, device=dev)[:, None]
          + 0.0) * float(s)
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :] * float(s)
-    dirx = ((u - intr.cx) / intr.fx).expand(h, w)
-    diry = ((v - intr.cy) / intr.fy).expand(h, w)
+    dirx = _true_div(u - intr.cx, intr.fx).expand(h, w)
+    diry = _true_div(v - intr.cy, intr.fy).expand(h, w)
     valid = (depth > cfg.min_depth_m) & (depth < cfg.max_depth_m)
 
     k = max(3, math.ceil(2.0 * mu / block_m) + 2)
@@ -233,10 +237,14 @@ def _fusion_geometry(m: MapState, visible_slots, visible_mask, T_wc,
     return u, v, pz, safe
 
 
+def _depth_mm(depth: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(depth * 1000.0), 0, 65535).to(torch.int32)
+
+
 def _quantized_combo(depth: torch.Tensor, color_packed) -> torch.Tensor:
     """The packed (d_mm << 8 | gray) image both samplers read; 0 where the
     depth is invalid."""
-    d_mm = torch.clamp(torch.round(depth * 1000.0), 0, 65535).to(torch.int32)
+    d_mm = _depth_mm(depth)
     if color_packed is not None:
         g8 = torch.clamp(color_packed & 0xFF, 0, 255)
     else:
@@ -244,24 +252,45 @@ def _quantized_combo(depth: torch.Tensor, color_packed) -> torch.Tensor:
     return torch.where(depth > 0, (d_mm << 8) | g8, torch.zeros_like(d_mm))
 
 
+def rgb_images(depth: torch.Tensor, color_packed: torch.Tensor):
+    """The two packed images kernel B2 reads: (d_mm | r << 16, g | b << 8),
+    0 where the depth is invalid."""
+    d_mm = _depth_mm(depth)
+    r8, g8, b8 = (c.to(torch.int32) for c in unpack_rgb(color_packed))
+    zero = torch.zeros_like(d_mm)
+    return (torch.where(depth > 0, d_mm | (r8 << 16), zero),
+            torch.where(depth > 0, g8 | (b8 << 8), zero))
+
+
 def _sample(u, v, z, visible_mask, depth, color_packed, intr, cfg, m):
-    """Per-voxel depth (m) and luminance samples -> (d_samp, d_valid,
-    gray_samp or None, map)."""
+    """Per-voxel depth (m) and colour samples -> (d_samp, d_valid, colour,
+    map). The colour is the luminance (V, 512), an (r, g, b) triple in
+    true-RGB mode (`gray_color_fusion=False`), or None without an image."""
+    rgb_mode = color_packed is not None and not cfg.gray_color_fusion
     if cfg.sampler == "pallas":
-        # kernel 1 with the JAX tile sampler's post-fallback semantics;
-        # overflow blocks beyond the fallback cap lose their out-of-tile
-        # samples and are counted like dropped allocations
-        combo = _quantized_combo(depth, color_packed)
+        # kernel 1 (or B2 in true-RGB mode) with the JAX tile sampler's
+        # post-fallback semantics; overflow blocks beyond the fallback cap
+        # lose their out-of-tile samples and are counted like dropped
+        # allocations
         z_gated = torch.where(visible_mask[:, None], z, torch.zeros_like(z))
-        d_mm, gray, fits, n_over = sampling.tile_sample(
-            combo, u, v, z_gated, intr.width, intr.height,
-            cfg.pallas_overflow_cap)
+        if rgb_mode:
+            img1, img2 = rgb_images(depth, color_packed)
+            d_mm, cr, cg, cb, fits, n_over = sampling.tile_sample_rgb(
+                img1, img2, color_packed, u, v, z_gated, intr.width,
+                intr.height, cfg.pallas_overflow_cap)
+            colour = (cr, cg, cb)
+        else:
+            combo = _quantized_combo(depth, color_packed)
+            d_mm, gray, fits, n_over = sampling.tile_sample(
+                combo, u, v, z_gated, intr.width, intr.height,
+                cfg.pallas_overflow_cap)
+            colour = gray if color_packed is not None else None
         m = m._replace(overflow=(m.overflow + torch.clamp(
             n_over - cfg.pallas_overflow_cap, min=0)).to(torch.int32))
         d_samp = d_mm * 1e-3
         d_valid = fits & (d_samp > 0)
         d_samp = torch.where(d_valid, d_samp, torch.zeros_like(d_samp))
-        return d_samp, d_valid, (gray if color_packed is not None else None), m
+        return d_samp, d_valid, colour, m
 
     # "gather": nearest sample, one gather per voxel (ITM's choice)
     ui = sampling.round_i32(u)
@@ -269,16 +298,20 @@ def _sample(u, v, z, visible_mask, depth, color_packed, intr, cfg, m):
     inb = (ui >= 0) & (ui < intr.width) & (vi >= 0) & (vi < intr.height)
     flat = (vi.clamp(0, intr.height - 1) * intr.width
             + ui.clamp(0, intr.width - 1)).long()
-    gray_samp = None
-    if color_packed is not None:
+    colour = None
+    if color_packed is not None and not rgb_mode:
+        # depth (mm) and luminance packed into one gather
         got = _quantized_combo(depth, color_packed).reshape(-1)[flat]
         d_samp = (got >> 8).to(torch.float32) * 1e-3
-        gray_samp = (got & 0xFF).to(torch.float32)
+        colour = (got & 0xFF).to(torch.float32)
     else:
         d_samp = depth.reshape(-1)[flat]
+        if rgb_mode:
+            # raw depth, colour by a separate gather of the packed image
+            colour = unpack_rgb(color_packed.reshape(-1)[flat])
     d_valid = inb & (d_samp > 0)
     d_samp = torch.where(d_valid, d_samp, torch.zeros_like(d_samp))
-    return d_samp, d_valid, gray_samp, m
+    return d_samp, d_valid, colour, m
 
 
 def integrate(m: MapState, visible_slots, visible_mask, depth,
@@ -291,20 +324,19 @@ def integrate(m: MapState, visible_slots, visible_mask, depth,
     mu = cfg.trunc_dist_m
     u, v, z, safe = _fusion_geometry(m, visible_slots, visible_mask, T_wc,
                                      intr, cfg)
-    d_samp, d_valid, gray_samp, m = _sample(
+    d_samp, d_valid, colour, m = _sample(
         u, v, z, visible_mask, depth, color_packed, intr, cfg, m)
 
     sdf = d_samp - z
     upd = (visible_mask[:, None] & d_valid & (z > 1e-3)
            & (sdf > -mu) & (d_samp > cfg.min_depth_m))
-    eta = torch.clamp(sdf / mu, -1.0, 1.0)
+    eta = torch.clamp(_true_div(sdf, mu), -1.0, 1.0)
 
     zero = torch.zeros_like(sdf)
     if cfg.weights.depth_weighting:
         wp = cfg.weights
-        w_new = torch.clamp(
-            wp.max_new_w * (1.0 - torch.clamp(d_samp / wp.max_distance,
-                                              0.0, 1.0)), min=1.0)
+        dist = torch.clamp(_true_div(d_samp, wp.max_distance), 0.0, 1.0)
+        w_new = torch.clamp(wp.max_new_w * (1.0 - dist), min=1.0)
     else:
         w_new = torch.ones_like(sdf)
     w_new = torch.where(upd, w_new, zero)
@@ -330,7 +362,8 @@ def integrate(m: MapState, visible_slots, visible_mask, depth,
                       visible_mask)
 
     if color_packed is not None and sign > 0:
-        cr = cg = cb = gray_samp         # luminance came with the depth
+        # nearest-pixel colour, weight-led running average per channel
+        cr, cg, cb = colour if isinstance(colour, tuple) else (colour,) * 3
         c_upd = upd & (sdf.abs() < 0.5 * mu)
         cw = torch.where(c_upd, w_new, zero)
         orr, og, ob = unpack_rgb(m.color[safe_l])

@@ -1,10 +1,71 @@
-"""The SE(3) helpers the dense-mapping slice needs (port of part of
-denseslam_tpu/utils/lie.py). Poses are row-major float32 4x4 matrices."""
+"""SO(3)/SE(3) helpers (port of part of denseslam_tpu/utils/lie.py). Poses
+are row-major float32 4x4 matrices; tangent vectors are [vx, vy, vz, wx,
+wy, wz] (translation first). Every function takes leading batch dims."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+_EPS = 1e-8
+# below theta^2 = 1e-4 the closed forms cancel in float32; the Taylor
+# expansions are accurate to ~theta^4 there
+_SMALL2 = 1e-4
+
+
+def hat(w: torch.Tensor) -> torch.Tensor:
+    """so(3) hat: (..., 3) -> (..., 3, 3) skew-symmetric matrix."""
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    z = torch.zeros_like(wx)
+    return torch.stack([
+        torch.stack([z, -wz, wy], dim=-1),
+        torch.stack([wz, z, -wx], dim=-1),
+        torch.stack([-wy, wx, z], dim=-1),
+    ], dim=-2)
+
+
+def _theta(w: torch.Tensor):
+    theta2 = (w * w).sum(dim=-1, keepdim=True)[..., None]
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    return theta2, theta
+
+
+def so3_exp(w: torch.Tensor) -> torch.Tensor:
+    """Rodrigues formula with the Taylor branch for small angles."""
+    theta2, theta = _theta(w)
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < _SMALL2
+    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
+    return eye + a * W + b * W2
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) exp: (..., 6) [v, w] -> (..., 4, 4)."""
+    v, w = xi[..., :3], xi[..., 3:]
+    theta2, theta = _theta(w)
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < _SMALL2
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    R = so3_exp(w)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    V = eye + b * W + c * W2
+    t = (V @ v[..., None])[..., 0]
+    return make_T(R, t)
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) transforms to (..., N, 3) points."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    return pts @ R.transpose(-1, -2) + t[..., None, :]
 
 
 def se3_exp_np(xi) -> np.ndarray:
@@ -36,8 +97,10 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (1, 4))
+    # built on the device: a tensor made from a Python list is copied from
+    # the host, and that copy waits for the card
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(
+        batch + (1, 4))
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -21,6 +21,7 @@ from denseslam_tpu_torch import config as pcfg
 from denseslam_tpu_torch import kernels
 from denseslam_tpu_torch.io import convert
 from denseslam_tpu_torch.models import dense_slam as pds
+from denseslam_tpu_torch.ops import features as pfeat
 from denseslam_tpu_torch.ops import sampling as psm
 from denseslam_tpu_torch.ops import sgm as psg
 from denseslam_tpu_torch.ops import tsdf as pt
@@ -146,15 +147,18 @@ def test_unported_options_raise():
     db = pds.make_fusion_db(cfg, device="cpu")
     depth = torch.zeros((cfg.rig.intr.height, cfg.rig.intr.width))
     T = torch.eye(4)
-    for tsdf in (dataclasses.replace(cfg.tsdf, bilinear_fusion=True),
-                 dataclasses.replace(cfg.tsdf, gray_color_fusion=False)):
-        c = dataclasses.replace(cfg, tsdf=tsdf)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pds.fuse_keyframe(m, db, depth, depth, T, 0, c)
+    c = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, bilinear_fusion=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pds.fuse_keyframe(m, db, depth, depth, T, 0, c)
     c = dataclasses.replace(cfg, pipeline=dataclasses.replace(
         cfg.pipeline, bilateral_filter=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pds.fuse_keyframe(m, db, depth, depth, T, 0, c)
+    # true-RGB fusion (gray_color_fusion=False) is ported; ORB is not
+    fc = dataclasses.replace(cfg.frontend, feature_type="orb")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pfeat.detect(depth, fc)
 
 
 def _imported_modules(path):

@@ -76,6 +76,42 @@ def test_fusion_tail_matches_jax_bit_for_bit(frames, sampler, storage):
 
 
 @pytest.mark.parametrize("sampler", ["gather", "pallas"])
+def test_true_rgb_fusion_matches_jax_bit_for_bit(frames, sampler):
+    """gray_color_fusion=False: the pallas sampler runs kernel B2's plain
+    version with its cap rule (a cap of 2 so the fallback colour gather
+    runs), the gather sampler samples raw depth and gathers colour apart.
+    Every leaf of the map equals the op-by-op JAX fusion, on 2 frames of a
+    random RGB image, and de-integration restores tsdf and weight."""
+    cfg, poses, grays, depths = frames
+    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, sampler=sampler, gray_color_fusion=False,
+        pallas_overflow_cap=2))
+    pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    rgb = np.random.default_rng(9).integers(0, 256, (3,) + grays.shape[1:])
+    col = jt.pack_rgb(*(jnp.asarray(c, jnp.float32) for c in rgb))
+    colp = pt.pack_rgb(*(torch.tensor(c, dtype=torch.float32) for c in rgb))
+    m = jt.make_map(tc)
+    mp = pt.make_map(pcfg.tsdf, device="cpu")
+    for f in range(2):
+        T, d = jnp.asarray(poses[f + 1]), jnp.asarray(depths[f])
+        m, s, k = jt.allocate_for_frame(m, d, T, intr, tc)
+        m = jt.integrate(m, s, k, d, col, T, intr, tc)
+        Tp, dp = torch.tensor(poses[f + 1]), torch.tensor(depths[f])
+        mp, sp, kp = pt.allocate_for_frame(mp, dp, Tp, pcfg.rig.intr, pcfg.tsdf)
+        mp = pt.integrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
+        _assert_maps_equal(m, mp)
+    rgb_planes = pt.unpack_rgb(mp.color[mp.weight > 0])
+    assert not torch.equal(rgb_planes[0], rgb_planes[1])   # true colour
+    if sampler == "pallas":
+        assert int(mp.overflow) == int(m.overflow)
+    w0 = mp.weight.clone()
+    mp = pt.deintegrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
+    _assert_maps_equal(jt.deintegrate(m, s, k, d, col, T, intr, tc), mp)
+    assert (mp.weight < w0).any()
+
+
+@pytest.mark.parametrize("sampler", ["gather", "pallas"])
 def test_integrate_then_deintegrate_restores_the_map(frames, sampler):
     """tsdf.py:316-318: de-integration replaying the same view and pose is
     integrate's exact inverse; the port's deintegrate also equals JAX's."""
