@@ -9,16 +9,20 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   1. env / build   card name and power limit, torch and CUDA versions; the
                    kernel sources of denseslam_tpu_torch/csrc/ compiled by
                    nvcc, all at once (B1 and B2 share one source).
-  2. kernels       B1 and B3 against their plain PyTorch versions at the
-                   shapes of the slice: the fusion sampler on the (u, v, z)
-                   of a KITTI-scale street frame (V = 8192 blocks), exact;
-                   the SGM aggregation on a 370x1226x128 cost volume, exact
-                   on integer-valued f32 costs, within rtol 1.5e-2 / atol 2
-                   in bf16. Times of kernel, plain version and library call.
+  2. kernels       B1, B3 and the fused SGM tail (P1/P2) against their
+                   plain PyTorch versions at the shapes of the slice: the
+                   fusion sampler on the (u, v, z) of a KITTI-scale street
+                   frame (V = 8192 blocks), exact; the SGM aggregation on a
+                   370x1226x128 cost volume, exact on integer-valued f32
+                   costs, within rtol 1.5e-2 / atol 2 in bf16; the fused
+                   tail bit for bit in f32 and bf16 for both backends, and
+                   compute_depth through it equal to the unfused sequence.
+                   Times of kernel, plain version and library call.
   3. slice         stereo depth + fuse_sequence over 4 chunks of 10 frames
                    of the synthetic street at the scripts/bench_full.py
                    configuration; launch counts read around exactly this
-                   run; overflow 0; SGM depth scored against the rendered
+                   run (per frame 3 of B3, 1 of the fused tail, 1 of B1);
+                   overflow 0; SGM depth scored against the rendered
                    depth; the first 2 frames (fusion) and frame 0 (stereo)
                    rerun on the CPU and held against the card, and frame
                    1's fusion intermediates compared between the two.
@@ -36,10 +40,28 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    the same RANSAC draws: VO poses within 1 mm / 1e-4 rad;
                    the CPU fusing with the card's poses gives the card's
                    keys, weights and colours, tsdf within 1e-6.
-  7. throughput    frames/s of stereo + fusion, of the fusion tail alone
-                   (the bench.py workload) and of the RGB-D path, host
-                   clock around work that ends in a synchronize; the median
-                   of --reps samples.
+  7. stereo        the stereo main path, process_sequence (stereo VO on
+                   every frame, SGM depth and fusion on every 4th), over
+                   64 street frames in one call (one flagship chunk) at
+                   the stereo drive configuration of
+                   scripts/long_drive_eval.py, under its gain ramp and
+                   photometric noise; launch counts read around exactly
+                   this run: per fused keyframe 3 of B3, 1 of the fused
+                   tail, 1 of B1; overflow 0; tracking on >= 95% of
+                   frames; final position within 3% of the distance
+                   travelled (ATE and KITTI t_err printed); keyframe depth
+                   against the rendered depth, d1.25 > 0.8, coverage > 0.3.
+  8. stereo_cpu_reference  frames 0-4 rerun on the card and on the CPU
+                   with the same draws: VO poses within 1 mm / 1e-4 rad;
+                   SGM + WTA of each keyframe's card cost volume equal on
+                   both devices; compute_depth's validity and depth
+                   (within 0.1%) agreeing on >= 99.95% of pixels; the CPU
+                   fusing the card's keyframe depth at the card's poses
+                   gives the card's keys, weights and tsdf.
+  9. throughput    frames/s of stereo + fusion, of the fusion tail alone
+                   (the bench.py workload), of the RGB-D path and of the
+                   stereo main path, host clock around work that ends in a
+                   synchronize; the median of --reps samples.
 
 The line before the last two holds every kernel with its numbers; the
 line before the last is the card's name and power limit as nvidia-smi
@@ -71,6 +93,8 @@ CHUNK = 10
 N_CHUNKS = 4
 RGBD_FRAMES = 48
 RGBD_CHUNK = 16
+STEREO_FRAMES = 64
+N_CPU_FRAMES = 5
 
 
 def emit(obj) -> None:
@@ -146,10 +170,11 @@ def slice_config():
         cfg, pipeline=dataclasses.replace(cfg.pipeline, fusion_db_capacity=8))
 
 
-def rgbd_config():
-    """The RGB-D drive of scripts/long_drive_eval.py:137-166 (--sensor rgbd)
-    in the port's config classes, with tsdf.gray_color_fusion=False: the
-    fusion samples true RGB through kernel B2."""
+def drive_config(sensor: str):
+    """The drive of scripts/long_drive_eval.py:137-166 (1226x370, default
+    flags) for `sensor` in the port's config classes; the stereo drive as
+    it is, the RGB-D drive with tsdf.gray_color_fusion=False: its fusion
+    samples true RGB through kernel B2."""
     from denseslam_tpu_torch.config import (PipelineConfig, SlideWindowParams,
                                             StereoConfig, SystemConfig,
                                             TsdfConfig, VoxelDecayParams)
@@ -161,7 +186,7 @@ def rgbd_config():
         voxel_size_m=0.06, trunc_dist_m=0.24, table_slots=1 << 17,
         max_visible_blocks=1 << 13, max_alloc_per_frame=1 << 13,
         max_depth_m=40.0, sampler="pallas", alloc_subsample=2,
-        gray_color_fusion=False)
+        gray_color_fusion=sensor != "rgbd")
     return SystemConfig(
         rig=StereoRig(intr=intr, baseline_m=0.537), tsdf=tsdf,
         stereo=StereoConfig(cost_dtype="bfloat16"),
@@ -169,7 +194,7 @@ def rgbd_config():
                                max_decay_weight=2),
         slide_window=SlideWindowParams(enabled=True, max_age=60),
         pipeline=PipelineConfig(keyframe_every=4, fusion_db_capacity=64,
-                                sensor="rgbd"))
+                                sensor=sensor))
 
 
 def rgbd_frames(cfg, dev, seed: int = 0):
@@ -287,6 +312,47 @@ def drive_rgbd(cfg, fr):
     return m, out, (time.perf_counter() - t0 if t0 is not None else None)
 
 
+def trajectory_gates(T_wc, poses) -> dict:
+    """Poses finite and of the right shape, the final position within 3%
+    of the distance travelled; returns the errors, with the ATE
+    unaligned (as PR 2 printed it) and aligned, and KITTI t_err over
+    5 m and 10 m segments (the drives are too short for KITTI's
+    100-800 m)."""
+    from denseslam_tpu_torch.eval import traj_metrics
+    T = T_wc.cpu().numpy().astype(np.float64)
+    if T.shape != poses.shape or not np.isfinite(T).all():
+        raise AssertionError("poses have the wrong shape or non-finite values")
+    gt = poses[:, :3, 3]
+    travelled = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
+    pos_err = np.linalg.norm(T[:, :3, 3] - gt, axis=1)
+    if pos_err[-1] > 0.03 * travelled:
+        raise AssertionError(f"final position off by {pos_err[-1]:.3f} m "
+                             f"over {travelled:.2f} m")
+    kitti = traj_metrics.kitti_sequence_errors(T, poses, lengths=(5.0, 10.0),
+                                               step=1)
+    return dict(travelled_m=travelled, final_pos_err_m=float(pos_err[-1]),
+                final_pos_err_share=float(pos_err[-1] / travelled),
+                ate_rmse_m=float(np.sqrt((pos_err ** 2).mean())),
+                ate_rmse_aligned_m=traj_metrics.ate_rmse(T, poses),
+                kitti_t_err_pct_5_10m=kitti["kitti_t_err_pct"],
+                kitti_r_err_deg_per_m_5_10m=kitti["kitti_r_err_deg_per_m"])
+
+
+def pose_errors(Tg, Tc):
+    """Largest translation (m) and rotation (rad) between two pose stacks;
+    the angle of Tg^T Tc from its skew part (arccos of the trace is
+    ill-conditioned at small angles)."""
+    Tg, Tc = Tg.cpu().double(), Tc.cpu().double()
+    t_err = float((Tg[:, :3, 3] - Tc[:, :3, 3]).norm(dim=-1).max())
+    Rd = Tg[:, :3, :3].transpose(1, 2) @ Tc[:, :3, :3]
+    W = (Rd - Rd.transpose(1, 2)) / 2
+    r_err = float(torch.stack([W[:, 2, 1], W[:, 0, 2], W[:, 1, 0]], -1)
+                  .norm(dim=-1).arcsin().max())
+    if t_err > 1e-3 or r_err > 1e-4:
+        raise AssertionError(f"VO card vs CPU: {t_err} m, {r_err} rad")
+    return t_err, r_err
+
+
 def run_rgbd(cfg, fr):
     """The RGB-D main path: 48 frames through process_sequence_rgbd, with
     the launch counts set to 0 just before and read just after."""
@@ -308,15 +374,7 @@ def run_rgbd(cfg, fr):
     track = float(ok[1:].mean())
     if track < 0.95:
         raise AssertionError(f"tracking held on {track:.3f} of the frames")
-    T = stats["T_wc"].cpu().numpy()
-    if T.shape != (RGBD_FRAMES, 4, 4) or not np.isfinite(T).all():
-        raise AssertionError("poses have the wrong shape or non-finite values")
-    gt = fr["poses"][:, :3, 3]
-    travelled = float(np.linalg.norm(np.diff(gt, axis=0), axis=1).sum())
-    pos_err = np.linalg.norm(T[:, :3, 3] - gt, axis=1)
-    if pos_err[-1] > 0.03 * travelled:
-        raise AssertionError(f"final position off by {pos_err[-1]:.3f} m "
-                             f"over {travelled:.2f} m")
+    traj = trajectory_gates(stats["T_wc"], fr["poses"])
     if not torch.isfinite(m.tsdf).all():
         raise AssertionError("non-finite tsdf")
     blocks = int(tsdf_ops.num_allocated_blocks(m))
@@ -326,10 +384,7 @@ def run_rgbd(cfg, fr):
               decayed_blocks=int(m.decayed_blocks), tracking_ok_share=track,
               inliers_median=float(np.median(
                   stats["num_inliers"].cpu().numpy()[1:])),
-              travelled_m=travelled, final_pos_err_m=float(pos_err[-1]),
-              final_pos_err_share=float(pos_err[-1] / travelled),
-              ate_rmse_m=float(np.sqrt((pos_err ** 2).mean())),
-              fused_colour_mean=[float(c.mean()) for c in colour]))
+              **traj, fused_colour_mean=[float(c.mean()) for c in colour]))
     return dict(launches=launches, stats=stats)
 
 
@@ -340,23 +395,14 @@ def check_rgbd_against_cpu(cfg, dev, fr):
     from denseslam_tpu_torch.models import dense_slam
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
 
-    n = 5
+    n = N_CPU_FRAMES
     cpu = torch.device("cpu")
-    sub = {k: (v[:n] if k != "poses" else v) for k, v in fr.items()}
+    sub = {k: v[:n] for k, v in fr.items()}
     mg, sg, _ = drive_rgbd(cfg, sub)
     sub_cpu = {k: (v.to(cpu) if isinstance(v, torch.Tensor) else v)
                for k, v in sub.items()}
     _, sc, _ = drive_rgbd(cfg, sub_cpu)
-    Tg, Tc = sg["T_wc"].cpu().double(), sc["T_wc"].double()
-    t_err = float((Tg[:, :3, 3] - Tc[:, :3, 3]).norm(dim=-1).max())
-    # the angle of R_card^T R_cpu from its skew part (arccos of the trace
-    # is ill-conditioned at small angles)
-    Rd = Tg[:, :3, :3].transpose(1, 2) @ Tc[:, :3, :3]
-    W = (Rd - Rd.transpose(1, 2)) / 2
-    r_err = float(torch.stack([W[:, 2, 1], W[:, 0, 2], W[:, 1, 0]], -1)
-                  .norm(dim=-1).arcsin().max())
-    if t_err > 1e-3 or r_err > 1e-4:
-        raise AssertionError(f"VO card vs CPU: {t_err} m, {r_err} rad")
+    t_err, r_err = pose_errors(sg["T_wc"], sc["T_wc"])
     if not torch.equal(sg["fused"].cpu(), sc["fused"]):
         raise AssertionError("card and CPU fused different keyframes")
 
@@ -378,9 +424,187 @@ def check_rgbd_against_cpu(cfg, dev, fr):
         raise AssertionError(f"tsdf card vs CPU: {tsdf_err}, {tsdf_frac}")
     emit(dict(phase="rgbd_cpu_reference", frames=n,
               fused=int(sc["fused"].sum()), vo_pos_err_m=t_err,
-              vo_rot_err_rad=r_err, tables_equal=True, weights_equal=True,
-              colours_equal=True, tsdf_max_abs_err=tsdf_err,
+              vo_rot_err_rad=r_err,
+              tables_equal=True, weights_equal=True, colours_equal=True,
+              tsdf_max_abs_err=tsdf_err,
               tsdf_frac_differ=tsdf_frac))
+
+
+def stereo_frames(cfg, dev, seed: int = 1):
+    """The stereo slice's input: 64 street frames along
+    make_trajectory(64, step_m=0.25, yaw_rate=0.003) as rectified pairs,
+    rendered on the card, under the stereo drive's nuisance of
+    scripts/long_drive_eval.py:229-238 (gain 1 + 0.15 sin(2 pi t / 150),
+    photometric noise 2.0 on each image), and every frame's RANSAC draws:
+    all of it drawn from one seeded CPU generator."""
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.ops import ransac
+
+    n = STEREO_FRAMES
+    poses = synthetic.make_trajectory(n, step_m=0.25, yaw_rate=0.003)
+    lefts, rights, gts = synthetic.render_stereo_trajectory(
+        poses, cfg.rig, synthetic.street_scene(), device=dev)
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(n, dtype=torch.float32)
+    gain = (1.0 + 0.15 * torch.sin(2 * math.pi * t / 150.0))[:, None, None]
+    nl = torch.randn(lefts.shape, generator=gen)
+    nr = torch.randn(rights.shape, generator=gen)
+    lefts = torch.clamp(lefts * gain.to(dev) + 2.0 * nl.to(dev), 0, 255)
+    rights = torch.clamp(rights * gain.to(dev) + 2.0 * nr.to(dev), 0, 255)
+    draws = torch.stack([ransac.draw_hypotheses(cfg.frontend.ransac_iters,
+                                                gen) for _ in range(n)])
+    torch.cuda.synchronize()
+    return dict(poses=poses, lefts=lefts, rights=rights, gts=gts,
+                draws=draws.to(dev),
+                fids=torch.arange(n, dtype=torch.int32, device=dev))
+
+
+def drive_stereo(cfg, fr):
+    """process_sequence over all frames of `fr` in one call, from a fresh
+    state on their device. Returns (map, stats, seconds of the call)."""
+    from denseslam_tpu_torch.models import dense_slam, frontend
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    d = fr["lefts"].device
+    st = frontend.init_frontend(cfg, device=d)
+    m = tsdf_ops.make_map(cfg.tsdf, device=d)
+    db = dense_slam.make_fusion_db(cfg, device=d)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m, db, stats = dense_slam.process_sequence(
+        st, m, db, fr["lefts"], fr["rights"], fr["fids"], cfg,
+        draws=fr["draws"])
+    torch.cuda.synchronize()
+    return m, stats, time.perf_counter() - t0
+
+
+def keyframe_depths(cfg, fr, stats):
+    """The SGM depth of each fused keyframe as process_sequence computed
+    it (compute_depth is deterministic): (indices, (K, H, W) depths)."""
+    from denseslam_tpu_torch.ops import stereo
+    kf = torch.nonzero(stats["fused"]).flatten().tolist()
+    return kf, torch.stack([stereo.compute_depth(
+        fr["lefts"][i], fr["rights"][i], cfg.rig, cfg.stereo)[0] for i in kf])
+
+
+def run_stereo(cfg, fr):
+    """The stereo main path: 64 frames through process_sequence, with the
+    launch counts set to 0 just before and read just after."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.eval import depth_metrics
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    kernels.reset_counts()
+    m, stats, secs = drive_stereo(cfg, fr)
+    launches = dict(kernels.launch_counts)
+
+    fused = int(stats["fused"].sum())
+    want = dict(tile_sample=fused, tile_sample_rgb=0, sgm_path=3 * fused,
+                sgm_final=fused)
+    if fused == 0 or launches != want:
+        raise AssertionError(f"launches {launches} for {fused} fused "
+                             f"keyframes, want {want}")
+    overflow = int(m.overflow)
+    if overflow != 0:
+        raise AssertionError(f"map overflow {overflow}")
+    ok = stats["tracking_ok"].cpu().numpy()
+    track = float(ok[1:].mean())
+    if track < 0.95:
+        raise AssertionError(f"tracking held on {track:.3f} of the frames")
+    traj = trajectory_gates(stats["T_wc"], fr["poses"])
+    if not torch.isfinite(m.tsdf).all():
+        raise AssertionError("non-finite tsdf")
+    kf, depth = keyframe_depths(cfg, fr, stats)
+    q = depth_metrics.depth_metrics(depth.cpu().numpy(),
+                                    fr["gts"][kf].cpu().numpy())
+    if not (q["d1_25"] > 0.8 and q["coverage"] > 0.3):
+        raise AssertionError(f"keyframe SGM depth off the rendered depth: {q}")
+    emit(dict(phase="stereo", frames=STEREO_FRAMES, fused=fused,
+              launches=launches, overflow=overflow,
+              blocks=int(tsdf_ops.num_allocated_blocks(m)),
+              decayed_blocks=int(m.decayed_blocks), tracking_ok_share=track,
+              inliers_median=float(np.median(
+                  stats["num_inliers"].cpu().numpy()[1:])),
+              **traj, depth_absrel=q["absrel"], depth_d1_25=q["d1_25"],
+              depth_coverage=q["coverage"], seconds=secs))
+    return dict(launches=launches, stats=stats)
+
+
+def check_stereo_against_cpu(cfg, dev, fr):
+    """Frames 0-4 rerun on the card and on the CPU with the same draws: the
+    VO poses agree; on each fused keyframe SGM + WTA of the card's cost
+    volume gives equal disparity and validity on both devices, and the
+    whole of compute_depth agrees on both; the CPU fusing the card's
+    keyframe depth at the card's poses rebuilds the card's map."""
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import stereo
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    n = N_CPU_FRAMES
+    cpu = torch.device("cpu")
+    sub = {k: v[:n] for k, v in fr.items()}
+    mg, sg, _ = drive_stereo(cfg, sub)
+    sub_cpu = {k: (v.to(cpu) if isinstance(v, torch.Tensor) else v)
+               for k, v in sub.items()}
+    _, sc, cpu_s = drive_stereo(cfg, sub_cpu)
+    t_err, r_err = pose_errors(sg["T_wc"], sc["T_wc"])
+    if not torch.equal(sg["fused"].cpu(), sc["fused"]):
+        raise AssertionError("card and CPU fused different keyframes")
+    # SGM + WTA of the card's cost volume on both devices: equal
+    stc = cfg.stereo
+    wdt = torch.bfloat16 if stc.cost_dtype == "bfloat16" else torch.float32
+    kf = torch.nonzero(sg["fused"]).flatten().tolist()
+    if not kf:
+        raise AssertionError("no keyframe fused in the CPU rerun's frames")
+    for i in kf:
+        cg = stereo.cost_volume(sub["lefts"][i], sub["rights"][i], stc)
+        got = stereo.disparity(cg.to(wdt), stc)
+        want = stereo.disparity(cg.to(wdt).cpu(), stc)
+        for name, a, b in zip(("disp", "valid"), got, want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"SGM + WTA of frame {i}'s cost volume: "
+                                     f"{name} differs between card and CPU")
+    cc = stereo.cost_volume(sub_cpu["lefts"][kf[-1]],
+                            sub_cpu["rights"][kf[-1]], stc)
+    cost_diff = (cg.cpu() - cc).abs()
+
+    # compute_depth end to end: the cost volume's box-filter cumsums add in
+    # another order on the two devices (cost_volume_* below), which moves
+    # the subpixel parabola and can flip a near-tie of the WTA
+    _, dg = keyframe_depths(cfg, sub, sg)
+    _, dc = keyframe_depths(cfg, sub_cpu, sc)
+    dg = dg.cpu()
+    equal = float((dg == dc).float().mean())
+    agree = float(((dg > 0) == (dc > 0)).float().mean())
+    both = (dg > 0) & (dc > 0)
+    close = float(((dg[both] - dc[both]).abs() <= 1e-3 * dc[both])
+                  .float().mean())
+    if agree < 0.9995 or close < 0.9995:
+        raise AssertionError(f"stereo card vs CPU: valid {agree}, "
+                             f"close {close}")
+
+    mc = tsdf_ops.make_map(cfg.tsdf, device=cpu)
+    db = dense_slam.make_fusion_db(cfg, device=cpu)
+    for j, i in enumerate(kf):
+        mc, db = dense_slam.fuse_keyframe(mc, db, dg[j], sub_cpu["lefts"][i],
+                                          sg["T_wc"][i].cpu(), i, cfg)
+    if not torch.equal(mg.table.keys.cpu(), mc.table.keys):
+        raise AssertionError("hash tables differ between card and CPU")
+    if not torch.equal(mg.weight.cpu(), mc.weight):
+        raise AssertionError("weights differ between card and CPU")
+    tg = mg.tsdf.cpu()
+    tsdf_err = float((tg - mc.tsdf).abs().max())
+    if tsdf_err > 1e-6:
+        raise AssertionError(f"tsdf card vs CPU: {tsdf_err}")
+    emit(dict(phase="stereo_cpu_reference", frames=n, fused=len(kf),
+              vo_pos_err_m=t_err, vo_rot_err_rad=r_err,
+              sgm_wta_equal=True,
+              cost_volume_equal_share=float((cost_diff == 0).float().mean()),
+              cost_volume_max_abs_diff=float(cost_diff.max()),
+              depth_equal_share=equal, depth_valid_agree=agree,
+              depth_close_share=close, tables_equal=True,
+              weights_equal=True, tsdf_max_abs_err=tsdf_err,
+              cpu_seconds=cpu_s))
 
 
 def check_sampler(cfg, dev, gpu):
@@ -487,6 +711,118 @@ def check_sgm(cfg, dev, gpu):
     return rec
 
 
+def _tie_volume(d: int, dtype, dev):
+    """(2, 6, d) summed volume with a WTA tie (d = 3 and 7), a right-view
+    tie (x_r = 1 at d = 2 and 4) and a right pixel whose candidates all
+    equal BIG in the cost dtype (x_r = 4), as tests/test_torch_sgm_final.py
+    builds it."""
+    big = float(torch.tensor(1e4, dtype=dtype).float())
+    fin = torch.full((2, 6, d), 500.0)
+    fin[:, :, 3] = fin[:, :, 7] = 7.0
+    fin[0, 3, 2] = fin[0, 5, 4] = 5.0
+    fin[1, 4, 0] = fin[1, 5, 1] = big
+    return fin.to(dev, dtype)
+
+
+def check_sgm_final(cfg, dev, gpu):
+    """Kernel 4 against its plain version on a KITTI-size volume (frame 0
+    of the street): every map bit for bit, in f32 and bf16, for both
+    backends, on sums that kernel 2 made; the hand-built tie volume; and
+    compute_depth (kernel 2 three times + kernel 4) against the unfused
+    sequence it replaces (kernel 2 four times + the torch WTA over the
+    summed volume), depth and validity equal. Times of kernel 4, its plain
+    version and the unfused sequence's fourth launch + WTA."""
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.ops import sgm, stereo
+    from denseslam_tpu_torch.utils.camera import disparity_to_depth
+
+    sc = cfg.stereo
+    p1, p2 = sc.sgm_p1, sc.sgm_p2
+    pose = synthetic.make_trajectory(1)
+    left, right, _ = synthetic.render_stereo_trajectory(
+        pose, cfg.rig, synthetic.street_scene(), device=dev)
+    cost = stereo.cost_volume(left[0], right[0], sc)
+    names = sgm.WtaMaps._fields
+    for dtype in (torch.float32, torch.bfloat16):
+        c = cost.to(dtype)
+        for backend in ("xla", "pallas"):
+            acc, extra = sgm._three_paths(c, p1, p2, backend)
+            got = sgm.sgm_final(c, acc, extra, p1, p2, backend)
+            want = sgm.sgm_final_plain(c, acc, extra, p1, p2, backend)
+            torch.cuda.synchronize()
+            for name, a, b in zip(names, got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"sgm_final {dtype} {backend} "
+                                         f"{name} differs from plain")
+        tie = _tie_volume(c.shape[-1], dtype, dev)
+        z = torch.zeros_like(tie)
+        got = sgm.sgm_final(z, tie, None, p1, p2, "pallas", unique=False)
+        want = sgm.sgm_final_plain(z, tie, None, p1, p2, "pallas",
+                                   unique=False)
+        for name, a, b in zip(names[:5], got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(f"sgm_final tie volume {dtype} {name}")
+        if int(got.best_r[0, 1]) != 2 or int(got.best_r[1, 4]) != 0:
+            raise AssertionError("sgm_final tie rule")
+    del acc, extra, got, want
+
+    # compute_depth against the unfused sequence, both backends
+    wdt = torch.bfloat16 if sc.cost_dtype == "bfloat16" else torch.float32
+
+    def unfused(sc_b):
+        cb_ = stereo.cost_volume(left[0], right[0], sc_b).to(wdt)
+        agg = sgm.sgm_aggregate(cb_, p1, p2, sc_b.sgm_backend)
+        disp, valid = stereo.disparity_from_cost(agg, sc_b, raw_cost=cb_)
+        depth = disparity_to_depth(disp, cfg.rig, 0.05, 60.0)
+        return depth, valid & (depth > 0)
+
+    for backend in ("xla", "pallas"):
+        sc_b = dataclasses.replace(sc, sgm_backend=backend)
+        fused = stereo.compute_depth(left[0], right[0], cfg.rig, sc_b)
+        for name, a, b in zip(("depth", "valid"), fused, unfused(sc_b)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"compute_depth {backend}: {name} "
+                                     "differs from the unfused sequence")
+
+    cb = cost.to(wdt)
+    backend = sc.sgm_backend
+    acc, extra = sgm._three_paths(cb, p1, p2, backend)
+    fourth = torch.empty_like(cb)
+
+    def unfused_tail():
+        sgm._launch_path(cb, fourth, 1, True, p1, p2, acc=acc, extra=extra)
+        return sgm.wta_maps(fourth, cb)
+
+    ms = cuda_ms(lambda: sgm.sgm_final(cb, acc, extra, p1, p2, backend), 20)
+    wrapper_us = host_us(lambda: sgm.sgm_final(cb, acc, extra, p1, p2,
+                                               backend), 20)
+    unfused_ms = cuda_ms(unfused_tail, 10)
+    plain_ms = cuda_ms(lambda: sgm.sgm_final_plain(cb, acc, extra, p1, p2,
+                                                   backend), 2, warm=1)
+    h, w, d = cb.shape
+    n = cb.numel()
+    vols = 3 if extra is not None else 2
+    nbytes = vols * n * cb.element_size() + 7 * h * w * 4
+    # per element: the step (2 adds of P1, 3 minimums, add, subtract, a
+    # term of min L'), the direction sum(s), a term each of cmin, the
+    # argmin, the right-view compare and select, and of `second`
+    bnd, by = bound_ms(nbytes, (8 + vols - 1 + 5) * n)
+    rec = dict(name="sgm_final", route="cuda",
+               source="denseslam_tpu_torch/csrc/sgm_final.cu",
+               replaces="scripts/probes/exp_fused_sgm.py:169 and "
+                        "scripts/probes/exp_fused_loop.py:118",
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+               bound_by=by, library_ms=None)
+    emit(dict(phase="kernel", name=rec["name"], shape=list(cb.shape),
+              dtype=str(cb.dtype), backend=backend,
+              exact_f32_bf16_both_backends=True, tie_rules=True,
+              compute_depth_equals_unfused=True, kernel_ms=ms,
+              plain_ms=plain_ms, unfused_ms=unfused_ms, library_ms=None,
+              bytes=nbytes, bound_ms=bnd, bound_by=by,
+              wrapper_host_us=wrapper_us, gpu=gpu))
+    return rec
+
+
 def drive(cfg, dev, run):
     """Stereo depth + fuse_sequence over the run's frames, chunk by chunk,
     on a fresh map. Returns (map, depths, seconds of the chunks after the
@@ -542,9 +878,11 @@ def run_slice(cfg, dev):
         raise AssertionError(f"map overflow {overflow}")
     if blocks <= 0:
         raise AssertionError("no blocks allocated")
-    for name in ("tile_sample", "sgm_path"):     # the kernels of this path
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} never launched on the path")
+    # per frame: B3 for three directions, the fused tail for the fourth
+    # and the WTA maps, B1 for the fusion
+    want = dict(tile_sample=n, tile_sample_rgb=0, sgm_path=3 * n, sgm_final=n)
+    if launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
     dn = depth.cpu().numpy()
     if dn.shape != tuple(gts.shape) or not np.isfinite(dn).all():
         raise AssertionError("depth has the wrong shape or non-finite values")
@@ -635,6 +973,7 @@ def fusion_intermediates(cfg, m, depth, gray, T):
     plus eta with the truncation distance divided as a Python number."""
     from denseslam_tpu_torch.models import dense_slam
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+    from denseslam_tpu_torch.utils.numerics import true_div
     intr, tc = cfg.rig.intr, cfg.tsdf
     depth = dense_slam._depth_mm(depth).to(torch.float32) * 1e-3
     color = tsdf_ops.pack_gray(gray)
@@ -644,7 +983,7 @@ def fusion_intermediates(cfg, m, depth, gray, T):
                                              intr, tc, m)
     sdf = d_samp - z
     out = dict(slots=slots, u=u, v=v, z=z, d_samp=d_samp, sdf=sdf,
-               eta=tsdf_ops._true_div(sdf, tc.trunc_dist_m),
+               eta=true_div(sdf, tc.trunc_dist_m),
                eta_python_divisor=sdf / tc.trunc_dist_m)
     m = tsdf_ops.integrate(m, slots, mask, depth, color, T, intr, tc)
     rows = safe.long()
@@ -652,12 +991,15 @@ def fusion_intermediates(cfg, m, depth, gray, T):
     return out
 
 
-def throughput(cfg, dev, run, gpu, reps: int, rgbd_cfg, rgbd_fr):
+def throughput(cfg, dev, run, gpu, reps: int, rgbd_cfg, rgbd_fr,
+               stereo_cfg, stereo_fr):
     """Frames/s on the host clock around work that ends in a synchronize:
     stereo + fusion over chunks 2-4 of the slice's frames, the fusion
     tail alone on bench.py's workload (10 rendered street frames fused
-    over and over, 3 warm-up chunks, 12 timed), and the RGB-D path over
-    chunks 2-3 of its 48 frames. `reps` samples of each, taken in turns."""
+    over and over, 3 warm-up chunks, 12 timed), the RGB-D path over
+    chunks 2-3 of its 48 frames, and the stereo main path over its 64
+    frames (one call, VO + keyframe SGM + fusion). `reps` samples of
+    each, taken in turns."""
     from denseslam_tpu_torch.io import synthetic
     from denseslam_tpu_torch.models import dense_slam
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
@@ -686,17 +1028,21 @@ def throughput(cfg, dev, run, gpu, reps: int, rgbd_cfg, rgbd_fr):
             raise AssertionError(f"map overflow {int(m.overflow)}")
         return timed * CHUNK / dt
 
-    samples = {"stereo_fusion": [], "fusion_tail": [], "rgbd": []}
+    samples = {"stereo_fusion": [], "fusion_tail": [], "rgbd": [],
+               "stereo_path": []}
     for _ in range(reps):
         samples["stereo_fusion"].append(
             CHUNK * (N_CHUNKS - 1) / drive(cfg, dev, run)[2])
         samples["fusion_tail"].append(fusion_fps())
         samples["rgbd"].append(
             (RGBD_FRAMES - RGBD_CHUNK) / drive_rgbd(rgbd_cfg, rgbd_fr)[2])
+        samples["stereo_path"].append(
+            STEREO_FRAMES / drive_stereo(stereo_cfg, stereo_fr)[2])
     q = {k: np.percentile(v, [25, 50, 75]).tolist() for k, v in samples.items()}
     emit(dict(phase="throughput", unit="frames/s",
               stereo_fusion_fps=q["stereo_fusion"][1],
               fusion_tail_fps=q["fusion_tail"][1], rgbd_fps=q["rgbd"][1],
+              stereo_path_fps=q["stereo_path"][1],
               quartiles=q, samples=samples, gpu=gpu))
 
 
@@ -814,23 +1160,73 @@ def profile_rgbd_chunk(cfg, dev, fr, poses, out: str):
     for part, fn in (("rgbd_vo", vo), ("rgbd_fusion", fusion),
                      ("rgbd", both)):
         state = profile_part(part, RGBD_CHUNK, fn, state, out)
-    profile_vo_stages(vo)
+    from denseslam_tpu_torch.models import frontend as fe
+    profile_vo_stages(vo, "rgbd_vo_stages", RGBD_CHUNK, [
+        (fe.feat_ops, "detect"), (fe.feat_ops, "bucket"),
+        (fe.matching, "predict_uv"), (fe.matching, "match_temporal"),
+        (fe.matching, "refine_temporal_subpix"),
+        (fe.matching, "remove_outliers"),
+        (fe.ransac, "estimate_stereo_motion")])
 
 
-def profile_vo_stages(vo):
+def profile_stereo_chunk(cfg, dev, fr, poses, out: str):
+    """torch.profiler over the stereo main path's first 16 frames, three
+    ways: the VO alone (vo_step from a fresh state), the keyframes alone
+    (compute_depth + fuse_keyframe of the chunk's 4 keyframes at the VO's
+    poses `poses`), and process_sequence; then the VO by stage."""
+    from denseslam_tpu_torch.models import dense_slam, frontend
+    from denseslam_tpu_torch.ops import stereo
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    n = RGBD_CHUNK
+    sub = {k: v[:n] for k, v in fr.items()}
+    kf = range(0, n, cfg.pipeline.keyframe_every)
+
+    def vo(state):
+        st = frontend.init_frontend(cfg, device=dev)
+        for i in range(n):
+            st, _ = frontend.vo_step(st, sub["lefts"][i], sub["rights"][i],
+                                     cfg, raw=sub["draws"][i])
+        return state
+
+    def keyframes(state):
+        m, db = state
+        for i in kf:
+            d, _ = stereo.compute_depth(sub["lefts"][i], sub["rights"][i],
+                                        cfg.rig, cfg.stereo)
+            m, db = dense_slam.fuse_keyframe(m, db, d, sub["lefts"][i],
+                                             poses[i], sub["fids"][i], cfg)
+        return m, db
+
+    def both(state):
+        m, db = state
+        st = frontend.init_frontend(cfg, device=dev)
+        _, m, db, _ = dense_slam.process_sequence(
+            st, m, db, sub["lefts"], sub["rights"], sub["fids"], cfg,
+            draws=sub["draws"])
+        return m, db
+
+    state = (tsdf_ops.make_map(cfg.tsdf, device=dev),
+             dense_slam.make_fusion_db(cfg, device=dev))
+    for part, fn in (("stereo_vo", vo), ("stereo_keyframes", keyframes),
+                     ("stereo_path", both)):
+        state = profile_part(part, n, fn, state, out)
+    profile_vo_stages(vo, "stereo_vo_stages", n, [
+        (frontend.feat_ops, "detect"), (frontend.feat_ops, "bucket"),
+        (frontend.matching, "quad_match"),
+        (frontend.matching, "remove_outliers"),
+        (frontend.matching, "refine_quad_subpix"),
+        (frontend.matching, "stereo_disparities"),
+        (frontend.ransac, "estimate_stereo_motion"),
+        (frontend.matching, "estimate_gain")])
+
+
+def profile_vo_stages(vo, part: str, frames: int, stages):
     """The VO's device time and kernel launches by stage: one profiled run
-    of `vo` (16 rgbd_vo_step calls) with each stage function of
-    models/frontend.py wrapped in a profiler range."""
+    of `vo` (`frames` VO steps) with each stage function (module, name)
+    wrapped in a profiler range."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from denseslam_tpu_torch.models import frontend
-
-    stages = [(frontend.feat_ops, "detect"), (frontend.feat_ops, "bucket"),
-              (frontend.matching, "predict_uv"),
-              (frontend.matching, "match_temporal"),
-              (frontend.matching, "refine_temporal_subpix"),
-              (frontend.matching, "remove_outliers"),
-              (frontend.ransac, "estimate_stereo_motion")]
     saved = [getattr(mod, name) for mod, name in stages]
 
     def labelled(name, fn):
@@ -865,9 +1261,9 @@ def profile_vo_stages(vo):
             acc = by_stage.setdefault(ev.name[3:], [0.0, 0])
             acc[0] += sum(k.duration for k in ks) / 1e3
             acc[1] += len(ks)
-    emit(dict(phase="profile", part="rgbd_vo_stages", frames=RGBD_CHUNK,
-              per_frame={k: dict(device_ms=v[0] / RGBD_CHUNK,
-                                 launches=v[1] / RGBD_CHUNK)
+    emit(dict(phase="profile", part=part, frames=frames,
+              per_frame={k: dict(device_ms=v[0] / frames,
+                                 launches=v[1] / frames)
                          for k, v in by_stage.items()}))
 
 
@@ -898,12 +1294,13 @@ def main(argv=None) -> int:
 
     cfg = slice_config()
     recs = [check_sampler(cfg, dev, gpu), check_sgm(cfg, dev, gpu)]
+    final = check_sgm_final(cfg, dev, gpu)
     run = run_slice(cfg, dev)
     for rec in recs:
         rec["launches"] = run["launches"][rec["name"]]
     check_against_cpu(cfg, dev, run)
 
-    rcfg = rgbd_config()
+    rcfg = drive_config("rgbd")
     fr = rgbd_frames(rcfg, dev)
     rec = check_sampler_rgb(rcfg, dev, gpu, fr)
     rgbd = run_rgbd(rcfg, fr)
@@ -911,11 +1308,20 @@ def main(argv=None) -> int:
     recs.append(rec)
     check_rgbd_against_cpu(rcfg, dev, fr)
 
-    throughput(cfg, dev, run, gpu, args.reps, rcfg, fr)
+    scfg = drive_config("stereo")
+    sfr = stereo_frames(scfg, dev)
+    stereo = run_stereo(scfg, sfr)
+    final["launches"] = stereo["launches"][final["name"]]
+    recs.append(final)
+    check_stereo_against_cpu(scfg, dev, sfr)
+
+    throughput(cfg, dev, run, gpu, args.reps, rcfg, fr, scfg, sfr)
     if args.profile:
         profile_chunk(cfg, dev, run, args.profile)
         profile_rgbd_chunk(rcfg, dev, fr, rgbd["stats"]["T_wc"],
                            args.profile)
+        profile_stereo_chunk(scfg, dev, sfr, stereo["stats"]["T_wc"],
+                             args.profile)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

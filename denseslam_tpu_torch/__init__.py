@@ -5,18 +5,22 @@ held against its JAX counterpart on the same inputs (tests/test_torch_*.py).
 This package imports neither `jax` nor `denseslam_tpu`; it keeps its own
 copies of what it needs.
 
-Layer map (the ported slice):
+Layer map (the ported slices):
   config.py         — the configuration dataclasses (same fields, defaults)
-  utils/            — camera model, the pose helpers the slice needs
+  utils/            — camera model, SE(3) helpers, one-rounding division
   ops/hash.py       — packed-key open-addressing voxel-block table
-  ops/sampling.py   — fusion image sampler (kernel 1: csrc/tile_sample.cu)
+  ops/sampling.py   — fusion image samplers (csrc/tile_sample.cu: B1, B2)
   ops/tsdf.py       — allocate / integrate / decay / slide window
-  ops/sgm.py        — SGM path aggregation (kernel 2: csrc/sgm.cu)
+  ops/sgm.py        — SGM path aggregation (csrc/sgm.cu) and its fused
+                      last direction + WTA tail (csrc/sgm_final.cu)
   ops/stereo.py     — ZSAD cost volume, WTA, LR check, depth
-  models/dense_slam.py — fusion DB, fuse_keyframe, fuse_sequence
+  ops/features.py, matching.py, ransac.py, smallsolve.py — the sparse VO
+  models/frontend.py — VO state machine: vo_step (stereo), rgbd_vo_step
+  models/dense_slam.py — fusion DB, fuse_keyframe, fuse_sequence,
+                      process_sequence (stereo), process_sequence_rgbd
   io/synthetic.py   — analytic street scene renderer (test and smoke input)
   io/convert.py     — JAX-package state (as numpy) <-> port state
-  eval/depth_metrics.py — depth-vs-GT metrics (numpy)
+  eval/             — depth-vs-GT and trajectory metrics (numpy)
   kernels.py        — nvcc build of csrc/ at first use, ctypes bindings
 
 Numerics: the JAX package pins f32 "highest" matmul precision, so TF32 is

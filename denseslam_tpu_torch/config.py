@@ -78,7 +78,11 @@ class TsdfConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
-    """Sparse frontend (not ported yet; kept so configs round-trip)."""
+    """Sparse frontend: detection, matching, refinement and RANSAC of the
+    stereo and RGB-D steps (models/frontend.py). Not ported:
+    feature_type="orb" and the mono step's fields (camera_height_m,
+    camera_pitch_rad), nor the PD budget controller's (pd_kp, pd_kd,
+    target_frame_ms); they are kept so configs round-trip."""
     max_features: int = 2048
     feature_type: str = "gradient"
     orb_levels: int = 3

@@ -45,6 +45,7 @@ KERNELS = {
     "tile_sample_rgb": ("tile_sample.cu", "tile_sample_rgb_launch",
                         "ppiiiipppipppp"),
     "sgm_path": ("sgm.cu", "sgm_path_launch", "ppppiiiiiiffi"),
+    "sgm_final": ("sgm_final.cu", "sgm_final_launch", "ppppppppppiiiffi"),
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -1,6 +1,7 @@
 """The pipeline's device programs (port of part of
 denseslam_tpu/models/dense_slam.py): the fused-keyframe DB,
-`fuse_keyframe` / `fuse_sequence`, and the RGB-D throughput path
+`fuse_keyframe` / `fuse_sequence`, and the throughput paths
+`process_sequence` (stereo VO + keyframe-gated SGM + fusion) and
 `process_sequence_rgbd`.
 
 The JAX package donates map and DB to each step; here both are updated in
@@ -17,6 +18,7 @@ from ..config import SystemConfig
 from ..device import resolve_device
 from ..ops import features as feat_ops
 from ..ops import ransac
+from ..ops import stereo as stereo_ops
 from ..ops import tsdf as tsdf_ops
 from . import frontend as fe
 from .backend import signature_device
@@ -151,6 +153,69 @@ def _stack_features(fs) -> feat_ops.Features:
     return feat_ops.Features(*(torch.stack(x) for x in zip(*fs)))
 
 
+def _sequence_draws(draws: Optional[torch.Tensor],
+                    generator: Optional[torch.Generator], n: int,
+                    cfg: SystemConfig, dev) -> torch.Tensor:
+    """(n, K, 3) RANSAC draws on `dev`: `draws`, or drawn from
+    `generator`, all at once."""
+    if draws is None:
+        if generator is None:
+            raise ValueError("a sequence needs `draws` or a torch.Generator")
+        draws = torch.stack([ransac.draw_hypotheses(
+            cfg.frontend.ransac_iters, generator) for _ in range(n)])
+    return draws.to(dev)
+
+
+def _frame_stats(vo: fe.VOOutput, is_kf: torch.Tensor,
+                 fe_state: fe.FrontendState, feats_r: feat_ops.Features):
+    return dict(T_wc=vo.T_wc, tracking_ok=vo.tracking_ok,
+                num_inliers=vo.num_inliers, fused=is_kf,
+                feats_l=fe_state.feats_l, feats_r=feats_r,
+                sig=signature_device(fe_state.feats_l))
+
+
+def _stack_stats(per_frame) -> dict:
+    stats = {}
+    for key in per_frame[0]:
+        vals = [f[key] for f in per_frame]
+        stats[key] = (_stack_features(vals)
+                      if isinstance(vals[0], feat_ops.Features)
+                      else torch.stack(vals))
+    return stats
+
+
+def process_sequence(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
+                     db: FusionDB, lefts: torch.Tensor, rights: torch.Tensor,
+                     frame_ids: torch.Tensor, cfg: SystemConfig,
+                     draws: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+    """Stereo throughput path: per frame `vo_step`, then, on keyframes
+    where tracking holds, SGM depth of the pair (`compute_depth`: on the
+    card kernel 2 three times and kernel 4 once) and `fuse_keyframe` of it
+    with the left image as gray. lefts / rights (N, H, W), frame_ids (N,)
+    int32; draws and generator as in `process_sequence_rgbd`.
+
+    The JAX version is one `lax.scan` with a `lax.cond` on the keyframe
+    test; here that test is the one value read back to the host per frame.
+
+    Returns (fe_state, map, db, stats): stats hold T_wc, tracking_ok,
+    num_inliers, fused, feats_l, feats_r and sig, stacked over frames."""
+    draws = _sequence_draws(draws, generator, lefts.shape[0], cfg,
+                            lefts.device)
+    every = cfg.pipeline.keyframe_every
+    per_frame = []
+    for i in range(lefts.shape[0]):
+        left, right, fid = lefts[i], rights[i], frame_ids[i]
+        fe_state, vo = fe.vo_step(fe_state, left, right, cfg, raw=draws[i])
+        is_kf = vo.tracking_ok & (torch.remainder(fid, every) == 0)
+        if bool(is_kf):                  # the frame's one host read
+            depth, _ = stereo_ops.compute_depth(left, right, cfg.rig,
+                                                cfg.stereo)
+            m, db = fuse_keyframe(m, db, depth, left, vo.T_wc, fid, cfg)
+        per_frame.append(_frame_stats(vo, is_kf, fe_state, fe_state.feats_r))
+    return fe_state, m, db, _stack_stats(per_frame)
+
+
 def process_sequence_rgbd(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
                           db: FusionDB, grays: torch.Tensor,
                           depths: torch.Tensor, frame_ids: torch.Tensor,
@@ -167,42 +232,19 @@ def process_sequence_rgbd(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
     from the host waits for the card, so keep them (or the generator) on
     the card.
 
-    The JAX version is one `lax.scan` with a `lax.cond` on the keyframe
-    test; here that test is the one value read back to the host per frame.
-
-    Returns (fe_state, map, db, stats): stats hold T_wc, tracking_ok,
-    num_inliers, fused, feats_l, feats_r and sig, stacked over frames."""
-    n = grays.shape[0]
-    dev = grays.device
-    if draws is None:
-        if generator is None:
-            raise ValueError("process_sequence_rgbd needs `draws` or a "
-                             "torch.Generator")
-        draws = torch.stack([ransac.draw_hypotheses(
-            cfg.frontend.ransac_iters, generator) for _ in range(n)])
-    draws = draws.to(dev)
+    Returns (fe_state, map, db, stats) as `process_sequence` does, with
+    the virtual right-view features as feats_r."""
+    draws = _sequence_draws(draws, generator, grays.shape[0], cfg,
+                            grays.device)
     every = cfg.pipeline.keyframe_every
     per_frame = []
-    for i in range(n):
+    for i in range(grays.shape[0]):
         g, d, fid = grays[i], depths[i], frame_ids[i]
         fe_state, vo = fe.rgbd_vo_step(fe_state, g, d, cfg, raw=draws[i])
         is_kf = vo.tracking_ok & (torch.remainder(fid, every) == 0)
         if bool(is_kf):                  # the frame's one host read
             m, db = fuse_keyframe(m, db, d, g, vo.T_wc, fid, cfg)
-        per_frame.append(dict(
-            T_wc=vo.T_wc,
-            tracking_ok=vo.tracking_ok,
-            num_inliers=vo.num_inliers,
-            fused=is_kf,
-            feats_l=fe_state.feats_l,
-            feats_r=_virtual_right_features(fe_state.feats_l,
-                                            fe_state.disp_l),
-            sig=signature_device(fe_state.feats_l),
-        ))
-    stats = {}
-    for key in per_frame[0]:
-        vals = [f[key] for f in per_frame]
-        stats[key] = (_stack_features(vals)
-                      if isinstance(vals[0], feat_ops.Features)
-                      else torch.stack(vals))
-    return fe_state, m, db, stats
+        per_frame.append(_frame_stats(
+            vo, is_kf, fe_state,
+            _virtual_right_features(fe_state.feats_l, fe_state.disp_l)))
+    return fe_state, m, db, _stack_stats(per_frame)

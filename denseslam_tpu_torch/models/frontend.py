@@ -1,7 +1,7 @@
 """Sparse VO frontend as a state machine (port of
-denseslam_tpu/models/frontend.py): the state, `init_frontend` and the RGB-D
-step `rgbd_vo_step`. The stereo `vo_step` comes with the stereo VO
-(ROADMAP.md Queue A, A4).
+denseslam_tpu/models/frontend.py): the state, `init_frontend`, the stereo
+step `vo_step` and the RGB-D step `rgbd_vo_step`. The mono step is not
+ported (ROADMAP.md Queue A, A8).
 
 The JAX state carries a PRNG key for the RANSAC draws; here the draws are
 an argument of the step, or come from a `torch.Generator` the caller
@@ -20,6 +20,7 @@ from ..device import resolve_device
 from ..ops import features as feat_ops
 from ..ops import matching, ransac
 from ..utils import lie
+from ..utils.numerics import true_div
 
 
 class FrontendState(NamedTuple):
@@ -83,6 +84,93 @@ def init_frontend(cfg: SystemConfig, T_init: Optional[torch.Tensor] = None,
     )
 
 
+def _advance(state: FrontendState, q: matching.QuadMatches,
+             res: ransac.VOResult, **new) -> Tuple[FrontendState, VOOutput]:
+    """The steps' common tail: the RANSAC motion where it holds, else the
+    constant-velocity fallback (identity on the first frame); the pose;
+    the next state from `new` (feats_l, feats_r, disp_l, disp_r, img_l,
+    img_r, exposure) and the output."""
+    dev = state.T_wc.device
+    use_est = state.initialized & res.ok
+    T_delta = torch.where(use_est, res.T_delta, state.T_delta_prev)
+    T_delta = torch.where(state.initialized, T_delta,
+                          torch.eye(4, dtype=torch.float32, device=dev))
+    T_wc = state.T_wc @ lie.inv_T(T_delta)
+    new_state = FrontendState(
+        T_wc=T_wc, T_delta_prev=T_delta,
+        initialized=torch.ones((), dtype=torch.bool, device=dev),
+        prior_ok=use_est, frame=(state.frame + 1).to(torch.int32), **new)
+    out = VOOutput(
+        T_wc=T_wc,
+        T_delta=T_delta,
+        num_inliers=res.num_inliers,
+        num_quads=q.valid.to(torch.int32).sum().to(torch.int32),
+        tracking_ok=use_est | ~state.initialized,
+        flow_uv_prev=q.uv_lp,
+        flow_uv_curr=q.uv_lc,
+        flow_valid=q.valid & state.initialized,
+    )
+    return new_state, out
+
+
+def vo_step(state: FrontendState, left: torch.Tensor, right: torch.Tensor,
+            cfg: SystemConfig, raw: Optional[torch.Tensor] = None,
+            generator: Optional[torch.Generator] = None
+            ) -> Tuple[FrontendState, VOOutput]:
+    """One frame of stereo VO: both images scaled by the running exposure,
+    features of each, the circular quad match (gated around the motion
+    prior while the last RANSAC held), flow consensus, subpixel refinement,
+    the per-feature stereo disparities for the next frame's prior, RANSAC
+    and the exposure update from this frame's matched patches. `raw` /
+    `generator`: the RANSAC draws (see ops/ransac.py). The JAX step's
+    `budget_scale` (the PD feature-budget controller) is not taken."""
+    fc = cfg.frontend
+    intr = cfg.rig.intr
+    if fc.gain_normalization:
+        left = left * state.exposure
+        right = right * state.exposure
+    f_lc = feat_ops.detect(left, fc)
+    f_rc = feat_ops.detect(right, fc)
+    f_lc = feat_ops.bucket(f_lc, intr.width, intr.height, fc)
+
+    if fc.use_motion_prior_gate:
+        # the tight predictive gate only while the prior is trusted
+        trusted = state.initialized & state.prior_ok
+        q = matching.quad_match(
+            f_lc, f_rc, state.feats_l, state.feats_r, fc,
+            disp_lp=torch.where(trusted, state.disp_l, -1.0),
+            disp_rp=torch.where(trusted, state.disp_r, -1.0),
+            T_pred=state.T_delta_prev, rig=cfg.rig)
+    else:
+        q = matching.quad_match(f_lc, f_rc, state.feats_l, state.feats_r, fc)
+    q = matching.remove_outliers(q, fc)
+    if fc.subpixel_refine:
+        # frame 0's previous images are zeros, but no quad is valid then
+        q = matching.refine_quad_subpix(q, state.img_l, state.img_r, left,
+                                        right, fc, T_pred=state.T_delta_prev,
+                                        rig=cfg.rig)
+    if fc.use_motion_prior_gate:
+        # q.idx_rc is quad_match's lc -> rc stereo match
+        disp_lc, disp_rc = matching.stereo_disparities(f_lc, f_rc, q.idx_rc)
+    else:
+        disp_lc = torch.full((f_lc.uv.shape[0],), -1.0, device=left.device)
+        disp_rc = disp_lc
+    res = ransac.estimate_stereo_motion(q, cfg.rig, fc, raw=raw,
+                                        T_init=state.T_delta_prev,
+                                        generator=generator)
+
+    exposure = state.exposure
+    if fc.gain_normalization:
+        # residual gain of this (compensated) frame against the previous
+        g = matching.estimate_gain(state.img_l, left, q.uv_lp, q.uv_lc,
+                                   q.valid & state.initialized)
+        g = torch.clamp(g, 0.7, 1.4)
+        exposure = torch.clamp(state.exposure / g, 0.25, 4.0)
+    return _advance(state, q, res, feats_l=f_lc, feats_r=f_rc,
+                    disp_l=disp_lc, disp_r=disp_rc, img_l=left, img_r=right,
+                    exposure=exposure)
+
+
 def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
                  depth: torch.Tensor, cfg: SystemConfig,
                  raw: Optional[torch.Tensor] = None,
@@ -105,7 +193,8 @@ def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
                      intr.height - 1)
     z = depth.reshape(-1)[(vi * intr.width + ui).long()]
     disp_lc = torch.where(f_lc.valid & (z > 0.1),
-                          intr.fx * cfg.rig.baseline_m / torch.clamp(z, min=0.1),
+                          true_div(intr.fx * cfg.rig.baseline_m,
+                                   torch.clamp(z, min=0.1)),
                           -1.0)
 
     if fc.use_motion_prior_gate:
@@ -144,35 +233,6 @@ def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
     res = ransac.estimate_stereo_motion(q, cfg.rig, fc, raw=raw,
                                         T_init=state.T_delta_prev,
                                         generator=generator)
-
-    use_est = state.initialized & res.ok
-    T_delta = torch.where(use_est, res.T_delta, state.T_delta_prev)
-    T_delta = torch.where(state.initialized, T_delta,
-                          torch.eye(4, dtype=torch.float32, device=gray.device))
-    T_wc = state.T_wc @ lie.inv_T(T_delta)
-
-    new_state = FrontendState(
-        feats_l=f_lc,
-        feats_r=state.feats_r,
-        disp_l=disp_lc,
-        disp_r=state.disp_r,
-        T_wc=T_wc,
-        T_delta_prev=T_delta,
-        initialized=torch.ones((), dtype=torch.bool, device=gray.device),
-        prior_ok=use_est,
-        frame=(state.frame + 1).to(torch.int32),
-        img_l=gray,
-        img_r=state.img_r,
-        exposure=state.exposure,
-    )
-    out = VOOutput(
-        T_wc=T_wc,
-        T_delta=T_delta,
-        num_inliers=res.num_inliers,
-        num_quads=q.valid.to(torch.int32).sum().to(torch.int32),
-        tracking_ok=use_est | ~state.initialized,
-        flow_uv_prev=q.uv_lp,
-        flow_uv_curr=q.uv_lc,
-        flow_valid=q.valid & state.initialized,
-    )
-    return new_state, out
+    return _advance(state, q, res, feats_l=f_lc, feats_r=state.feats_r,
+                    disp_l=disp_lc, disp_r=state.disp_r, img_l=gray,
+                    img_r=state.img_r, exposure=state.exposure)

@@ -1,24 +1,25 @@
-"""Descriptor matching, the temporal half (port of
-denseslam_tpu/ops/matching.py): the squared-L2 cost matrix as one matmul,
-mutual nearest neighbours, the motion-prior gate, neighbourhood flow
-consensus, and subpixel refinement of the temporal leg by bilinear patch
-correlation.
+"""Descriptor matching (port of denseslam_tpu/ops/matching.py): the
+squared-L2 cost matrix as one matmul, mutual nearest neighbours, the
+stereo match along the epipolar band and the circular quad match, the
+motion-prior gate, neighbourhood flow consensus, the photometric gain of
+matched patches, and subpixel refinement by bilinear patch correlation
+(the quad's legs, or the temporal leg alone).
 
-The stereo half (`quad_match`, `match_stereo`, `refine_quad_subpix`,
-`estimate_gain`) comes with the stereo VO (ROADMAP.md Queue A, A4).
-
-The cost matrices are float32 matmuls (TF32 off); they sum in another
-order than XLA:CPU, so a near-tie argmin can pick the other neighbour
-(tests/test_torch_matching.py states the agreement rates).
+Scalar divisions divide by (or of) a 0-d tensor (`utils/numerics.py`), so
+they round once on every device as JAX's do. The cost matrices are
+float32 matmuls (TF32 off); they sum in another order than XLA:CPU, so a
+near-tie argmin can pick the other neighbour (tests/test_torch_matching.py
+and tests/test_torch_vo.py state the agreement rates).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..config import FrontendConfig
+from ..utils.numerics import true_div
 from .features import Features
 
 _INF = 1e9
@@ -30,6 +31,22 @@ def _pair_cost(a: Features, b: Features) -> torch.Tensor:
     na = (a.desc * a.desc).sum(dim=-1)
     nb = (b.desc * b.desc).sum(dim=-1)
     return na[:, None] + nb[None, :] - 2.0 * dots
+
+
+def _gated_cost(a: Features, b: Features, max_du: float, max_dv: float,
+                du_range: Optional[Tuple[float, float]] = None
+                ) -> torch.Tensor:
+    """Masked cost matrix: class equality, validity and spatial gates;
+    du_range (lo, hi) also bounds u_a - u_b (stereo: the disparity)."""
+    cost = _pair_cost(a, b)
+    du = a.uv[:, 0][:, None] - b.uv[:, 0][None, :]
+    dv = a.uv[:, 1][:, None] - b.uv[:, 1][None, :]
+    ok = (a.valid[:, None] & b.valid[None, :]
+          & (a.cls[:, None] == b.cls[None, :])
+          & (du.abs() <= max_du) & (dv.abs() <= max_dv))
+    if du_range is not None:
+        ok = ok & (du >= du_range[0]) & (du <= du_range[1])
+    return torch.where(ok, cost, _INF)
 
 
 def mutual_nn(cost: torch.Tensor) -> torch.Tensor:
@@ -54,6 +71,31 @@ class QuadMatches(NamedTuple):
     uv_lp: torch.Tensor
     uv_rp: torch.Tensor
     valid: torch.Tensor   # bool (M,)
+
+
+def estimate_gain(img_a: torch.Tensor, img_b: torch.Tensor,
+                  uv_a: torch.Tensor, uv_b: torch.Tensor,
+                  valid: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    """Photometric gain of b relative to a over matched patches: the ratio
+    of the (2r+1)^2 patch sums over the valid matches, 1 where a's sum is
+    0. Positions truncate toward zero, then clip to the interior; the
+    patch taps are summed in the JAX loop order."""
+    h, w = img_a.shape
+
+    def patch_sum(img, uv):
+        ui = torch.clamp(uv[:, 0].to(torch.int32), radius, w - 1 - radius)
+        vi = torch.clamp(uv[:, 1].to(torch.int32), radius, h - 1 - radius)
+        flat = img.reshape(-1)
+        acc = 0.0
+        for dy in range(-radius, radius + 1):
+            for dx in range(-radius, radius + 1):
+                acc = acc + flat[((vi + dy) * w + (ui + dx)).long()]
+        return acc
+
+    vf = valid.to(torch.float32)
+    num = (vf * patch_sum(img_b, uv_b)).sum()
+    den = (vf * patch_sum(img_a, uv_a)).sum()
+    return torch.where(den > 1e-6, num / torch.clamp(den, min=1e-6), 1.0)
 
 
 def flow_consensus(uv: torch.Tensor, flow_u: torch.Tensor,
@@ -220,6 +262,77 @@ def _valid_first(valid: torch.Tensor, cap: int) -> torch.Tensor:
     return torch.argsort((~valid).to(torch.int32), stable=True)[:cap]
 
 
+def _pred_scale(uv: torch.Tensor, disp: torch.Tensor, T_pred: torch.Tensor,
+                rig) -> torch.Tensor:
+    """The predicted per-feature scale z_curr / z_prev of previous-frame
+    patches at `uv` with disparity `disp` (positive) under the motion
+    prior, clipped to [0.75, 1.3]: the anchor is resampled at it
+    (forward-motion compensation)."""
+    intr = rig.intr
+    z_p = true_div(intr.fx * rig.baseline_m, disp)
+    x_p = true_div(uv[:, 0] - intr.cx, intr.fx) * z_p
+    y_p = true_div(uv[:, 1] - intr.cy, intr.fy) * z_p
+    z_c = (T_pred[2, 0] * x_p + T_pred[2, 1] * y_p
+           + T_pred[2, 2] * z_p + T_pred[2, 3])
+    return torch.clamp(z_c / torch.clamp(z_p, min=0.5), 0.75, 1.3)
+
+
+def refine_quad_subpix(q: QuadMatches, img_lp: torch.Tensor,
+                       img_rp: torch.Tensor, img_lc: torch.Tensor,
+                       img_rc: torch.Tensor, cfg: FrontendConfig,
+                       T_pred: Optional[torch.Tensor] = None,
+                       rig=None) -> QuadMatches:
+    """Subpixel refinement of the quads' positions by patch correlation on
+    the images, over the first refine_cap valid-compacted rows:
+
+      rp <- 1-D u-search in img_rp, anchored to the lp patch;
+      lc <- 2-D search in img_lc, anchored to the lp patch;
+      rc <- 1-D u-search in img_rc, anchored to the refined lc patch.
+
+    refine_mode="temporal" runs the lc leg only; the stereo partners keep
+    their detector positions. With (T_pred, rig) the lc leg's anchor is
+    resampled at the predicted per-feature scale."""
+    half = cfg.refine_patch // 2
+    r = cfg.refine_search
+    cap = min(cfg.refine_cap, q.uv_lc.shape[0])
+    order = _valid_first(q.valid, cap)
+    temporal_only = cfg.refine_mode == "temporal"
+    uv_lp, uv_rp0 = q.uv_lp[order], q.uv_rp[order]
+    uv_lc0, uv_rc0 = q.uv_lc[order], q.uv_rc[order]
+
+    if temporal_only:
+        uv_rp = uv_rp0
+    else:
+        anchor_p = _bilinear_patches(img_lp, uv_lp, half)
+        # rectified partners search along the row of their left anchor
+        c_rp = torch.stack([uv_rp0[:, 0], uv_lp[:, 1]], dim=-1)
+        uv_rp = _refine_leg(anchor_p, img_rp, c_rp, half, r, du_only=True)
+    if T_pred is not None and rig is not None:
+        disp = torch.clamp(uv_lp[:, 0] - uv_rp[:, 0], min=0.5)
+        scale = _pred_scale(uv_lp, disp, T_pred, rig)
+        anchor_t = _bilinear_patches(img_lp, uv_lp, half, scale=scale)
+    elif temporal_only:
+        anchor_t = _bilinear_patches(img_lp, uv_lp, half)
+    else:
+        anchor_t = anchor_p
+    uv_lc = _refine_leg(anchor_t, img_lc, uv_lc0, half, r, du_only=False)
+    if temporal_only:
+        return q._replace(uv_lc=_set_rows(q.uv_lc, order, uv_lc))
+    anchor_c = _bilinear_patches(img_lc, uv_lc, half)
+    c_rc = torch.stack([uv_rc0[:, 0], uv_lc[:, 1]], dim=-1)
+    uv_rc = _refine_leg(anchor_c, img_rc, c_rc, half, r, du_only=True)
+    return q._replace(uv_rp=_set_rows(q.uv_rp, order, uv_rp),
+                      uv_lc=_set_rows(q.uv_lc, order, uv_lc),
+                      uv_rc=_set_rows(q.uv_rc, order, uv_rc))
+
+
+def _set_rows(x: torch.Tensor, rows: torch.Tensor, val: torch.Tensor):
+    """x.at[rows].set(val) out of place (rows are distinct)."""
+    out = x.clone()
+    out[rows] = val
+    return out
+
+
 def refine_temporal_subpix(img_prev: torch.Tensor, img_curr: torch.Tensor,
                            uv_prev: torch.Tensor, uv_curr: torch.Tensor,
                            valid: torch.Tensor, cfg: FrontendConfig,
@@ -239,12 +352,7 @@ def refine_temporal_subpix(img_prev: torch.Tensor, img_curr: torch.Tensor,
     if disp_prev is not None and T_pred is not None and rig is not None:
         uv_p = uv_prev[order]
         disp = torch.clamp(disp_prev[order], min=0.5)
-        z_p = rig.intr.fx * rig.baseline_m / disp
-        x_p = (uv_p[:, 0] - rig.intr.cx) / rig.intr.fx * z_p
-        y_p = (uv_p[:, 1] - rig.intr.cy) / rig.intr.fy * z_p
-        z_c = (T_pred[2, 0] * x_p + T_pred[2, 1] * y_p
-               + T_pred[2, 2] * z_p + T_pred[2, 3])
-        scale = torch.clamp(z_c / torch.clamp(z_p, min=0.5), 0.75, 1.3)
+        scale = _pred_scale(uv_p, disp, T_pred, rig)
         scale = torch.where(disp_prev[order] > 0.5, scale, 1.0)
         anchor = _bilinear_patches(img_prev, uv_p, half, scale=scale)
     else:
@@ -252,9 +360,7 @@ def refine_temporal_subpix(img_prev: torch.Tensor, img_curr: torch.Tensor,
     ref = _refine_leg(anchor, img_curr, uv_curr[order], half,
                       cfg.refine_search, du_only=False)
     ref = torch.where(valid[order][:, None], ref, uv_curr[order])
-    out = uv_curr.clone()
-    out[order] = ref
-    return out
+    return _set_rows(uv_curr, order, ref)
 
 
 def predict_uv(uv: torch.Tensor, disp: torch.Tensor, T_pred: torch.Tensor,
@@ -264,9 +370,9 @@ def predict_uv(uv: torch.Tensor, disp: torch.Tensor, T_pred: torch.Tensor,
     prior. Returns (uv_pred (N, 2), ok (N,))."""
     ok = disp > 0.5
     d = torch.clamp(disp, min=0.5)
-    z = fx * baseline_m / d
-    x = (uv[:, 0] - cx) / fx * z
-    y = (uv[:, 1] - cy) / fy * z
+    z = true_div(fx * baseline_m, d)
+    x = true_div(uv[:, 0] - cx, fx) * z
+    y = true_div(uv[:, 1] - cy, fy) * z
     if right:
         x = x + baseline_m
     R = T_pred[:3, :3]
@@ -303,3 +409,70 @@ def match_temporal(a: Features, b: Features, cfg: FrontendConfig,
         near = (dup.abs() <= g) & (dvp.abs() <= g)
         ok = ok | (base_ok & pred_ok_b[None, :] & near)
     return mutual_nn(torch.where(ok, cost, _INF))
+
+
+def match_stereo(a: Features, b: Features,
+                 cfg: FrontendConfig) -> torch.Tensor:
+    """Left -> right matches along the epipolar band, disparity in
+    [0, 256]; (Na,) idx / -1."""
+    return mutual_nn(_gated_cost(a, b, 256.0, cfg.stereo_band_px,
+                                 (0.0, 256.0)))
+
+
+def stereo_disparities(a: Features, b: Features, m: torch.Tensor):
+    """Per-feature disparity from the left <-> right mutual match `m`
+    (`match_stereo(a, b, cfg)`; the VO passes quad_match's lc -> rc
+    match): (disp_a, disp_b), aligned to each feature array, -1 where
+    unmatched or not positive."""
+    du = a.uv[:, 0] - b.uv[torch.clamp(m, min=0).long(), 0]
+    ok = (m >= 0) & (du > 0)
+    disp_a = torch.where(ok, du, -1.0)
+    nb = b.uv.shape[0]
+    # JAX: .at[tgt].set(disp_a, mode="drop") into nb + 1 slots; the
+    # unmatched rows all write -1 into slot nb, which is cut off
+    tgt = torch.where(ok, m, nb).long()
+    disp_b = torch.full((nb + 1,), -1.0, device=du.device)
+    return disp_a, disp_b.index_put_((tgt,), disp_a)[:nb]
+
+
+def quad_match(left_curr: Features, right_curr: Features,
+               left_prev: Features, right_prev: Features,
+               cfg: FrontendConfig, disp_lp: Optional[torch.Tensor] = None,
+               disp_rp: Optional[torch.Tensor] = None,
+               T_pred: Optional[torch.Tensor] = None,
+               rig=None) -> QuadMatches:
+    """Circular consistency: lc -> rc -> rp -> lp must close on lc -> lp.
+    With (disp_lp, disp_rp, T_pred, rig) the temporal legs also admit pairs
+    near the motion prior's predictions."""
+    n = left_curr.uv.shape[0]
+    pred_lp = pred_rp = ok_lp = ok_rp = None
+    if T_pred is not None and disp_lp is not None and rig is not None:
+        intr = rig.intr
+        pred_lp, ok_lp = predict_uv(left_prev.uv, disp_lp, T_pred, intr.fx,
+                                    intr.fy, intr.cx, intr.cy, rig.baseline_m)
+        pred_rp, ok_rp = predict_uv(right_prev.uv, disp_rp, T_pred, intr.fx,
+                                    intr.fy, intr.cx, intr.cy, rig.baseline_m,
+                                    right=True)
+
+    i_rc = match_stereo(left_curr, right_curr, cfg)                 # lc -> rc
+    m_rc_rp = match_temporal(right_curr, right_prev, cfg, pred_rp, ok_rp)
+    m_rp_lp = mutual_nn(_gated_cost(right_prev, left_prev, 256.0,
+                                    cfg.stereo_band_px, (-256.0, 0.0)))
+    m_lc_lp = match_temporal(left_curr, left_prev, cfg, pred_lp, ok_lp)
+
+    def follow(idx, m):
+        return torch.where(idx >= 0, m[torch.clamp(idx, min=0).long()], -1)
+
+    def take(f: Features, idx):
+        return f.uv[torch.clamp(idx, min=0).long()]
+
+    i_rp = follow(i_rc, m_rc_rp)
+    i_lp = follow(i_rp, m_rp_lp)
+    closes = (i_lp >= 0) & (i_lp == m_lc_lp)
+    valid = closes & left_curr.valid & (i_rc >= 0) & (i_rp >= 0)
+    return QuadMatches(
+        idx_lc=torch.arange(n, dtype=torch.int32, device=left_curr.uv.device),
+        idx_rc=i_rc, idx_lp=i_lp, idx_rp=i_rp,
+        uv_lc=left_curr.uv, uv_rc=take(right_curr, i_rc),
+        uv_lp=take(left_prev, i_lp), uv_rp=take(right_prev, i_rp),
+        valid=valid)

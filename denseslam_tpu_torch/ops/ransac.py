@@ -22,6 +22,7 @@ import torch
 from ..config import FrontendConfig
 from ..utils import lie
 from ..utils.camera import StereoRig
+from ..utils.numerics import true_div
 from .matching import QuadMatches
 from .smallsolve import solve_spd6
 
@@ -48,7 +49,7 @@ def triangulate_prev(q: QuadMatches, rig: StereoRig):
     intr = rig.intr
     disp = torch.clamp(q.uv_lp[:, 0] - q.uv_rp[:, 0], min=1e-3)
     base = rig.baseline_m
-    z = intr.fx * base / disp
+    z = true_div(intr.fx * base, disp)
     x = (q.uv_lp[:, 0] - intr.cx) * base / disp
     y = (q.uv_lp[:, 1] - intr.cy) * base / disp * (intr.fx / intr.fy)
     pts = torch.stack([x, y, z], dim=-1)
@@ -167,7 +168,7 @@ def estimate_stereo_motion(q: QuadMatches, rig: StereoRig,
     if cfg.edge_reweighting:
         # features near the horizontal image centre weigh more in the refit
         cu = rig.intr.cx
-        w = w / ((obs_l[:, 0] - cu).abs() / abs(cu) + 0.05)
+        w = w / (true_div((obs_l[:, 0] - cu).abs(), abs(cu)) + 0.05)
     T_refined = _gn_refine(best_T, pts_prev, obs_l, obs_r, w, rig,
                            cfg.refine_iters)
     num, final_inliers = count(T_refined)

@@ -6,7 +6,9 @@ package. Its per-disparity slabs are computed as one batched (D, H, W)
 pass — each slab's arithmetic is the JAX per-slab loop's — and the
 right-view argmin of the LR check reads the sheared volume
 cost_R(x, d) = cost_L(x + d, d) as a strided view instead of D column
-shifts. Path aggregation is kernel 2 (ops/sgm.py).
+shifts. Path aggregation is kernel 2 (ops/sgm.py); on the card the last
+direction and the WTA maps are kernel 4, which never writes the summed
+volume (ops/sgm.py `sgm_wta`).
 """
 
 from __future__ import annotations
@@ -17,9 +19,8 @@ import torch
 
 from ..config import StereoConfig
 from ..utils.camera import StereoRig, disparity_to_depth
+from .sgm import _BIG, WtaMaps, sgm_wta, wta_maps
 from .sgm import sgm_aggregate as _sgm_aggregate
-
-_BIG = 1e4
 
 
 def _box_along(x: torch.Tensor, dim: int, r: int) -> torch.Tensor:
@@ -66,9 +67,10 @@ def sgm_aggregate(cost: torch.Tensor, cfg: StereoConfig) -> torch.Tensor:
     return _sgm_aggregate(cost, cfg.sgm_p1, cfg.sgm_p2, cfg.sgm_backend)
 
 
-def _disparity_from_maps(best, cmin, c0, c2, best_r, d: int,
-                         cfg: StereoConfig):
-    """Parabolic subpixel + left-right consistency + validity gates."""
+def _disparity_from_maps(maps: WtaMaps, d: int, cfg: StereoConfig):
+    """Parabolic subpixel + left-right consistency + validity gates, then
+    the uniqueness gate where the maps carry its terms."""
+    best, cmin, c0, c2 = maps.best, maps.cmin, maps.c0, maps.c2
     h, w = best.shape
     denom = c0 - 2.0 * cmin + c2
     sub = torch.where(denom.abs() > 1e-6, 0.5 * (c0 - c2) / denom,
@@ -77,56 +79,35 @@ def _disparity_from_maps(best, cmin, c0, c2, best_r, d: int,
 
     col = torch.arange(w, dtype=torch.int32, device=best.device)[None, :]
     xl = torch.clamp(col - best, 0, w - 1)
-    rd = torch.gather(best_r, 1, xl.long())
+    rd = torch.gather(maps.best_r, 1, xl.long())
     consistent = (best - rd).abs() <= cfg.lr_check_px
 
     valid = consistent & (cmin < 1e3) & (best > 0) & (best < d - 1)
+    if maps.c_at is not None:
+        valid = valid & (maps.c_at <= cfg.uniq_ratio * maps.second)
     return torch.where(valid, disp, torch.zeros_like(disp)), valid
-
-
-def _right_argmin(cost: torch.Tensor) -> torch.Tensor:
-    """argmin_d cost_L(x + d, d) per right-view pixel, first index on ties,
-    0 where no sheared value is below the invalid marker — the JAX
-    version's running strict-< argmin over D column shifts."""
-    h, w, d = cost.shape
-    big = torch.full((), _BIG, dtype=cost.dtype, device=cost.device)
-    padded = torch.cat([cost, big.expand(h, d, d)], dim=1).contiguous()
-    sheared = padded.as_strided((h, w, d), ((w + d) * d, d, d + 1))
-    idx = torch.argmin(sheared, dim=-1).to(torch.int32)
-    val = torch.gather(sheared, 2, idx.long()[..., None])[..., 0]
-    return torch.where(val < big, idx, torch.zeros_like(idx))
-
-
-def _pick(cost: torch.Tensor, idx: torch.Tensor, ok: torch.Tensor):
-    """cost[..., idx] as f32 where ok, else 0."""
-    d = cost.shape[-1]
-    g = torch.gather(cost, 2, idx.clamp(0, d - 1).long()[..., None])[..., 0]
-    return torch.where(ok, g.to(torch.float32), torch.zeros((), device=cost.device))
 
 
 def disparity_from_cost(cost: torch.Tensor, cfg: StereoConfig,
                         raw_cost: torch.Tensor = None):
     """WTA + parabolic subpixel + left-right consistency (+ raw-cost
-    uniqueness gate when `raw_cost` is given and cfg.uniq_ratio > 0).
-    Returns (disp (H, W) f32, valid (H, W) bool)."""
-    h, w, d = cost.shape
-    best = torch.argmin(cost, dim=-1).to(torch.int32)
-    cmin = cost.amin(dim=-1).to(torch.float32)
-    c0 = _pick(cost, best - 1, best > 0)
-    c2 = _pick(cost, best + 1, best < d - 1)
-    best_r = _right_argmin(cost)
+    uniqueness gate when `raw_cost` is given and cfg.uniq_ratio > 0) of a
+    summed volume. Returns (disp (H, W) f32, valid (H, W) bool)."""
+    gate = raw_cost is not None and cfg.uniq_ratio > 0
+    maps = wta_maps(cost, raw_cost if gate else None)
+    return _disparity_from_maps(maps, cost.shape[-1], cfg)
 
-    disp, valid = _disparity_from_maps(best, cmin, c0, c2, best_r, d, cfg)
-    if raw_cost is not None and cfg.uniq_ratio > 0:
-        c_at = _pick(raw_cost, best, torch.ones_like(valid))
-        lane = torch.arange(d, dtype=torch.int32, device=cost.device)
-        far = (lane - best[..., None]).abs() > 2
-        big = torch.full((), _BIG, dtype=raw_cost.dtype, device=cost.device)
-        second = torch.where(far, raw_cost, big).amin(dim=-1).to(torch.float32)
-        unique = c_at <= cfg.uniq_ratio * second
-        disp = torch.where(unique, disp, torch.zeros_like(disp))
-        valid = valid & unique
-    return disp, valid
+
+def disparity(cost: torch.Tensor, cfg: StereoConfig):
+    """SGM (when cfg.use_sgm) + WTA of a raw (H, W, D) volume in its own
+    dtype, without the summed volume: on the card kernel 2 three times and
+    kernel 4 once, on the CPU their plain versions. Returns (disp (H, W)
+    f32, valid (H, W) bool)."""
+    if not cfg.use_sgm:
+        return disparity_from_cost(cost, cfg, raw_cost=cost)
+    maps = sgm_wta(cost, cfg.sgm_p1, cfg.sgm_p2, cfg.sgm_backend,
+                   unique=cfg.uniq_ratio > 0)
+    return _disparity_from_maps(maps, cost.shape[-1], cfg)
 
 
 def compute_depth(left: torch.Tensor, right: torch.Tensor, rig: StereoRig,
@@ -137,9 +118,6 @@ def compute_depth(left: torch.Tensor, right: torch.Tensor, rig: StereoRig,
     cost = cost_volume(left, right, cfg)
     if cfg.cost_dtype == "bfloat16":
         cost = cost.to(torch.bfloat16)
-    raw = cost
-    if cfg.use_sgm:
-        cost = sgm_aggregate(cost, cfg)
-    disp, valid = disparity_from_cost(cost, cfg, raw_cost=raw)
+    disp, valid = disparity(cost, cfg)
     depth = disparity_to_depth(disp, rig, min_depth_m, max_depth_m)
     return depth, valid & (depth > 0)

@@ -22,6 +22,7 @@ import torch
 from ..config import TsdfConfig
 from ..device import resolve_device
 from ..utils import lie
+from ..utils.numerics import true_div
 from ..utils.camera import Intrinsics
 from . import hash as vhash
 from . import sampling
@@ -105,14 +106,6 @@ def make_map(cfg: TsdfConfig, device=None) -> MapState:
     )
 
 
-def _true_div(x: torch.Tensor, s: float) -> torch.Tensor:
-    """x / s with one rounding on every device. A CUDA tensor divided by a
-    Python number is multiplied by the number's reciprocal (two roundings),
-    which moves some quotients by an ulp against the CPU and the
-    reference; a 0-d tensor divisor takes the true division."""
-    return x / torch.full((), s, dtype=x.dtype, device=x.device)
-
-
 def num_allocated_blocks(m: MapState) -> torch.Tensor:
     return m.table.valid.to(torch.int32).sum()
 
@@ -144,8 +137,8 @@ def touched_block_keys(depth: torch.Tensor, T_wc: torch.Tensor,
     v = (torch.arange(h, dtype=torch.float32, device=dev)[:, None]
          + 0.0) * float(s)
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :] * float(s)
-    dirx = _true_div(u - intr.cx, intr.fx).expand(h, w)
-    diry = _true_div(v - intr.cy, intr.fy).expand(h, w)
+    dirx = true_div(u - intr.cx, intr.fx).expand(h, w)
+    diry = true_div(v - intr.cy, intr.fy).expand(h, w)
     valid = (depth > cfg.min_depth_m) & (depth < cfg.max_depth_m)
 
     k = max(3, math.ceil(2.0 * mu / block_m) + 2)
@@ -330,12 +323,12 @@ def integrate(m: MapState, visible_slots, visible_mask, depth,
     sdf = d_samp - z
     upd = (visible_mask[:, None] & d_valid & (z > 1e-3)
            & (sdf > -mu) & (d_samp > cfg.min_depth_m))
-    eta = torch.clamp(_true_div(sdf, mu), -1.0, 1.0)
+    eta = torch.clamp(true_div(sdf, mu), -1.0, 1.0)
 
     zero = torch.zeros_like(sdf)
     if cfg.weights.depth_weighting:
         wp = cfg.weights
-        dist = torch.clamp(_true_div(d_samp, wp.max_distance), 0.0, 1.0)
+        dist = torch.clamp(true_div(d_samp, wp.max_distance), 0.0, 1.0)
         w_new = torch.clamp(wp.max_new_w * (1.0 - dist), min=1.0)
     else:
         w_new = torch.ones_like(sdf)

@@ -8,6 +8,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .numerics import true_div
+
 
 class Intrinsics(NamedTuple):
     fx: float
@@ -35,8 +37,8 @@ def backproject(depth: torch.Tensor, intr: Intrinsics) -> torch.Tensor:
     h, w = depth.shape
     v = _iota(h, w, 0, depth.device)
     u = _iota(h, w, 1, depth.device)
-    x = (u - intr.cx) / intr.fx * depth
-    y = (v - intr.cy) / intr.fy * depth
+    x = true_div(u - intr.cx, intr.fx) * depth
+    y = true_div(v - intr.cy, intr.fy) * depth
     return torch.stack([x, y, depth], dim=-1)
 
 
@@ -56,6 +58,6 @@ def disparity_to_depth(disp: torch.Tensor, rig: StereoRig,
     fb = rig.intr.fx * rig.baseline_m
     valid = disp > 1e-3
     zero = torch.zeros_like(disp)
-    depth = torch.where(valid, fb / torch.clamp(disp, min=1e-3), zero)
+    depth = torch.where(valid, true_div(fb, torch.clamp(disp, min=1e-3)), zero)
     keep = valid & (depth >= min_depth_m) & (depth <= max_depth_m)
     return torch.where(keep, depth, zero)

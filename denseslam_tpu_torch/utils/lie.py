@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .numerics import true_div
+
 _EPS = 1e-8
 # below theta^2 = 1e-4 the closed forms cancel in float32; the Taylor
 # expansions are accurate to ~theta^4 there
@@ -36,8 +38,9 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     W2 = W @ W
     small = theta2 < _SMALL2
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / theta)
-    b = torch.where(small, 0.5 - theta2 / 24.0,
+    a = torch.where(small, 1.0 - true_div(theta2, 6.0),
+                    torch.sin(theta) / theta)
+    b = torch.where(small, 0.5 - true_div(theta2, 24.0),
                     (1.0 - torch.cos(theta)) / theta2)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(W.shape)
     return eye + a * W + b * W2
@@ -50,9 +53,9 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     W = hat(w)
     W2 = W @ W
     small = theta2 < _SMALL2
-    b = torch.where(small, 0.5 - theta2 / 24.0,
+    b = torch.where(small, 0.5 - true_div(theta2, 24.0),
                     (1.0 - torch.cos(theta)) / theta2)
-    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+    c = torch.where(small, 1.0 / 6.0 - true_div(theta2, 120.0),
                     (theta - torch.sin(theta)) / (theta2 * theta))
     R = so3_exp(w)
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
