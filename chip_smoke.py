@@ -13,11 +13,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    plain PyTorch versions at the shapes of the slice: the
                    fusion sampler on the (u, v, z) of a KITTI-scale street
                    frame (V = 8192 blocks), exact; the SGM aggregation on a
-                   370x1226x128 cost volume, exact on integer-valued f32
-                   costs, within rtol 1.5e-2 / atol 2 in bf16; the fused
-                   tail bit for bit in f32 and bf16 for both backends, and
-                   compute_depth through it equal to the unfused sequence.
-                   Times of kernel, plain version and library call.
+                   370x1226x128 cost volume and the fused tail on sums B3
+                   made, both bit for bit in f32 and bf16 for both
+                   backends, and compute_depth through them equal to the
+                   unfused sequence; then both SGM kernels bit for bit at
+                   ragged shapes (7x37x32, 33x130x64, 5x300x256) on volumes
+                   with negative costs, +-0, subnormals and BIG. Times of
+                   kernel, plain version and library call, and of each SGM
+                   launch of the main path alone (bytes, bound, ns per
+                   step, GB/s).
   3. slice         stereo depth + fuse_sequence over 4 chunks of 10 frames
                    of the synthetic street at the scripts/bench_full.py
                    configuration; launch counts read around exactly this
@@ -661,7 +665,9 @@ def check_sampler(cfg, dev, gpu):
 
 
 def check_sgm(cfg, dev, gpu):
-    """Kernel 2 against its plain version on a KITTI-size cost volume."""
+    """Kernel 2 against its plain version on a KITTI-size cost volume: bit
+    for bit in f32 (integer-valued and real-valued costs) and bf16, both
+    backends."""
     from denseslam_tpu_torch.io import synthetic
     from denseslam_tpu_torch.ops import sgm
     from denseslam_tpu_torch.ops import stereo
@@ -673,22 +679,18 @@ def check_sgm(cfg, dev, gpu):
     cost = stereo.cost_volume(left[0], right[0], sc)
     p1, p2 = sc.sgm_p1, sc.sgm_p2
 
-    ci = torch.round(cost)
-    for backend in ("xla", "pallas"):
-        got = sgm.sgm_aggregate(ci, p1, p2, backend)
-        want = sgm.sgm_aggregate_plain(ci, p1, p2, backend)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            d = float((got - want).abs().max())
-            raise AssertionError(f"sgm f32 {backend}: max |diff| {d}")
-    del ci, got, want
-
+    err = 0.0
+    for name, c in (("f32 integer", torch.round(cost)), ("f32", cost),
+                    ("bf16", cost.to(torch.bfloat16))):
+        for backend in ("xla", "pallas"):
+            got = sgm.sgm_aggregate(c, p1, p2, backend)
+            want = sgm.sgm_aggregate_plain(c, p1, p2, backend)
+            d = float((got.float() - want.float()).abs().max())
+            err = max(err, d)
+            if not torch.equal(got, want):
+                raise AssertionError(f"sgm {name} {backend}: max |diff| {d}")
+    del c, got, want
     cb = cost.to(torch.bfloat16)
-    got = sgm.sgm_aggregate(cb, p1, p2, sc.sgm_backend).float()
-    want = sgm.sgm_aggregate_plain(cb, p1, p2, sc.sgm_backend).float()
-    torch.testing.assert_close(got, want, rtol=1.5e-2, atol=2.0)
-    err = float((got - want).abs().max())
-    del got, want
 
     ms = cuda_ms(lambda: sgm.sgm_aggregate(cb, p1, p2, sc.sgm_backend), 10)
     wrapper_us = host_us(lambda: sgm.sgm_aggregate(cb, p1, p2, sc.sgm_backend),
@@ -705,10 +707,114 @@ def check_sgm(cfg, dev, gpu):
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                bound_by=by, library_ms=None)
     emit(dict(phase="kernel", name=rec["name"], shape=list(cb.shape),
-              f32_integer_exact=True, bf16_max_abs_err=err, kernel_ms=ms,
+              exact_f32_bf16_both_backends=True, kernel_ms=ms,
               plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by,
               wrapper_host_us=wrapper_us, gpu=gpu))
     return rec
+
+
+def _edge_volume(shape, dtype, dev, seed):
+    """A raw cost volume with the values the kernels' orderings must get
+    right: real costs in [-2, 300) (the box filter's cumsum differences can
+    be slightly negative), exact +-0, subnormals, near-ties (integers) and
+    BIG where x < d, as the cost volume marks no overlap."""
+    h, w, d = shape
+    gen = torch.Generator().manual_seed(seed)
+    c = torch.rand(shape, generator=gen) * 302.0 - 2.0
+    pick = torch.randint(0, 16, shape, generator=gen)
+    c = torch.where(pick == 0, torch.zeros(()), c)
+    c = torch.where(pick == 1, torch.full((), -0.0), c)
+    c = torch.where(pick == 2, torch.full((), 1e-40), c)
+    c = torch.where(pick == 3, torch.full((), -3e-39), c)
+    c = torch.where(pick >= 12, torch.round(c), c)
+    invalid = torch.arange(w)[None, :, None] < torch.arange(d)[None, None, :]
+    c = torch.where(invalid, torch.full((), 1e4), c)
+    return c.to(dev, dtype)
+
+
+RAGGED_SHAPES = ((7, 37, 32), (33, 130, 64), (5, 300, 256))
+
+
+def check_sgm_ragged(cfg, dev):
+    """Both SGM kernels against their plain versions bit for bit at shapes
+    the tiling has to mask (W not a multiple of the column chunk, H not a
+    multiple of the column group, D = 32, 64, 256), in f32 and bf16, both
+    backends, on `_edge_volume`s."""
+    from denseslam_tpu_torch.ops import sgm
+
+    p1, p2 = cfg.stereo.sgm_p1, cfg.stereo.sgm_p2
+    names = sgm.WtaMaps._fields
+    cases = [(i, shape, dtype, backend)
+             for i, shape in enumerate(RAGGED_SHAPES)
+             for dtype in (torch.float32, torch.bfloat16)
+             for backend in ("xla", "pallas")]
+    for i, shape, dtype, backend in cases:
+        what = f"{shape} {dtype} {backend}"
+        c = _edge_volume(shape, dtype, dev, seed=i)
+        got = sgm.sgm_aggregate(c, p1, p2, backend)
+        want = sgm.sgm_aggregate_plain(c, p1, p2, backend)
+        if not torch.equal(got, want):
+            raise AssertionError(f"sgm {what}")
+        acc, extra = sgm._three_paths(c, p1, p2, backend)
+        for unique in (True, False):
+            got = sgm.sgm_final(c, acc, extra, p1, p2, backend, unique)
+            want = sgm.sgm_final_plain(c, acc, extra, p1, p2, backend, unique)
+            for name, a, b in zip(names, got, want):
+                if not (a is None and b is None or torch.equal(a, b)):
+                    raise AssertionError(f"sgm_final {what} unique={unique}: "
+                                         f"{name} differs")
+    torch.cuda.synchronize()
+    emit(dict(phase="kernel_ragged", shapes=[list(s) for s in RAGGED_SHAPES],
+              dtypes=["float32", "bfloat16"], backends=["xla", "pallas"],
+              sgm_path_exact=True, sgm_final_exact=True))
+
+
+def sgm_launch_times(cb, p1, p2, gpu):
+    """Each SGM launch of the main path ("xla": tb; bt adding the vertical
+    sum in place; lr; the fused tail on acc = lr, extra = tb + bt) and the
+    "pallas" order's in-place lr launch, timed alone on the volume `cb`.
+    Bytes count each input volume read once and the output written once;
+    the path launches do 8 operations per element for the step plus one
+    per direction sum, the tail 15 as `check_sgm_final` counts them. ns
+    per step is the kernel time over the length of the path (H for the
+    vertical paths, W for the horizontal ones): every scanline walks it
+    serially."""
+    from denseslam_tpu_torch.ops import sgm
+
+    h, w, d = cb.shape
+    n = cb.numel()
+    vol = n * cb.element_size()
+    vert, lr = torch.empty_like(cb), torch.empty_like(cb)
+    sgm._launch_path(cb, vert, 0, False, p1, p2)
+    sgm._launch_path(cb, vert, 0, True, p1, p2, acc=vert)
+    sgm._launch_path(cb, lr, 1, False, p1, p2)
+    out, inplace = torch.empty_like(cb), vert.clone()
+    maps = 7 * h * w * 4
+
+    def path(axis, reverse, acc=None, o=out):
+        return lambda: sgm._launch_path(cb, o, axis, reverse, p1, p2, acc=acc)
+
+    cases = (
+        ("sgm_path", "tb", h, 2 * vol, 8 * n, path(0, False)),
+        ("sgm_path", "bt (acc = out)", h, 3 * vol, 9 * n,
+         path(0, True, inplace, inplace)),
+        ("sgm_path", "lr", w, 2 * vol, 8 * n, path(1, False)),
+        ("sgm_path", "lr pallas (acc = out)", w, 3 * vol, 9 * n,
+         path(1, False, inplace, inplace)),
+        ("sgm_final", "rl + sums + WTA, xla", w, 3 * vol + maps, 15 * n,
+         lambda: sgm.sgm_final(cb, lr, vert, p1, p2, "xla")),
+    )
+    rows = []
+    for kernel, launch, steps, nbytes, nops, fn in cases:
+        ms = cuda_ms(fn, 20)
+        bnd, by = bound_ms(nbytes, nops)
+        rows.append(dict(kernel=kernel, launch=launch, steps=steps,
+                         bytes=nbytes, bound_ms=bnd, bound_by=by, ms=ms,
+                         share_of_bound=bnd / ms, ns_per_step=ms * 1e6 / steps,
+                         gb_per_s=nbytes / ms / 1e6))
+    emit(dict(phase="sgm_launches", shape=list(cb.shape), dtype=str(cb.dtype),
+              launches=rows, gpu=gpu))
+    return rows
 
 
 def _tie_volume(d: int, dtype, dev):
@@ -743,14 +849,15 @@ def check_sgm_final(cfg, dev, gpu):
         pose, cfg.rig, synthetic.street_scene(), device=dev)
     cost = stereo.cost_volume(left[0], right[0], sc)
     names = sgm.WtaMaps._fields
+    err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         c = cost.to(dtype)
         for backend in ("xla", "pallas"):
             acc, extra = sgm._three_paths(c, p1, p2, backend)
             got = sgm.sgm_final(c, acc, extra, p1, p2, backend)
             want = sgm.sgm_final_plain(c, acc, extra, p1, p2, backend)
-            torch.cuda.synchronize()
             for name, a, b in zip(names, got, want):
+                err = max(err, float((a.double() - b.double()).abs().max()))
                 if not torch.equal(a, b):
                     raise AssertionError(f"sgm_final {dtype} {backend} "
                                          f"{name} differs from plain")
@@ -811,7 +918,7 @@ def check_sgm_final(cfg, dev, gpu):
                source="denseslam_tpu_torch/csrc/sgm_final.cu",
                replaces="scripts/probes/exp_fused_sgm.py:169 and "
                         "scripts/probes/exp_fused_loop.py:118",
-               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                bound_by=by, library_ms=None)
     emit(dict(phase="kernel", name=rec["name"], shape=list(cb.shape),
               dtype=str(cb.dtype), backend=backend,
@@ -820,7 +927,10 @@ def check_sgm_final(cfg, dev, gpu):
               plain_ms=plain_ms, unfused_ms=unfused_ms, library_ms=None,
               bytes=nbytes, bound_ms=bnd, bound_by=by,
               wrapper_host_us=wrapper_us, gpu=gpu))
-    return rec
+    del acc, extra, fourth
+    per_launch = sgm_launch_times(cb, p1, p2, gpu)
+    rec["per_launch"] = [r for r in per_launch if r["kernel"] == "sgm_final"]
+    return rec, [r for r in per_launch if r["kernel"] == "sgm_path"]
 
 
 def drive(cfg, dev, run):
@@ -1294,7 +1404,8 @@ def main(argv=None) -> int:
 
     cfg = slice_config()
     recs = [check_sampler(cfg, dev, gpu), check_sgm(cfg, dev, gpu)]
-    final = check_sgm_final(cfg, dev, gpu)
+    final, recs[1]["per_launch"] = check_sgm_final(cfg, dev, gpu)
+    check_sgm_ragged(cfg, dev)
     run = run_slice(cfg, dev)
     for rec in recs:
         rec["launches"] = run["launches"][rec["name"]]
@@ -1324,8 +1435,9 @@ def main(argv=None) -> int:
                              args.profile)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: rec[k] for k in keys} for rec in recs]})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "per_launch")
+    emit({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in recs]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

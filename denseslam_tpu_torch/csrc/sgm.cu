@@ -6,10 +6,9 @@
 // "xla" backend runs as `lax.scan` (denseslam_tpu/ops/stereo.py
 // `sgm_aggregate`). Along one path, from a zero carry:
 //   L = (C + min(L', L'(d-1) + P1, L'(d+1) + P1, min L' + P2)) - min L'
-// with the edges clamped as in `_step` (shift_p[0] = L'[0],
-// shift_n[D-1] = L'[D-1]). Arithmetic runs in the cost dtype and rounds
-// after every operation in the order the JAX expression is written; for
-// bf16 that is __nv_bfloat16 arithmetic.
+// (csrc/sgm_common.cuh `step`), each op rounded in the cost dtype in the
+// order the JAX expression is written; for bf16 that is __nv_bfloat16
+// arithmetic.
 //
 // The direction sum is chosen by the caller through two optional inputs:
 //   out = (extra + (L + acc))   with acc / extra skipped when null,
@@ -17,176 +16,242 @@
 // (acc = out, accumulating in place) and (tb + bt) + (lr + rl) for "xla"
 // (the last launch adds the vertical pair as `extra`).
 //
-// Layout: one warp per scanline (a row for the horizontal paths, a column
-// for the vertical ones); lane l holds disparities [l*K, l*K + K) with
-// K = D / 32, so the d-1 / d+1 neighbours cross lanes by one shuffle and
-// min L' is a 5-step shuffle reduction: the step needs no __syncthreads.
-// (A 128-thread block per scanline, one thread per disparity exchanging
-// neighbours through shared memory, would need two block barriers per
-// step; the warp needs none.) The path is walked sequentially inside the
-// warp, prefetching the next step's costs.
+// Bound on the H100: bytes. One launch reads the cost volume (and acc,
+// extra) once and writes its output once: 232 MB for a 370x1226x128 bf16
+// launch without acc, 348 MB with it, 0.069 / 0.104 ms at 3.35 TB/s (about
+// 9 ops per element are far below the ALU rate).
 //
-// Bound on the H100: bytes. The function reads the volume once and
-// writes the sum once: 232 MB for the 370x1226x128 bf16 volume, 0.069 ms
-// at 3.35 TB/s (about 35 ops per element are far below the ALU rate).
-// This design moves more: the four launches read the cost volume 4 times,
-// read the running sum 3 times and write it 4 times, 11 volume passes,
-// 1.28 GB, 0.38 ms. The D axis is contiguous, so every step of both
-// orientations reads 32*K consecutive elements (coalesced). The
-// recurrence is serial along each path, so parallelism is only 370
-// (horizontal) or 1226 (vertical) warps, and step latency, not bytes,
-// sets the time; the one-step prefetch is what this first version does
-// about it.
+// Design. The recurrence is serial along each scanline, so each scanline
+// is one warp (lane l holds disparities [l*K, l*K + K), K = D / 32) and the
+// time per step is a latency chain; the first version also waited on device
+// memory inside that chain (a one-step prefetch; for acc = out the acc read
+// could not be hoisted at all). Here a CTA takes G adjacent scanlines
+// (G = 4 for the vertical paths, whose adjacent columns are contiguous: each
+// staged row is one run of G*D elements; G = 1 for the horizontal paths,
+// whose whole chunk of steps is one run) plus one producer warp. One
+// elected producer thread keeps a ring of kStages chunks of about 8 KB per
+// input in flight with 1-D bulk copies (cp.async.bulk, completion counted
+// on a `full` mbarrier; the recurrence warps release a stage on its `empty`
+// mbarrier). With acc = out a stage is loaded before any element of it is
+// written, so the in-place launch stays exact. The recurrence warps then
+// touch device memory only to store: they load the inputs of a few steps
+// from shared memory at once, walk pointers instead of recomputing 64-bit
+// offsets, and hold bf16 in packed pairs (sgm_common.cuh `Lane`), so that a
+// step is about 45 instructions. min L' is the lane's values as a tree and
+// then one `redux.sync` over an order-preserving key, in place of the first
+// version's 5 xor-shuffle rounds: on an H100 shuffles took lr 0.147 ->
+// 0.218 ms and bt 0.143 -> 0.155 ms, though tb 0.101 -> 0.093 ms (PERF.md).
+//
+// Measured on an H100 at 370x1226x128 bf16 (PERF.md): a horizontal step
+// takes about 120 ns, so the horizontal launch, with 370 scanlines, stays
+// latency bound at about half of its bytes bound; the vertical launches,
+// with 1226, run at about 70% of theirs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sgm_common.cuh"
 
 namespace {
 
-template <typename T>
-struct Arith;
+using namespace sgm;
 
-template <>
-struct Arith<float> {
-  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-  static __device__ __forceinline__ float mn(float a, float b) { return fminf(a, b); }
-  static __device__ __forceinline__ float zero() { return 0.0f; }
-  static __device__ __forceinline__ float from(float x) { return x; }
-};
-
-template <>
-struct Arith<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-  static __device__ __forceinline__ T add(T a, T b) { return __hadd(a, b); }
-  static __device__ __forceinline__ T sub(T a, T b) { return __hsub(a, b); }
-  static __device__ __forceinline__ T mn(T a, T b) { return __hmin(a, b); }
-  static __device__ __forceinline__ T zero() { return __float2bfloat16(0.0f); }
-  static __device__ __forceinline__ T from(float x) { return __float2bfloat16(x); }
-};
+constexpr int kStages = 4;
+constexpr int kStageBytes = 8192;   // per input and stage, about
+constexpr int kGroup = 4;           // scanlines a CTA when they are adjacent
+constexpr int kBarBytes = 128;      // the mbarriers, ahead of the stages
 
 template <typename T, int K>
-struct alignas(sizeof(T) * K) Vec {
-  T v[K];
-};
+__global__ void __launch_bounds__(32 * (1 + kGroup))
+sgm_path_kernel(const T* cost, const T* acc, const T* extra, T* out, int lines,
+                int steps, long long line_stride, long long step_stride,
+                int reverse, int group, int chunk, float p1f, float p2f) {
+  constexpr int D = 32 * K;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kStages;
+  T* buf = reinterpret_cast<T*>(smem + kBarBytes);
 
-template <typename T, int K>
-__device__ __forceinline__ Vec<T, K> load(const T* p) {
-  return *reinterpret_cast<const Vec<T, K>*>(p);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int line0 = blockIdx.x * group;
+  const int nlines = min(group, lines - line0);
+  const int ntens = 1 + (acc != nullptr) + (extra != nullptr);
+  const int pitch = group * D;                    // one step in a stage
+  const int tens_elems = chunk * pitch;           // one input in a stage
+  const int nchunks = (steps + chunk - 1) / chunk;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], nlines * 32);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // chunk i covers steps [lo, lo + n), walked forward or from the top
+  auto range = [&](int i, int& lo, int& n) {
+    if (reverse) {
+      const int hi = steps - i * chunk;
+      lo = max(0, hi - chunk);
+      n = hi - lo;
+    } else {
+      lo = i * chunk;
+      n = min(chunk, steps - lo);
+    }
+  };
+
+  if (warp == 0) {  // producer
+    if (lane != 0) return;
+    const T* src[3] = {cost, acc != nullptr ? acc : extra, extra};
+    const uint32_t run = nlines * D * sizeof(T);
+    const bool one_copy = step_stride == (long long)nlines * D && nlines == group;
+    for (int i = 0; i < nchunks; ++i) {
+      const int s = i % kStages;
+      if (i >= kStages) mbar_wait(&empty[s], ((i / kStages) - 1) & 1);
+      int lo, n;
+      range(i, lo, n);
+      mbar_expect_tx(&full[s], run * n * ntens);
+      for (int t = 0; t < ntens; ++t) {
+        const T* g = src[t] + (long long)line0 * line_stride + (long long)lo * step_stride;
+        T* dst = buf + (s * ntens + t) * tens_elems;
+        if (one_copy) {
+          bulk_load(dst, g, run * n, &full[s]);
+        } else {
+          for (int j = 0; j < n; ++j)
+            bulk_load(dst + j * pitch, g + (long long)j * step_stride, run, &full[s]);
+        }
+      }
+    }
+    return;
+  }
+
+  const int gi = warp - 1;  // this warp's scanline in the group
+  if (gi >= nlines) return;
+  using E = typename Lane<T, K>::E;
+  constexpr int N = Lane<T, K>::N;
+  constexpr int U = N >= 8 ? 1 : (N >= 4 ? 2 : 4);  // steps whose inputs load together
+  using V = Vec<E, N>;
+  const E p1 = splat<E>(p1f);
+  const E p2 = splat<E>(p2f);
+  T* o_line = out + (long long)(line0 + gi) * line_stride + lane * K;
+  const bool has_acc = acc != nullptr;
+  const bool has_extra = extra != nullptr;
+  const int a_off = has_acc ? tens_elems : 0;   // acc and extra in the stage
+  const int e_off = a_off + tens_elems;
+
+  E prev[N];
+#pragma unroll
+  for (int k = 0; k < N; ++k) prev[k] = splat<E>(0.0f);
+  // one step: the recurrence, the direction sum, the store
+  auto one = [&](const V& c, const V& a, const V& e, T* o) {
+    step<E, N>(prev, c.v, p1, p2, lane);
+    V res;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      res.v[k] = has_acc ? add(prev[k], a.v[k]) : prev[k];
+      if (has_extra) res.v[k] = add(e.v[k], res.v[k]);
+    }
+    store<E, N>(o, res);
+  };
+
+  for (int i = 0; i < nchunks; ++i) {
+    const int s = i % kStages;
+    mbar_wait(&full[s], (i / kStages) & 1);
+    int lo, n;
+    range(i, lo, n);
+    const int j0 = reverse ? n - 1 : 0;
+    const int ps = reverse ? -pitch : pitch;                        // a step in the stage
+    const long long os = reverse ? -step_stride : step_stride;     // and in the output
+    const T* pc = buf + s * ntens * tens_elems + j0 * pitch + gi * D + lane * K;
+    T* po = o_line + (long long)(lo + j0) * step_stride;
+    int t = 0;
+    for (; t + U <= n; t += U) {
+      // the inputs of U steps, loaded before any of their steps
+      V c[U], a[U], e[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        c[u] = load<E, N>(pc + u * ps);
+        if (has_acc) a[u] = load<E, N>(pc + a_off + u * ps);
+        if (has_extra) e[u] = load<E, N>(pc + e_off + u * ps);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) one(c[u], a[u], e[u], po + u * os);
+      pc += U * ps;
+      po += U * os;
+    }
+    for (; t < n; ++t) {   // the rest of a short last chunk
+      V c = load<E, N>(pc), a = c, e = c;
+      if (has_acc) a = load<E, N>(pc + a_off);
+      if (has_extra) e = load<E, N>(pc + e_off);
+      one(c, a, e, po);
+      pc += ps;
+      po += os;
+    }
+    mbar_arrive(&empty[s]);
+  }
 }
 
 template <typename T, int K>
-__global__ void __launch_bounds__(128)
-sgm_path_kernel(const T* __restrict__ cost, const T* acc, const T* extra, T* out,
-                int lines, int steps, long long line_stride, long long step_stride,
-                int reverse, float p1f, float p2f) {
-  using A = Arith<T>;
-  const int line = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (line >= lines) return;  // whole warps exit together
-  const int lane = threadIdx.x & 31;
-  const T p1 = A::from(p1f);
-  const T p2 = A::from(p2f);
-  const long long base = (long long)line * line_stride + lane * K;
-  const long long dstep = reverse ? -step_stride : step_stride;
-  long long off = base + (reverse ? (long long)(steps - 1) * step_stride : 0);
-
-  T prev[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) prev[k] = A::zero();
-  Vec<T, K> cur = load<T, K>(cost + off);
-
-  for (int n = 0; n < steps; ++n) {
-    Vec<T, K> nxt = cur;
-    if (n + 1 < steps) nxt = load<T, K>(cost + off + dstep);
-
-    T m = prev[0];
-#pragma unroll
-    for (int k = 1; k < K; ++k) m = A::mn(m, prev[k]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) m = A::mn(m, __shfl_xor_sync(0xffffffffu, m, o));
-    T lo = __shfl_up_sync(0xffffffffu, prev[K - 1], 1);
-    T hi = __shfl_down_sync(0xffffffffu, prev[0], 1);
-    if (lane == 0) lo = prev[0];
-    if (lane == 31) hi = prev[K - 1];
-    const T mp2 = A::add(m, p2);
-
-    T L[K];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const T sp = k > 0 ? prev[k - 1] : lo;
-      const T sn = k < K - 1 ? prev[k + 1] : hi;
-      const T best = A::mn(A::mn(prev[k], A::add(sp, p1)), A::mn(A::add(sn, p1), mp2));
-      L[k] = A::sub(A::add(cur.v[k], best), m);
-    }
-
-    Vec<T, K> res;
-    if (acc != nullptr) {
-      const Vec<T, K> a = load<T, K>(acc + off);
-#pragma unroll
-      for (int k = 0; k < K; ++k) res.v[k] = A::add(L[k], a.v[k]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < K; ++k) res.v[k] = L[k];
-    }
-    if (extra != nullptr) {
-      const Vec<T, K> e = load<T, K>(extra + off);
-#pragma unroll
-      for (int k = 0; k < K; ++k) res.v[k] = A::add(e.v[k], res.v[k]);
-    }
-    *reinterpret_cast<Vec<T, K>*>(out + off) = res;
-
-#pragma unroll
-    for (int k = 0; k < K; ++k) prev[k] = L[k];
-    cur = nxt;
-    off += dstep;
-  }
+int launch_k(const void* cost, const void* acc, const void* extra, void* out,
+             int lines, int steps, int line_stride, int step_stride, int reverse,
+             float p1, float p2, cudaStream_t stream) {
+  constexpr int D = 32 * K;
+  // adjacent scanlines (the vertical paths) are grouped so that each staged
+  // step is one contiguous run
+  const int group = line_stride == D ? kGroup : 1;
+  const int chunk = max(1, kStageBytes / (group * D * (int)sizeof(T)));
+  const int ntens = 1 + (acc != nullptr) + (extra != nullptr);
+  const size_t smem =
+      kBarBytes + (size_t)kStages * ntens * chunk * group * D * sizeof(T);
+  auto kern = sgm_path_kernel<T, K>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  const int blocks = (lines + group - 1) / group;
+  kern<<<blocks, 32 * (1 + group), smem, stream>>>(
+      static_cast<const T*>(cost), static_cast<const T*>(acc),
+      static_cast<const T*>(extra), static_cast<T*>(out), lines, steps,
+      line_stride, step_stride, reverse, group, chunk, p1, p2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_typed(const void* cost, const void* acc, const void* extra, void* out,
                  int lines, int steps, int line_stride, int step_stride,
-                 int reverse, int d, float p1, float p2, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (lines + threads / 32 - 1) / (threads / 32);
-  const T* c = static_cast<const T*>(cost);
-  const T* a = static_cast<const T*>(acc);
-  const T* e = static_cast<const T*>(extra);
-  T* o = static_cast<T*>(out);
+                 int reverse, int d, float p1, float p2, cudaStream_t s) {
   switch (d / 32) {
     case 1:
-      sgm_path_kernel<T, 1><<<blocks, threads, 0, stream>>>(
-          c, a, e, o, lines, steps, line_stride, step_stride, reverse, p1, p2);
-      break;
+      return launch_k<T, 1>(cost, acc, extra, out, lines, steps, line_stride,
+                            step_stride, reverse, p1, p2, s);
     case 2:
-      sgm_path_kernel<T, 2><<<blocks, threads, 0, stream>>>(
-          c, a, e, o, lines, steps, line_stride, step_stride, reverse, p1, p2);
-      break;
+      return launch_k<T, 2>(cost, acc, extra, out, lines, steps, line_stride,
+                            step_stride, reverse, p1, p2, s);
     case 4:
-      sgm_path_kernel<T, 4><<<blocks, threads, 0, stream>>>(
-          c, a, e, o, lines, steps, line_stride, step_stride, reverse, p1, p2);
-      break;
+      return launch_k<T, 4>(cost, acc, extra, out, lines, steps, line_stride,
+                            step_stride, reverse, p1, p2, s);
     case 8:
-      sgm_path_kernel<T, 8><<<blocks, threads, 0, stream>>>(
-          c, a, e, o, lines, steps, line_stride, step_stride, reverse, p1, p2);
-      break;
+      return launch_k<T, 8>(cost, acc, extra, out, lines, steps, line_stride,
+                            step_stride, reverse, p1, p2, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
+
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
 // One path direction. The volume is addressed as
 // element(line, step, d) = line * line_stride + step * step_stride + d;
-// D must be 32, 64, 128 or 256. is_bf16 selects __nv_bfloat16, else f32.
+// D must be 32, 64, 128 or 256 and every pointer 16-byte aligned. is_bf16
+// selects __nv_bfloat16, else f32.
 extern "C" int sgm_path_launch(const void* cost, const void* acc,
                                const void* extra, void* out, int lines,
                                int steps, int line_stride, int step_stride,
                                int reverse, int d, float p1, float p2,
                                int is_bf16, void* stream) {
-  if (d % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d % 32 != 0 || !aligned16(cost) || !aligned16(acc) || !aligned16(extra) ||
+      !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (lines <= 0 || steps <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)

@@ -69,7 +69,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: str) -> Path:
-    text = (CSRC / src).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    """The library of `src`, named by a digest of the source, the shared
+    headers it may include and the flags."""
+    text = b"".join(p.read_bytes() for p in
+                    [CSRC / src, *sorted(CSRC.glob("*.cuh"))])
+    text += " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(src).stem}_{digest}.so"
 
