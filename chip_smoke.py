@@ -62,14 +62,37 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    (within 0.1%) agreeing on >= 99.95% of pixels; the CPU
                    fusing the card's keyframe depth at the card's poses
                    gives the card's keys, weights and tsdf.
-  9. throughput    frames/s of stereo + fusion, of the fusion tail alone
+  9. system        the whole system: the stereo loop drive of
+                   scripts/long_drive_eval.py (576 frames, 9 chunks of 64,
+                   its configuration with online correction, its gain ramp
+                   and photometric noise) through SLAMSystem.process_chunk
+                   and finish(), ba_every=4, loop_every=2; launch counts
+                   read around exactly this run: per fused keyframe 3 of
+                   B3 and 1 of the fused tail, B1 once per fused keyframe,
+                   twice per re-fused and once per purged one; tracking on
+                   >= 95% of frames, >= 1 verified loop, >= 1 re-fused
+                   keyframe, overflow 0, ATE <= 1.0 m; frames/s from chunk
+                   2 on.
+ 10. system_cpu_reference  the first tick of that drive that ran local BA
+                   and re-fused keyframes, rerun on the CPU from the card's
+                   state before it with the same verification draws:
+                   keyframe poses within 1 mm / 1e-4 rad; the CPU's online
+                   correction from the card's poses re-fuses as many
+                   keyframes and gives the card's keys, weights and tsdf
+                   (within 1e-6).
+ 11. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
 
-The line before the last two holds every kernel with its numbers; the
-line before the last is the card's name and power limit as nvidia-smi
-prints them; the last line is the result.
+With --profile, torch.profiler tables of one chunk of each path, the VOs
+by stage, and the captured tick's local_ba, detect_loop, optimize_graph
+and apply_pose_updates, each from the card's state before the tick.
+
+The line before the last two holds every kernel with its numbers (its
+launches summed over the four paths, and by path); the line before the
+last is the card's name and power limit as nvidia-smi prints them; the
+last line is the result.
 """
 
 from __future__ import annotations
@@ -99,6 +122,11 @@ RGBD_FRAMES = 48
 RGBD_CHUNK = 16
 STEREO_FRAMES = 64
 N_CPU_FRAMES = 5
+# the flagship drive: 500 loop frames + 40 past the start, extended to 9
+# chunks of 64 (scripts/long_drive_eval.py:168-176)
+SYSTEM_LOOP_FRAMES = 500
+SYSTEM_FRAMES = 576
+SYSTEM_CHUNK = 64
 
 
 def emit(obj) -> None:
@@ -176,10 +204,12 @@ def slice_config():
 
 def drive_config(sensor: str):
     """The drive of scripts/long_drive_eval.py:137-166 (1226x370, default
-    flags) for `sensor` in the port's config classes; the stereo drive as
-    it is, the RGB-D drive with tsdf.gray_color_fusion=False: its fusion
-    samples true RGB through kernel B2."""
-    from denseslam_tpu_torch.config import (PipelineConfig, SlideWindowParams,
+    flags, online correction on) for `sensor` in the port's config
+    classes; the stereo drive as it is, the RGB-D drive with
+    tsdf.gray_color_fusion=False: its fusion samples true RGB through
+    kernel B2."""
+    from denseslam_tpu_torch.config import (OnlineCorrectionParams,
+                                            PipelineConfig, SlideWindowParams,
                                             StereoConfig, SystemConfig,
                                             TsdfConfig, VoxelDecayParams)
     from denseslam_tpu_torch.utils.camera import Intrinsics, StereoRig
@@ -197,6 +227,9 @@ def drive_config(sensor: str):
         decay=VoxelDecayParams(enabled=True, min_decay_age=30,
                                max_decay_weight=2),
         slide_window=SlideWindowParams(enabled=True, max_age=60),
+        correction=OnlineCorrectionParams(enabled=True, correction_num=5,
+                                          start_correction_num=4,
+                                          min_error=0.01),
         pipeline=PipelineConfig(keyframe_every=4, fusion_db_capacity=64,
                                 sensor=sensor))
 
@@ -342,10 +375,10 @@ def trajectory_gates(T_wc, poses) -> dict:
                 kitti_r_err_deg_per_m_5_10m=kitti["kitti_r_err_deg_per_m"])
 
 
-def pose_errors(Tg, Tc):
-    """Largest translation (m) and rotation (rad) between two pose stacks;
-    the angle of Tg^T Tc from its skew part (arccos of the trace is
-    ill-conditioned at small angles)."""
+def pose_errors(Tg, Tc, what: str = "VO"):
+    """Largest translation (m) and rotation (rad) between two pose stacks,
+    at most 1 mm and 1e-4 rad; the angle of Tg^T Tc from its skew part
+    (arccos of the trace is ill-conditioned at small angles)."""
     Tg, Tc = Tg.cpu().double(), Tc.cpu().double()
     t_err = float((Tg[:, :3, 3] - Tc[:, :3, 3]).norm(dim=-1).max())
     Rd = Tg[:, :3, :3].transpose(1, 2) @ Tc[:, :3, :3]
@@ -353,7 +386,7 @@ def pose_errors(Tg, Tc):
     r_err = float(torch.stack([W[:, 2, 1], W[:, 0, 2], W[:, 1, 0]], -1)
                   .norm(dim=-1).arcsin().max())
     if t_err > 1e-3 or r_err > 1e-4:
-        raise AssertionError(f"VO card vs CPU: {t_err} m, {r_err} rad")
+        raise AssertionError(f"{what} card vs CPU: {t_err} m, {r_err} rad")
     return t_err, r_err
 
 
@@ -1101,6 +1134,329 @@ def fusion_intermediates(cfg, m, depth, gray, T):
     return out
 
 
+def verify_draws(k: int):
+    """Loop-verification draws for the backend: (k, 3) integers from a CPU
+    generator seeded with the verification's seed (the JAX package's key
+    numbering), so that the card and the CPU verify with the same draws."""
+    def draws(seed: int) -> torch.Tensor:
+        gen = torch.Generator().manual_seed(seed)
+        return torch.randint(0, 2 ** 31 - 1, (k, 3), generator=gen)
+    return draws
+
+
+def system_setup(cfg):
+    """The flagship drive's ground truth (make_loop_trajectory(500,
+    radius_m=18, closure_frames=76)) and scene (loop_scene), as
+    scripts/long_drive_eval.py:187-189 makes them."""
+    from denseslam_tpu_torch.io import synthetic
+    gt = synthetic.make_loop_trajectory(
+        SYSTEM_LOOP_FRAMES, radius_m=18.0,
+        closure_frames=SYSTEM_FRAMES - SYSTEM_LOOP_FRAMES)
+    return gt, synthetic.loop_scene(gt)
+
+
+def system_chunk(cfg, gt, scene, lo: int, hi: int, gen, dev):
+    """Frames [lo, hi) of the drive as rectified pairs rendered on the
+    card, under the nuisance of scripts/long_drive_eval.py:229-238 (gain
+    1 + 0.15 sin(2 pi t / 150), photometric noise 2.0 on each image), the
+    noise drawn from the card's generator `gen`."""
+    from denseslam_tpu_torch.io import synthetic
+    lefts, rights, _ = synthetic.render_stereo_trajectory(
+        gt[lo:hi], cfg.rig, scene, device=dev)
+    t = torch.arange(lo, hi, dtype=torch.float32, device=dev)
+    gain = (1.0 + 0.15 * torch.sin(2 * math.pi * t / 150.0))[:, None, None]
+    nl = torch.randn(lefts.shape, generator=gen, device=dev)
+    nr = torch.randn(rights.shape, generator=gen, device=dev)
+    return (torch.clamp(lefts * gain + 2.0 * nl, 0, 255),
+            torch.clamp(rights * gain + 2.0 * nr, 0, 255))
+
+
+def clone_db(db, device):
+    """A copy of fusion DB `db` on `device`."""
+    return db._replace(**{f: getattr(db, f).to(device, copy=True)
+                          for f in db._fields})
+
+
+class TickCapture:
+    """Records, for the first backend tick of a SLAMSystem that runs local
+    BA without a reject and re-fuses keyframes, the state it read (the
+    backend's registry; map and DB cloned on the card), the pose updates
+    it applied with the map and DB just before and just after, and the
+    backend after it. Installed on the system's `_chunk_tick` and
+    `slam.apply_pose_updates`; `seconds` is the copying time."""
+
+    def __init__(self, system):
+        self.system = system
+        self.pre = self.apply = self.post = None
+        self.seconds = 0.0
+        self._tick = system._chunk_tick
+        self._apply = system.slam.apply_pose_updates
+        system._chunk_tick = self._tick_hook
+        system.slam.apply_pose_updates = self._apply_hook
+
+    def _snapshot(self, with_map: bool):
+        import copy
+        t0 = time.perf_counter()
+        sy = self.system
+        be = copy.copy(sy.backend)
+        be.keyframes = list(be.keyframes)
+        be.odom_edges, be.loop_edges = list(be.odom_edges), list(be.loop_edges)
+        be._sig_valid = be._sig_valid.copy()
+        be._sig_slot, be._sig_free = dict(be._sig_slot), list(be._sig_free)
+        snap = dict(backend=be, tick_count=sy._tick_count,
+                    num_corrections=sy.num_corrections,
+                    num_culled=sy.num_culled)
+        if with_map:
+            snap.update(map=clone_map(sy.slam.submaps.active, sy.device),
+                        db=clone_db(sy.slam.db, sy.device))
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return snap
+
+    def _apply_hook(self, ids, poses, enforce_budget=True):
+        if self.post is not None:
+            return self._apply(ids, poses, enforce_budget)
+        before = self._snapshot(True)
+        n = self._apply(ids, poses, enforce_budget)
+        after = self._snapshot(True)
+        self._applied = dict(ids=np.array(ids), poses=np.array(poses),
+                             refused=n, before=before, after=after)
+        return n
+
+    def _tick_hook(self):
+        if self.post is not None:
+            return self._tick()
+        sy = self.system
+        pre = self._snapshot(False)
+        rejects = sy.backend.ba_rejects
+        self._applied = None
+        self._tick()
+        a = self._applied
+        if (a is not None and a["refused"] > 0
+                and sy.backend.ba_rejects == rejects):
+            self.pre, self.apply, self.post = pre, a, self._snapshot(False)
+
+
+def run_system(cfg, dev, gpu):
+    """The whole system: the flagship drive, 576 frames in 9 chunks of 64,
+    through SLAMSystem.process_chunk and finish() on the card, with the
+    launch counts set to 0 just before and read just after. Frames/s
+    counts process_chunk's time from chunk 2 on, as
+    scripts/long_drive_eval.py:296-298 does (less the tick capture's
+    copies)."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.eval import traj_metrics
+    from denseslam_tpu_torch.models.system import SLAMSystem
+
+    gt, scene = system_setup(cfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    k_verify = max(64, cfg.frontend.ransac_iters // 2)
+    system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
+                        verify_draws=verify_draws(k_verify))
+    cap = TickCapture(system)
+    purge = system.slam.purge_keyframes
+    purged = [0]
+
+    def counted_purge(ids):
+        before = int(system.slam.db.valid.sum())
+        purge(ids)
+        purged[0] += before - int(system.slam.db.valid.sum())
+
+    system.slam.purge_keyframes = counted_purge
+    kernels.reset_counts()
+    ok_frames, proc_s, proc_frames, synth_s = [], 0.0, 0, 0.0
+    t_all = time.perf_counter()
+    for base in range(0, SYSTEM_FRAMES, SYSTEM_CHUNK):
+        t0 = time.perf_counter()
+        lefts, rights = system_chunk(cfg, gt, scene, base,
+                                     base + SYSTEM_CHUNK, gen, dev)
+        torch.cuda.synchronize()
+        synth_s += time.perf_counter() - t0
+        cap_s = cap.seconds
+        t0 = time.perf_counter()
+        out = system.process_chunk(lefts, rights)
+        dt = time.perf_counter() - t0 - (cap.seconds - cap_s)
+        if base >= 2 * SYSTEM_CHUNK:
+            proc_s += dt
+            proc_frames += SYSTEM_CHUNK
+        ok_frames.append(out["tracking_ok_frames"])
+    system.finish()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t_all
+    launches = dict(kernels.launch_counts)
+
+    be = system.backend
+    fused = be.num_keyframes + system.num_culled
+    refused = system.num_corrections
+    want = dict(tile_sample=fused + 2 * refused + purged[0],
+                tile_sample_rgb=0, sgm_path=3 * fused, sgm_final=fused)
+    if fused == 0 or launches != want:
+        raise AssertionError(f"launches {launches}, want {want} ({fused} "
+                             f"fused, {refused} re-fused, {purged[0]} purged)")
+    ok = np.concatenate(ok_frames)
+    track = float(ok[1:].mean())
+    est = [T for _, T in system.trajectory()]
+    if len(est) != SYSTEM_FRAMES or not np.isfinite(np.stack(est)).all():
+        raise AssertionError("trajectory has the wrong length or "
+                             "non-finite poses")
+    ate = traj_metrics.ate_rmse(est, list(gt))
+    kitti = traj_metrics.kitti_sequence_errors(est, list(gt))
+    overflow = int(system.slam.submaps.active.overflow)
+    emit(dict(phase="system", frames=SYSTEM_FRAMES, chunk=SYSTEM_CHUNK,
+              fused=fused, refused=refused, purged=purged[0],
+              launches=launches, overflow=overflow, tracking_ok_share=track,
+              loops=system.num_loops, corrections=refused,
+              culled=system.num_culled, relocs=system.num_relocs,
+              keyframes=be.num_keyframes, ba_rejects=be.ba_rejects,
+              pg_rejects=be.pg_rejects, ate_rmse_m=ate,
+              end_error_m=float(np.linalg.norm(est[-1][:3, 3]
+                                               - gt[-1][:3, 3])),
+              kitti_t_err_pct=kitti["kitti_t_err_pct"],
+              kitti_r_err_deg_per_m=kitti["kitti_r_err_deg_per_m"],
+              loops_accepted=[lg for lg in be.loop_log
+                              if lg["accepted"] is not None],
+              loop_log_last=be.loop_log[-4:],
+              cull_margin_max=max(be.cull_margins, default=None),
+              fps=proc_frames / proc_s, fps_frames=proc_frames,
+              process_s=proc_s, wall_s=wall_s, synth_s=synth_s,
+              capture_s=cap.seconds,
+              phase_s={**system.phase_s, **be.phase_s},
+              memory_mb=system.memory_bytes() / 1e6,
+              blocks=int(system.slam.submaps.active.table.valid.sum()),
+              gpu=gpu))
+    gates = dict(tracking=track >= 0.95, loop=system.num_loops >= 1,
+                 refused=refused >= 1, overflow=overflow == 0,
+                 ate=ate <= 1.0, tick_captured=cap.post is not None)
+    if not all(gates.values()):
+        raise AssertionError(f"system gates failed: {gates}")
+    return dict(launches=launches, capture=cap, system=system)
+
+
+def check_system_against_cpu(cfg, cap):
+    """The captured tick rerun on the CPU from the card's state before it,
+    with the same verification draws: the keyframe poses after it (loop
+    relaxation and local BA) within 1 mm / 1e-4 rad of the card's, the same
+    culls; and the CPU's online correction, given the card's optimised
+    poses and the card's map and DB just before them, re-fuses as many
+    keyframes and gives the card's keys and weights, tsdf within 1e-6.
+    Also printed: how much of the window's observation mask the two
+    devices build alike, and the card's window problem solved on both."""
+    from denseslam_tpu_torch.io import convert
+    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.models.system import SLAMSystem
+    from denseslam_tpu_torch.ops import ba
+
+    def pba_to(p, device):
+        return ba.BAProblem(*(t.to(device) for t in p))
+
+    cpu = torch.device("cpu")
+    k_verify = max(64, cfg.frontend.ransac_iters // 2)
+    sy = SLAMSystem(cfg, ba_every=4, loop_every=2, device=cpu,
+                    verify_draws=verify_draws(k_verify))
+    convert.backend_state_from_numpy(
+        convert.backend_state_to_numpy(cap.pre["backend"]), sy.backend)
+    sy._tick_count = cap.pre["tick_count"]
+    # where the two ticks part: the window's BA problem built on each
+    # device from the same state, and the card's problem solved on both
+    pg, _ = cap.pre["backend"].window_problem()
+    pc, _ = sy.backend.window_problem()
+    mask_equal = float((pg.obs_mask.cpu() == pc.obs_mask).float().mean())
+    bg = ba.solve(pg, cfg.rig, cfg.backend).T_wc
+    bc = ba.solve(pba_to(pg, cpu), cfg.rig, cfg.backend).T_wc
+    solve_t, solve_r = pose_errors(bg, bc, "BA solve of one problem")
+    before = cap.apply["before"]
+    # the map the tick starts from: its correction replays from the DB
+    sy.slam.submaps.active = clone_map(before["map"], cpu)
+    sy.slam.db = clone_db(before["db"], cpu)
+    t0 = time.perf_counter()
+    sy._chunk_tick()
+    tick_s = time.perf_counter() - t0
+    card = cap.post["backend"]
+    ids_c = [k.frame_id for k in card.keyframes]
+    ids_h = [k.frame_id for k in sy.backend.keyframes]
+    if ids_c != ids_h:
+        raise AssertionError("card and CPU keep different keyframes")
+    t_err, r_err = pose_errors(
+        torch.as_tensor(np.stack([k.T_wc for k in card.keyframes])),
+        torch.as_tensor(np.stack([k.T_wc for k in sy.backend.keyframes])),
+        "backend tick")
+    culled_c = cap.post["num_culled"] - cap.pre["num_culled"]
+    if sy.num_culled != culled_c:
+        raise AssertionError(f"culled {sy.num_culled} on the CPU, "
+                             f"{culled_c} on the card")
+
+    slam = DenseSLAM(cfg, device=cpu)
+    slam.submaps.active = clone_map(before["map"], cpu)
+    slam.db = clone_db(before["db"], cpu)
+    t0 = time.perf_counter()
+    n = slam.apply_pose_updates(cap.apply["ids"], cap.apply["poses"],
+                                enforce_budget=False)
+    apply_s = time.perf_counter() - t0
+    if n != cap.apply["refused"]:
+        raise AssertionError(f"re-fused {n} on the CPU, "
+                             f"{cap.apply['refused']} on the card")
+    mg, mc = cap.apply["after"]["map"], slam.submaps.active
+    if not torch.equal(mg.table.keys.cpu(), mc.table.keys):
+        raise AssertionError("hash tables differ between card and CPU")
+    if not torch.equal(mg.weight.cpu(), mc.weight):
+        raise AssertionError("weights differ between card and CPU")
+    tg = mg.tsdf.cpu()
+    tsdf_err = float((tg - mc.tsdf).abs().max())
+    if tsdf_err > 1e-6:
+        raise AssertionError(f"tsdf card vs CPU: {tsdf_err}")
+    if not torch.equal(cap.apply["after"]["db"].T_fused.cpu(), slam.db.T_fused):
+        raise AssertionError("corrected DB poses differ between card and CPU")
+    emit(dict(phase="system_cpu_reference", tick=cap.pre["tick_count"] + 1,
+              keyframes=len(ids_h), culled=sy.num_culled, refused=n,
+              cpu_refused_own_poses=sy.num_corrections,
+              pose_err_m=t_err, pose_err_rad=r_err,
+              window_obs_mask_equal_share=mask_equal,
+              one_problem_solve_err_m=solve_t,
+              one_problem_solve_err_rad=solve_r, tables_equal=True,
+              weights_equal=True,
+              colours_equal=bool(torch.equal(mg.color.cpu(), mc.color)),
+              tsdf_max_abs_err=tsdf_err,
+              tsdf_frac_differ=float((tg != mc.tsdf).float().mean()),
+              cpu_tick_s=tick_s, cpu_apply_s=apply_s))
+
+
+def profile_tick(cfg, dev, cap, out: str):
+    """torch.profiler over the captured tick's four parts on the card,
+    each run from the card's state before the tick: local_ba,
+    detect_loop (retrieval + verification), optimize_graph, and
+    apply_pose_updates of the tick's updates on the map and DB it found."""
+    from denseslam_tpu_torch.io import convert
+    from denseslam_tpu_torch.models.system import SLAMSystem
+
+    k_verify = max(64, cfg.frontend.ransac_iters // 2)
+    sy = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
+                    verify_draws=verify_draws(k_verify))
+    state = convert.backend_state_to_numpy(cap.pre["backend"])
+    before = cap.apply["before"]
+
+    def backend_setup():
+        convert.backend_state_from_numpy(state, sy.backend)
+        return None
+
+    def map_setup():
+        sy.slam.submaps.active = clone_map(before["map"], sy.device)
+        sy.slam.db = clone_db(before["db"], sy.device)
+        return None
+
+    parts = (
+        ("tick_local_ba", backend_setup, lambda _: sy.backend.local_ba()),
+        ("tick_detect_loop", backend_setup,
+         lambda _: sy.backend.detect_loop()),
+        ("tick_optimize_graph", backend_setup,
+         lambda _: sy.backend.optimize_graph()),
+        ("tick_apply_pose_updates", map_setup,
+         lambda _: sy.slam.apply_pose_updates(
+             cap.apply["ids"], cap.apply["poses"], enforce_budget=False)),
+    )
+    for part, setup, fn in parts:
+        profile_part(part, 1, fn, None, out, setup=setup)
+
+
 def throughput(cfg, dev, run, gpu, reps: int, rgbd_cfg, rgbd_fr,
                stereo_cfg, stereo_fr):
     """Frames/s on the host clock around work that ends in a synchronize:
@@ -1156,14 +1512,20 @@ def throughput(cfg, dev, run, gpu, reps: int, rgbd_cfg, rgbd_fr,
               quartiles=q, samples=samples, gpu=gpu))
 
 
-def profile_part(part: str, frames: int, fn, state, out: str):
+def profile_part(part: str, frames: int, fn, state, out: str, setup=None):
     """Run `fn(state) -> state` once to warm up, then once under
-    torch.profiler. Device time is the sum of the kernels' own times; the
-    table goes to <out>/profile_<part>.txt. Returns the state."""
+    torch.profiler; with `setup`, each run starts from `setup()` (run
+    outside the profiler). Device time is the sum of the kernels' own
+    times; the table goes to <out>/profile_<part>.txt. Returns the state."""
     from torch.profiler import ProfilerActivity, profile
 
+    if setup is not None:
+        state = setup()
     state = fn(state)
     torch.cuda.synchronize()
+    if setup is not None:
+        state = setup()
+        torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1380,7 +1742,8 @@ def profile_vo_stages(vo, part: str, frames: int, stages):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="profile one chunk; write the tables into DIR")
+                    help="profile one chunk of each path and one backend "
+                    "tick; write the tables into DIR")
     ap.add_argument("--reps", type=int, default=1,
                     help="samples of each throughput number (median printed)")
     args = ap.parse_args(argv)
@@ -1407,24 +1770,27 @@ def main(argv=None) -> int:
     final, recs[1]["per_launch"] = check_sgm_final(cfg, dev, gpu)
     check_sgm_ragged(cfg, dev)
     run = run_slice(cfg, dev)
-    for rec in recs:
-        rec["launches"] = run["launches"][rec["name"]]
     check_against_cpu(cfg, dev, run)
 
     rcfg = drive_config("rgbd")
     fr = rgbd_frames(rcfg, dev)
-    rec = check_sampler_rgb(rcfg, dev, gpu, fr)
+    recs.append(check_sampler_rgb(rcfg, dev, gpu, fr))
     rgbd = run_rgbd(rcfg, fr)
-    rec["launches"] = rgbd["launches"][rec["name"]]
-    recs.append(rec)
     check_rgbd_against_cpu(rcfg, dev, fr)
 
     scfg = drive_config("stereo")
     sfr = stereo_frames(scfg, dev)
     stereo = run_stereo(scfg, sfr)
-    final["launches"] = stereo["launches"][final["name"]]
     recs.append(final)
     check_stereo_against_cpu(scfg, dev, sfr)
+
+    system = run_system(scfg, dev, gpu)
+    check_system_against_cpu(scfg, system["capture"])
+    paths = dict(slice=run["launches"], rgbd=rgbd["launches"],
+                 stereo=stereo["launches"], system=system["launches"])
+    for rec in recs:
+        rec["launches_by_path"] = {k: v[rec["name"]] for k, v in paths.items()}
+        rec["launches"] = sum(rec["launches_by_path"].values())
 
     throughput(cfg, dev, run, gpu, args.reps, rcfg, fr, scfg, sfr)
     if args.profile:
@@ -1433,10 +1799,11 @@ def main(argv=None) -> int:
                            args.profile)
         profile_stereo_chunk(scfg, dev, sfr, stereo["stats"]["T_wc"],
                              args.profile)
+        profile_tick(scfg, dev, system["capture"], args.profile)
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "per_launch")
+    keys = ("name", "route", "source", "replaces", "launches",
+            "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "per_launch")
     emit({"kernels": [{k: rec[k] for k in keys if k in rec} for rec in recs]})
     print(gpu_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

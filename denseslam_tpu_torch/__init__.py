@@ -1,4 +1,4 @@
-"""PyTorch / CUDA port of the dense-mapping path of `denseslam_tpu`.
+"""PyTorch / CUDA port of `denseslam_tpu`.
 
 The JAX package beside this one is the reference: every function here is
 held against its JAX counterpart on the same inputs (tests/test_torch_*.py).
@@ -15,9 +15,13 @@ Layer map (the ported slices):
                       last direction + WTA tail (csrc/sgm_final.cu)
   ops/stereo.py     — ZSAD cost volume, WTA, LR check, depth
   ops/features.py, matching.py, ransac.py, smallsolve.py — the sparse VO
+  ops/ba.py, posegraph.py — bundle adjustment and pose-graph relaxation
   models/frontend.py — VO state machine: vo_step (stereo), rgbd_vo_step
   models/dense_slam.py — fusion DB, fuse_keyframe, fuse_sequence,
-                      process_sequence (stereo), process_sequence_rgbd
+                      process_sequence (stereo), process_sequence_rgbd,
+                      online correction, DenseSLAM (one submap)
+  models/backend.py — keyframes, local BA, culling, loop closure
+  models/system.py  — SLAMSystem: the chunk scan + one backend tick a chunk
   io/synthetic.py   — analytic street scene renderer (test and smoke input)
   io/convert.py     — JAX-package state (as numpy) <-> port state
   eval/             — depth-vs-GT and trajectory metrics (numpy)

@@ -136,7 +136,7 @@ class StereoConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BackendConfig:
-    """Local BA + pose graph capacities (not ported yet)."""
+    """Local BA + pose graph capacities."""
     window_keyframes: int = 8
     max_landmarks: int = 1024
     max_obs_per_landmark: int = 8

@@ -12,6 +12,21 @@ bf16 planes arrive as `ml_dtypes.bfloat16` arrays or as their uint16 bits
 and are reinterpreted bit for bit; they leave as uint16 bits (the
 checkpoint's on-disk convention). The DB's u16 depth is held as int32 in
 the port (see models/dense_slam.py FusionDB).
+
+Every `*_to_numpy` returns copies: the port changes its state in place.
+The host-side state of the system travels as plain dicts of numpy values
+(`*_state_to_numpy` / `*_state_from_numpy`):
+  backend  keyframes (frame_id, T_wc, feats_l and feats_r as feature
+           leaves, signature), odom_edges and loop_edges as (fid_i, fid_j,
+           T_ij, weight), the sketch buffer's slots (sig_valid, sig_slot,
+           sig_next, sig_free; the buffer itself is rebuilt from the
+           keyframes' signatures, and a freed slot scores -1 either way),
+           the last BA window's evidence and the reject counters;
+  slam     map and DB leaves, frontend state leaves (with a PRNG key in
+           the JAX order), frame counter and pose history;
+  system   both of the above and the system's counters and chaining state.
+`backend_state_to_numpy` reads the JAX package's Backend as well (the
+attribute names are the same and its arrays go through np.asarray).
 """
 
 from __future__ import annotations
@@ -25,7 +40,8 @@ import torch
 
 from ..config import SystemConfig
 from ..device import resolve_device
-from ..models.dense_slam import FusionDB
+from ..models.backend import Backend, Keyframe, upload
+from ..models.dense_slam import DenseSLAM, FusionDB
 from ..models.frontend import FrontendState
 from ..ops.features import Features
 from ..ops.hash import HashTable
@@ -46,10 +62,18 @@ def _plane_from_numpy(a, dev) -> torch.Tensor:
     return torch.tensor(a, dtype=torch.float32, device=dev)
 
 
+def _np(x) -> np.ndarray:
+    """A numpy copy of a tensor (the port changes its state in place) or
+    of any array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().copy()
+    return np.asarray(x)
+
+
 def _plane_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
-        return t.detach().cpu().view(torch.int16).numpy().view(np.uint16)
-    return t.detach().cpu().numpy()
+        return _np(t.view(torch.int16)).view(np.uint16)
+    return _np(t)
 
 
 def _i32(a, dev) -> torch.Tensor:
@@ -75,7 +99,7 @@ def map_state_from_numpy(leaves: Sequence, device=None) -> MapState:
 
 def map_state_to_numpy(m: MapState) -> List[np.ndarray]:
     """Port MapState -> leaves in the JAX order (bf16 as uint16 bits)."""
-    ints = lambda t: t.detach().cpu().numpy().astype(np.int32)  # noqa: E731
+    ints = lambda t: _np(t).astype(np.int32)  # noqa: E731
     return [ints(m.table.keys), _plane_to_numpy(m.tsdf),
             _plane_to_numpy(m.weight), ints(m.color), ints(m.alloc_frame),
             ints(m.last_seen), ints(m.frame), ints(m.decayed_blocks),
@@ -103,13 +127,12 @@ def fusion_db_from_numpy(leaves: Sequence, device=None) -> FusionDB:
 
 def fusion_db_to_numpy(db: FusionDB) -> List[np.ndarray]:
     """Port FusionDB -> leaves in the JAX order and dtypes."""
-    cpu = lambda t: t.detach().cpu().numpy()  # noqa: E731
-    depth = cpu(db.depth)
-    gray = cpu(db.gray)
+    depth = _np(db.depth)
     if db.quantized:
         depth = depth.astype(np.uint16)
-    return [depth, gray, cpu(db.T_fused), cpu(db.frame_id).astype(np.int32),
-            cpu(db.valid), cpu(db.head).astype(np.int32)]
+    return [depth, _np(db.gray), _np(db.T_fused),
+            _np(db.frame_id).astype(np.int32), _np(db.valid),
+            _np(db.head).astype(np.int32)]
 
 
 _FEATURE_DTYPES = (torch.float32, torch.int32, torch.float32, torch.float32,
@@ -124,7 +147,7 @@ def features_from_numpy(leaves: Sequence, device=None) -> Features:
 
 
 def features_to_numpy(f: Features) -> List[np.ndarray]:
-    return [t.detach().cpu().numpy() for t in f]
+    return [_np(t) for t in f]
 
 
 # FrontendState's fields after the two feature sets, in the JAX order;
@@ -153,8 +176,7 @@ def frontend_state_from_numpy(leaves: Sequence, device=None) -> FrontendState:
 def frontend_state_to_numpy(st: FrontendState, key) -> List[np.ndarray]:
     """Port state -> JAX FrontendState leaves, with `key` (numpy) in the
     key's place."""
-    rest = [getattr(st, name).detach().cpu().numpy()
-            for name, _ in _STATE_DTYPES]
+    rest = [_np(getattr(st, name)) for name, _ in _STATE_DTYPES]
     leaves = features_to_numpy(st.feats_l) + features_to_numpy(st.feats_r)
     return leaves + rest[:6] + [np.asarray(key)] + rest[6:]
 
@@ -185,3 +207,101 @@ def _build(cls, value):
 def config_from_dict(d: Mapping) -> SystemConfig:
     """`dataclasses.asdict` of a JAX `SystemConfig` -> the port's."""
     return _build(SystemConfig, d)
+
+
+def _edges(edges) -> list:
+    return [(int(i), int(j), np.asarray(T, np.float32), float(w))
+            for i, j, T, w in edges]
+
+
+def backend_state_to_numpy(be) -> dict:
+    """A Backend's host state (the port's or the JAX package's)."""
+    mask = be._last_window_mask
+    return dict(
+        keyframes=[dict(frame_id=int(k.frame_id),
+                        T_wc=np.asarray(k.T_wc, np.float32),
+                        feats_l=[_np(x) for x in k.feats_l],
+                        feats_r=[_np(x) for x in k.feats_r],
+                        signature=np.asarray(k.signature, np.float32))
+                   for k in be.keyframes],
+        odom_edges=_edges(be.odom_edges), loop_edges=_edges(be.loop_edges),
+        sig_valid=np.asarray(be._sig_valid, bool),
+        sig_slot={int(f): int(s) for f, s in be._sig_slot.items()},
+        sig_next=int(be._sig_next), sig_free=[int(s) for s in be._sig_free],
+        last_window_ids=(None if be._last_window_ids is None
+                         else np.asarray(be._last_window_ids)),
+        last_window_mask=None if mask is None else np.asarray(mask),
+        ba_rejects=int(be.ba_rejects), pg_rejects=int(be.pg_rejects))
+
+
+def backend_state_from_numpy(state: Mapping, be: Backend) -> Backend:
+    """Load `state` into the port's Backend `be` (on its device)."""
+    dev = be.device
+    be.keyframes = [Keyframe(k["frame_id"], np.asarray(k["T_wc"], np.float32),
+                             features_from_numpy(k["feats_l"], dev),
+                             features_from_numpy(k["feats_r"], dev),
+                             np.asarray(k["signature"], np.float32))
+                    for k in state["keyframes"]]
+    be.odom_edges = _edges(state["odom_edges"])
+    be.loop_edges = _edges(state["loop_edges"])
+    be._sig_valid = np.array(state["sig_valid"], bool)
+    be._sig_slot = dict(state["sig_slot"])
+    be._sig_next = int(state["sig_next"])
+    be._sig_free = list(state["sig_free"])
+    be._sig_buf = None
+    sigs = {k.frame_id: k.signature for k in be.keyframes}
+    if sigs:
+        m, d = next(iter(sigs.values())).shape
+        buf = np.zeros((be._sig_cap, m, d), np.float32)
+        for fid, slot in be._sig_slot.items():
+            buf[slot] = sigs[fid]
+        be._sig_buf = upload(buf, dev)
+    be._last_window_ids = state["last_window_ids"]
+    be._last_window_mask = state["last_window_mask"]
+    be.ba_rejects = state["ba_rejects"]
+    be.pg_rejects = state["pg_rejects"]
+    return be
+
+
+def slam_state_to_numpy(slam: DenseSLAM, key) -> dict:
+    """The port's DenseSLAM state; `key` (numpy) takes the frontend PRNG
+    key's place in the JAX leaf order."""
+    return dict(map=map_state_to_numpy(slam.submaps.active),
+                db=fusion_db_to_numpy(slam.db),
+                fe_state=frontend_state_to_numpy(slam.fe_state, key),
+                frame=int(slam.frame),
+                pose_history=[(int(f), np.asarray(T, np.float32))
+                              for f, T in slam.pose_history])
+
+
+def slam_state_from_numpy(state: Mapping, slam: DenseSLAM) -> DenseSLAM:
+    """Load `state` into the port's DenseSLAM `slam` (on its device)."""
+    dev = slam.device
+    slam.submaps.active = map_state_from_numpy(state["map"], dev)
+    slam.db = fusion_db_from_numpy(state["db"], dev)
+    slam.fe_state = frontend_state_from_numpy(state["fe_state"], dev)
+    slam.frame = int(state["frame"])
+    slam.pose_history = [(int(f), np.asarray(T, np.float32))
+                         for f, T in state["pose_history"]]
+    return slam
+
+
+_SYSTEM_FIELDS = ("num_loops", "num_corrections", "num_relocs", "num_culled",
+                  "_lost_streak", "_tick_count", "_chain_scan",
+                  "_reloc_pending", "_lost_anchor_nkf")
+
+
+def system_state_to_numpy(system, key) -> dict:
+    """The port's SLAMSystem state (see slam_state_to_numpy for `key`)."""
+    return dict(backend=backend_state_to_numpy(system.backend),
+                slam=slam_state_to_numpy(system.slam, key),
+                **{f: getattr(system, f) for f in _SYSTEM_FIELDS})
+
+
+def system_state_from_numpy(state: Mapping, system):
+    """Load `state` into the port's SLAMSystem `system`."""
+    backend_state_from_numpy(state["backend"], system.backend)
+    slam_state_from_numpy(state["slam"], system.slam)
+    for f in _SYSTEM_FIELDS:
+        setattr(system, f, state[f])
+    return system

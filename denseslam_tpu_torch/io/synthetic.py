@@ -50,6 +50,44 @@ def street_scene(length_m: float = 80.0, width_m: float = 14.0,
                  wall_z=float(length_m), side_x=float(width_m / 2))
 
 
+def loop_scene(poses: np.ndarray, seed: int = 11,
+               n_spheres: int = 48) -> Scene:
+    """Open scene for loop drives: a textured ground plane and sphere
+    occluders scattered laterally around the trajectory `poses`, no walls
+    (a circular path revisits its start with the same heading)."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(0.4, 1.3, n_spheres)
+    idx = rng.integers(0, len(poses), n_spheres)
+    lateral = rng.uniform(2.0, 7.0, n_spheres) * rng.choice(
+        [-1.0, 1.0], n_spheres)
+    ahead = rng.uniform(-2.0, 2.0, n_spheres)
+    centers = np.empty((n_spheres, 3), np.float32)
+    for k in range(n_spheres):
+        T = poses[idx[k]]
+        p = T[:3, 3] + T[:3, 0] * lateral[k] + T[:3, 2] * ahead[k]
+        centers[k] = [p[0], 1.65 - r[k], p[2]]
+    span = float(np.abs(poses[:, :3, 3]).max()) + 50.0
+    return Scene(centers, r.astype(np.float32), plane_y=1.65, wall_z=span,
+                 side_x=-1.0)
+
+
+def make_loop_trajectory(n_frames: int, radius_m: float = 15.0,
+                         closure_frames: int = 0) -> np.ndarray:
+    """Circular T_wc trajectory through the origin: a full circle of
+    `radius_m` in `n_frames` frames, then `closure_frames` more past the
+    start (an exact revisit with the same heading). Pure numpy."""
+    yaw = 2.0 * np.pi / n_frames
+    step = yaw * radius_m
+    xi = np.array([0.0, 0.0, step, 0.0, yaw, 0.0], dtype=np.float32)
+    dT = np.asarray(lie.se3_exp_np(xi))
+    poses = []
+    T = np.eye(4, dtype=np.float32)
+    for _ in range(n_frames + closure_frames):
+        poses.append(T.copy())
+        T = (T @ dT).astype(np.float32)
+    return np.stack(poses)
+
+
 def make_trajectory(n_frames: int, step_m: float = 0.05,
                     yaw_rate: float = 0.004) -> np.ndarray:
     """Forward+turn trajectory of T_wc poses, (N, 4, 4) float32 (numpy)."""

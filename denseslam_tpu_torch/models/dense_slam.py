@@ -1,17 +1,22 @@
-"""The pipeline's device programs (port of part of
-denseslam_tpu/models/dense_slam.py): the fused-keyframe DB,
-`fuse_keyframe` / `fuse_sequence`, and the throughput paths
-`process_sequence` (stereo VO + keyframe-gated SGM + fusion) and
-`process_sequence_rgbd`.
+"""The dense pipeline (port of part of denseslam_tpu/models/dense_slam.py):
+the fused-keyframe DB, `fuse_keyframe` / `fuse_sequence`, the throughput
+paths `process_sequence` (stereo VO + keyframe-gated SGM + fusion) and
+`process_sequence_rgbd`, online correction (`online_correction`,
+`purge_culled`) and the host-side `DenseSLAM` with its single-submap
+`SubmapManager`, as the chunk path of models/system.py uses them.
 
 The JAX package donates map and DB to each step; here both are updated in
-place and returned.
+place and returned. Where the JAX version branches on a device value
+inside a program (`lax.cond` per DB slot), the port reads the values the
+branch needs back to the host once and loops there.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import warnings
+from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import SystemConfig
@@ -20,8 +25,9 @@ from ..ops import features as feat_ops
 from ..ops import ransac
 from ..ops import stereo as stereo_ops
 from ..ops import tsdf as tsdf_ops
+from ..utils import lie
 from . import frontend as fe
-from .backend import signature_device
+from .backend import _stack_features, signature_device, upload
 
 
 class FusionDB(NamedTuple):
@@ -149,10 +155,6 @@ def _virtual_right_features(feats_l: feat_ops.Features,
     return feats_l._replace(uv=uv_r, valid=feats_l.valid & ok)
 
 
-def _stack_features(fs) -> feat_ops.Features:
-    return feat_ops.Features(*(torch.stack(x) for x in zip(*fs)))
-
-
 def _sequence_draws(draws: Optional[torch.Tensor],
                     generator: Optional[torch.Generator], n: int,
                     cfg: SystemConfig, dev) -> torch.Tensor:
@@ -248,3 +250,257 @@ def process_sequence_rgbd(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
             vo, is_kf, fe_state,
             _virtual_right_features(fe_state.feats_l, fe_state.disp_l)))
     return fe_state, m, db, _stack_stats(per_frame)
+
+
+# ---------------------------------------------------------------------------
+# Online correction
+# ---------------------------------------------------------------------------
+
+def _topk_slots(scores: torch.Tensor, k: int):
+    """The k highest-scoring slots, ties to the lower index as lax.top_k
+    breaks them, and their scores, read back in one transfer."""
+    idx = torch.sort(scores, descending=True, stable=True).indices[:k]
+    h = torch.stack([idx.to(torch.float32), scores[idx]]).cpu().numpy()
+    return [int(i) for i in h[0]], h[1]
+
+
+def _replay(m: tsdf_ops.MapState, db: FusionDB, slot: int,
+            T_new: Optional[torch.Tensor], cfg: SystemConfig):
+    """De-integrate DB slot `slot`'s frame at the pose it was fused at and,
+    given T_new, re-integrate it there. In place; returns the map."""
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    depth = db_depth(db, slot)
+    color = tsdf_ops.pack_gray(db_gray(db, slot))
+    T_old = db.T_fused[slot]
+    m, s, k = tsdf_ops.allocate_for_frame(m, depth, T_old, intr, tc)
+    m = tsdf_ops.deintegrate(m, s, k, depth, color, T_old, intr, tc)
+    if T_new is not None:
+        m, s, k = tsdf_ops.allocate_for_frame(m, depth, T_new, intr, tc)
+        m = tsdf_ops.integrate(m, s, k, depth, color, T_new, intr, tc)
+    return m
+
+
+def online_correction(m: tsdf_ops.MapState, db: FusionDB,
+                      opt_T: torch.Tensor, opt_valid: torch.Tensor,
+                      cfg: SystemConfig):
+    """De-fuse / re-fuse the worst-drift fused keyframes: score each DB
+    slot's fused pose against its optimised pose `opt_T` (C, 4, 4) where
+    `opt_valid` (C,); when at least start_correction_num slots drift past
+    min_error, replay up to correction_num of them, worst first, then run
+    the defusion-part GC. In place on map and DB; returns (map, db,
+    number re-fused)."""
+    oc = cfg.correction
+    err = lie.pose_error_weighted(db.T_fused, opt_T)
+    stale = db.valid & opt_valid & (err > oc.min_error)
+    do_correct = stale.to(torch.int32).sum() >= oc.start_correction_num
+    scores = torch.where(stale & do_correct, err, -1.0)
+    slots, worst = _topk_slots(scores, oc.correction_num)
+    num = 0
+    for slot, score in zip(slots, worst):
+        if score > 0.0:
+            m = _replay(m, db, slot, opt_T[slot], cfg)
+            db.T_fused[slot] = opt_T[slot]
+            num += 1
+    if num:
+        # the replay's own GC: reclaim the blocks it emptied and evict stale
+        # low-weight leftovers at the old poses
+        if cfg.decay.enabled:
+            m = tsdf_ops.decay_defusion_part(m)
+        if cfg.slide_window.enabled:
+            m = tsdf_ops.slide_window_defusion_part(
+                m, cfg.slide_window.max_age)
+    return m, db, num
+
+
+def purge_culled(m: tsdf_ops.MapState, db: FusionDB, culled: torch.Tensor,
+                 cfg: SystemConfig):
+    """De-fuse the DB entries whose keyframe the backend culled (C,) and
+    drop them, up to correction_num per call. In place; returns (map, db)."""
+    scores = torch.where(db.valid & culled, 1.0, -1.0)
+    slots, run = _topk_slots(scores, cfg.correction.correction_num)
+    for slot, score in zip(slots, run):
+        if score > 0.0:
+            m = _replay(m, db, slot, None, cfg)
+            db.valid[slot] = False
+            db.frame_id[slot] = -1
+    return m, db
+
+
+# ---------------------------------------------------------------------------
+# Submaps and the host-side pipeline
+# ---------------------------------------------------------------------------
+
+def _check_supported(cfg: SystemConfig, mesh) -> None:
+    p = cfg.pipeline
+    if p.new_submap_threshold >= 0 or p.map_memory_budget_mb >= 0:
+        raise NotImplementedError(
+            "more than one submap (new_submap_threshold >= 0) and the map "
+            "memory budget are not ported yet (ROADMAP.md Queue A, A7)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "a sharded map is not ported yet (ROADMAP.md Queue A, A10)")
+    if p.sensor == "mono":
+        raise NotImplementedError(
+            "sensor='mono' is not ported yet (ROADMAP.md Queue A, A8)")
+
+
+class SubmapManager:
+    """The single-submap registry the chunk path reads (the JAX
+    SubmapManager holds many submaps, spills them to the host and defers
+    their corrections; that is ROADMAP.md Queue A, A7): one active map and
+    its fusion DB, on `device`."""
+
+    def __init__(self, cfg: SystemConfig, device=None):
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.maps: List[tsdf_ops.MapState] = [tsdf_ops.make_map(cfg.tsdf, dev)]
+        self.dbs: List[FusionDB] = [make_fusion_db(cfg, dev)]
+        # deferred corrections of inactive submaps: none with one submap
+        self.pending_corrections: List[dict] = [{}]
+        self.dirty: List[bool] = [True]
+
+    @property
+    def num_local_maps(self) -> int:
+        return len(self.maps)
+
+    @property
+    def active_idx(self) -> int:
+        return len(self.maps) - 1
+
+    @property
+    def active(self) -> tsdf_ops.MapState:
+        return self.maps[-1]
+
+    @active.setter
+    def active(self, m: tsdf_ops.MapState) -> None:
+        self.maps[-1] = m
+
+    def mark_dirty(self, idx: int) -> None:
+        self.dirty[idx] = True
+
+    def finalize_spills(self) -> None:
+        """No spill is ever in flight: there is no memory budget."""
+
+    def enforce_memory_budget(self, async_spill: bool = False) -> List[int]:
+        """No budget (map_memory_budget_mb < 0): nothing to evict."""
+        return []
+
+    def local_map_size(self, idx: int) -> int:
+        return int(tsdf_ops.num_allocated_blocks(self.maps[idx]))
+
+
+class DenseSLAM:
+    """Host-side state of the dense pipeline as the chunk path of
+    models/system.py drives it: the frontend state, one submap and its
+    fusion DB, the frame counter and the pose history; backend pose
+    updates flow into the map through `apply_pose_updates`. On `device`
+    (None = the CUDA card; raises without one).
+
+    Not ported: the per-frame `process_frame` (ROADMAP.md Queue A, A8),
+    rendering (`raycast_view`, A5), more than one submap and the memory
+    budget (A7), a sharded map (A10) and sensor="mono" (A8); those options
+    raise NotImplementedError."""
+
+    def __init__(self, cfg: SystemConfig, mesh=None, device=None):
+        _check_supported(cfg, mesh)
+        if cfg.correction.enabled and cfg.tsdf.storage_dtype == "bfloat16":
+            warnings.warn(
+                "online correction replays de-integration against a "
+                "bfloat16-quantised map: the de-fuse/re-fuse inverse is "
+                "approximate (~1/256 tsdf error per correction) instead of "
+                "exact. Use float32 storage when correction fidelity "
+                "matters.", stacklevel=2)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.fe_state = fe.init_frontend(cfg, device=self.device)
+        self.submaps = SubmapManager(cfg, self.device)
+        self.frame = 0
+        self.pose_history: List[Tuple[int, np.ndarray]] = []
+
+    @property
+    def db(self) -> FusionDB:
+        return self.submaps.dbs[self.submaps.active_idx]
+
+    @db.setter
+    def db(self, value: FusionDB) -> None:
+        self.submaps.dbs[self.submaps.active_idx] = value
+
+    def process_frame(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the per-frame DenseSLAM.process_frame is not ported yet "
+            "(ROADMAP.md Queue A, A8); use SLAMSystem.process_chunk")
+
+    def raycast_view(self, T_wc=None):
+        raise NotImplementedError(
+            "rendering (raycast_view) is not ported yet (ROADMAP.md Queue "
+            "A, A5)")
+
+    def maybe_spawn_submap(self, T_wc, defer_enforce: bool = False) -> bool:
+        """The new-submap policy; new_submap_threshold < 0 (the only value
+        the port accepts) disables it."""
+        return False
+
+    def flush_deferred_corrections(self) -> int:
+        """Sequence-end replay of deferred corrections: with one submap
+        nothing is ever deferred. Returns the number of submaps flushed."""
+        return 0
+
+    def apply_pose_updates(self, frame_ids: np.ndarray, poses: np.ndarray,
+                           enforce_budget: bool = True) -> int:
+        """Feed backend-optimised poses (frame_ids (n,), poses (n, 4, 4))
+        to online correction of the active submap. Returns the number of
+        re-fused keyframes."""
+        if not self.cfg.correction.enabled:
+            return 0
+        lut = {int(f): i for i, f in enumerate(frame_ids)}
+        si = self.submaps.active_idx
+        db = self.submaps.dbs[si]
+        db_ids = db.frame_id.cpu().numpy()
+        opt_T = np.tile(np.eye(4, dtype=np.float32), (db_ids.shape[0], 1, 1))
+        opt_valid = np.zeros(db_ids.shape[0], bool)
+        for slot, fid in enumerate(db_ids):
+            if int(fid) in lut:
+                opt_T[slot] = poses[lut[int(fid)]]
+                opt_valid[slot] = True
+        if not opt_valid.any():
+            return 0
+        m, db, num = online_correction(
+            self.submaps.maps[si], db, upload(opt_T, self.device),
+            upload(opt_valid, self.device), self.cfg)
+        self.submaps.maps[si] = m
+        self.submaps.dbs[si] = db
+        if num > 0:
+            self.submaps.mark_dirty(si)
+        if enforce_budget:
+            self.submaps.enforce_memory_budget()
+        return num
+
+    def purge_keyframes(self, culled_frame_ids: np.ndarray) -> None:
+        """Remove the fused keyframes the backend culled."""
+        db_ids = self.db.frame_id.cpu().numpy()
+        culled = upload(np.isin(db_ids, culled_frame_ids), self.device)
+        m, db = purge_culled(self.submaps.active, self.db, culled, self.cfg)
+        self.submaps.active = m
+        self.db = db
+
+    def decay_catchup(self) -> None:
+        """Sequence-end decay: min_decay_age passes ignoring the age gate."""
+        if not self.cfg.decay.enabled:
+            return
+        w = self.cfg.decay.max_decay_weight
+        for _ in range(self.cfg.decay.min_decay_age):
+            self.submaps.active = tsdf_ops.decay(self.submaps.active, w, 0,
+                                                 force_all=True)
+
+    def memory_bytes(self) -> int:
+        """Used map bytes (16 per voxel of every allocated block)."""
+        blocks = sum(self.submaps.local_map_size(i)
+                     for i in range(self.submaps.num_local_maps))
+        return blocks * 16 * tsdf_ops.BLOCK_VOL
+
+    @property
+    def current_pose(self) -> np.ndarray:
+        return self.fe_state.T_wc.cpu().numpy()
+
+    def trajectory(self) -> List[Tuple[int, np.ndarray]]:
+        return list(self.pose_history)

@@ -419,6 +419,26 @@ def decay_and_slide(m: MapState, max_decay_weight: float, min_decay_age: int,
                         (empty & ~old).to(torch.int32).sum())
 
 
+def decay_defusion_part(m: MapState) -> MapState:
+    """Reclaim the blocks of a correction replay's working set (blocks
+    touched this frame, last_seen == frame) that de-integration left
+    empty; surviving weights are never zeroed. In place."""
+    touched = m.last_seen == m.frame
+    return decay(m, 0.0, 0, force_all=True, only_mask=touched)
+
+
+def slide_window_defusion_part(m: MapState, max_age: int,
+                               occupancy_floor: float = 0.02) -> MapState:
+    """Evict the stale near-empty blocks of a correction replay's working
+    set: blocks touched this frame, older than max_age, with fewer than
+    `occupancy_floor` of their voxels weighted (the residue a de-fuse at
+    the old pose leaves where the re-fuse did not cover). In place."""
+    occ = (m.weight > 0).to(torch.float32).mean(dim=-1)
+    touched = (m.last_seen == m.frame) & (occ < occupancy_floor)
+    old = m.table.valid & touched & ((m.frame - m.alloc_frame) > max_age)
+    return _free_blocks(m, old)
+
+
 def _free_blocks(m: MapState, drop: torch.Tensor, kill=None,
                  decayed=None) -> MapState:
     """Free the blocks in `drop` (S,) and reset their rows (plus the voxels
