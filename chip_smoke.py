@@ -62,37 +62,72 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    (within 0.1%) agreeing on >= 99.95% of pixels; the CPU
                    fusing the card's keyframe depth at the card's poses
                    gives the card's keys, weights and tsdf.
-  9. system        the whole system: the stereo loop drive of
+  9. render        both renderers on the stereo phase's final map at its
+                   last fused keyframe's estimated pose through
+                   DenseSLAM.raycast_view (the splat renderer, the
+                   default, and the sphere-traced raycast), each scored
+                   against the ground-truth depth there (d1.25 > 0.8,
+                   coverage > 0.3), timed behind the sleep kernel and
+                   profiled once (launches, device ms, busy share, host
+                   syncs); the splat z-buffer keys of the same map cloned
+                   to the CPU equal the card's on >= 99.9% of pixels.
+ 10. system        the whole system: the stereo loop drive of
                    scripts/long_drive_eval.py (576 frames, 9 chunks of 64,
                    its configuration with online correction, its gain ramp
                    and photometric noise) through SLAMSystem.process_chunk
-                   and finish(), ba_every=4, loop_every=2; launch counts
-                   read around exactly this run: per fused keyframe 3 of
-                   B3 and 1 of the fused tail, B1 once per fused keyframe,
-                   twice per re-fused and once per purged one; tracking on
-                   >= 95% of frames, >= 1 verified loop, >= 1 re-fused
-                   keyframe, overflow 0, ATE <= 1.0 m; frames/s from chunk
-                   2 on.
- 10. system_cpu_reference  the first tick of that drive that ran local BA
+                   and finish(), ba_every=4, loop_every=2, with the drive's
+                   depth evaluation every 25th fused keyframe (the map
+                   rendered at the estimated pose against the ground truth
+                   there and at the true pose, and the SGM depth); launch
+                   counts read around exactly this run: per fused keyframe
+                   and per eval frame 3 of B3 and 1 of the fused tail, B1
+                   once per fused keyframe, twice per re-fused and once
+                   per purged one; tracking on >= 95% of frames, >= 1
+                   verified loop, >= 1 re-fused keyframe, overflow 0, ATE
+                   <= 1.0 m, eval d1.25 >= 0.85 and coverage >= 0.3;
+                   frames/s from chunk 2 on, the eval kept out of it.
+ 11. system_cpu_reference  the first tick of that drive that ran local BA
                    and re-fused keyframes, rerun on the CPU from the card's
                    state before it with the same verification draws:
                    keyframe poses within 1 mm / 1e-4 rad; the CPU's online
                    correction from the card's poses re-fuses as many
                    keyframes and gives the card's keys, weights and tsdf
                    (within 1e-6).
- 11. throughput    frames/s of stereo + fusion, of the fusion tail alone
+ 12. frame         the per-frame path: the drive's first 128 frames one at
+                   a time through SLAMSystem.process_frame, ba_every=4,
+                   loop_every=2, the RANSAC budget pinned at
+                   FRAME_PD_SCALE, then again with the backend off; launch
+                   identities as in `system` in both runs, tracking on >=
+                   95% of frames, overflow 0, ATE bounds (FRAME_VO_ATE_M,
+                   FRAME_ATE_M); then 20 more frames of the drive with the
+                   PD controller live, the last 16 profiled (device ms,
+                   launches, busy share, host syncs a frame); frames/s,
+                   the live budget's range and the first local BA's moves
+                   printed.
+ 13. icp           internal odometry (use_external_odometry=False) on the
+                   JAX package's own internal-ICP drive (default scene,
+                   0.04 m a frame, rendered depth), 16 frames at 1226x370
+                   through DenseSLAM.process_frame, ICP against a splat
+                   render of the map: ICP converged on every frame, each
+                   step from the last fused pose within ICP_STEP_FRAC of
+                   the true step, the final position within
+                   ICP_FINAL_FRAC of the distance travelled, B2 once per
+                   fused keyframe, and one `track` call rerun on the CPU
+                   from the card's model within 1 mm / 1e-4 rad.
+ 14. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
 
 With --profile, torch.profiler tables of one chunk of each path, the VOs
 by stage, and the captured tick's local_ba, detect_loop, optimize_graph
-and apply_pose_updates, each from the card's state before the tick.
+and apply_pose_updates, each from the card's state before the tick (and
+the tables of the render and per-frame profiles).
 
-The line before the last two holds every kernel with its numbers (its
-launches summed over the four paths, and by path); the line before the
-last is the card's name and power limit as nvidia-smi prints them; the
-last line is the result.
+Then a line of each phase's seconds. The line before the last two holds
+every kernel with its numbers (its launches summed over the paths, and
+by path); the line before the last is the card's name and power limit as
+nvidia-smi prints them; the last line is the result.
 """
 
 from __future__ import annotations
@@ -127,6 +162,34 @@ N_CPU_FRAMES = 5
 SYSTEM_LOOP_FRAMES = 500
 SYSTEM_FRAMES = 576
 SYSTEM_CHUNK = 64
+EVAL_EVERY = 25          # scripts/long_drive_eval.py --depth-eval-every
+FRAME_FRAMES = 128       # the per-frame phase: the drive's first 2 chunks
+FRAME_WARMUP = 16        # frames/s counts the frames after these
+# the live-PD window after the drive: FRAME_WINDOW_WARM frames, then
+# FRAME_WINDOW under the profiler (4 keyframes: one local BA and two loop
+# detections, the drive's rates)
+FRAME_WINDOW_WARM = 4
+FRAME_WINDOW = 16
+ICP_FRAMES = 16
+# the frame phase's RANSAC budget (the first ceil(K * scale) hypotheses
+# may win), pinned so that its ATE does not move with the host's speed:
+# about the mean the live PD controller held on the card (PERF.md
+# section 6)
+FRAME_PD_SCALE = 0.45
+# the frame phase's ATE bounds over the 128 frames, set from the live-PD
+# readings before the first pinned run: the VO and fusion alone, and with
+# the backend on. The reference's local BA, started at the ground truth
+# on this drive's first keyframes, pulls them 10-12 cm off it, and the
+# port's equals it (tests/test_torch_drive_ba.py); the frontend follows
+# each BA, so the backend run cannot meet the VO's bound (ROADMAP.md
+# Queue C)
+FRAME_VO_ATE_M = 0.12
+FRAME_ATE_M = 0.3
+# the icp phase's bounds, set before its first run on the card (PERF.md
+# section 6): a pose left at the last fused keyframe's is off by all of
+# the step and ends off by about the distance travelled
+ICP_STEP_FRAC = 0.5
+ICP_FINAL_FRAC = 0.25
 
 
 def emit(obj) -> None:
@@ -564,7 +627,7 @@ def run_stereo(cfg, fr):
                   stats["num_inliers"].cpu().numpy()[1:])),
               **traj, depth_absrel=q["absrel"], depth_d1_25=q["d1_25"],
               depth_coverage=q["coverage"], seconds=secs))
-    return dict(launches=launches, stats=stats)
+    return dict(launches=launches, stats=stats, map=m)
 
 
 def check_stereo_against_cpu(cfg, dev, fr):
@@ -1237,13 +1300,69 @@ class TickCapture:
             self.pre, self.apply, self.post = pre, a, self._snapshot(False)
 
 
+def eval_floor_m(cfg) -> float:
+    """The depth metrics' near limit: the rig's resolvable depth, as
+    scripts/long_drive_eval.py:270-275 sets it for stereo."""
+    return max(0.5, cfg.rig.intr.fx * cfg.rig.baseline_m
+               / (cfg.stereo.max_disparity - 1))
+
+
+def gt_depth(cfg, T, scene, dev) -> np.ndarray:
+    """The scene's depth seen from pose T (a (4, 4) tensor or array), 0
+    beyond the map's range."""
+    from denseslam_tpu_torch.io import synthetic
+    _, d = synthetic.render_view(T, cfg.rig.intr, scene, device=dev)
+    d = d.cpu().numpy()
+    d[d > cfg.tsdf.max_depth_m] = 0.0
+    return d
+
+
+def eval_renders(cfg, system, frames, base, lefts, rights, gt, scene, dev):
+    """scripts/long_drive_eval.py:421-490 on one chunk: for each eval
+    frame t, the map rendered by raycast_view at t's estimated pose,
+    scored against the ground-truth depth at that pose (`depth`) and at
+    the true pose (`depth_gtpose`), and the frame's SGM depth against the
+    latter (`depth_input`). Returns the metrics of each frame."""
+    from denseslam_tpu_torch.eval import depth_metrics
+    from denseslam_tpu_torch.ops import stereo
+
+    lo, hi = eval_floor_m(cfg), cfg.tsdf.max_depth_m
+    out = []
+    for t in frames:
+        T_est = next(T for f, T in reversed(system.slam.pose_history)
+                     if f == t)
+        rc = system.slam.raycast_view(T_est).depth.cpu().numpy()
+        gtd = gt_depth(cfg, gt[t], scene, dev)
+        d_in, v_in = stereo.compute_depth(lefts[t - base], rights[t - base],
+                                          cfg.rig, cfg.stereo,
+                                          max_depth_m=hi)
+        d_in = torch.where(v_in, d_in, 0.0).cpu().numpy()
+        out.append(dict(
+            depth=depth_metrics.depth_metrics(
+                rc, gt_depth(cfg, T_est, scene, dev), min_depth=lo,
+                max_depth=hi),
+            depth_gtpose=depth_metrics.depth_metrics(rc, gtd, min_depth=lo,
+                                                     max_depth=hi),
+            depth_input=depth_metrics.depth_metrics(d_in, gtd, min_depth=lo,
+                                                    max_depth=hi)))
+    return out
+
+
+def mean_metrics(per_frame, key):
+    """The nanmean of each metric over the eval frames, as
+    scripts/long_drive_eval.py:511-516 averages them."""
+    rows = [f[key] for f in per_frame]
+    return {k: float(np.nanmean([r[k] for r in rows])) for k in rows[0]}
+
+
 def run_system(cfg, dev, gpu):
     """The whole system: the flagship drive, 576 frames in 9 chunks of 64,
     through SLAMSystem.process_chunk and finish() on the card, with the
-    launch counts set to 0 just before and read just after. Frames/s
-    counts process_chunk's time from chunk 2 on, as
+    launch counts set to 0 just before and read just after, and the
+    drive's depth evaluation every 25th fused keyframe (eval_renders).
+    Frames/s counts process_chunk's time from chunk 2 on, as
     scripts/long_drive_eval.py:296-298 does (less the tick capture's
-    copies)."""
+    copies); the eval renders stay out of it, as there."""
     from denseslam_tpu_torch import kernels
     from denseslam_tpu_torch.eval import traj_metrics
     from denseslam_tpu_torch.models.system import SLAMSystem
@@ -1265,6 +1384,8 @@ def run_system(cfg, dev, gpu):
     system.slam.purge_keyframes = counted_purge
     kernels.reset_counts()
     ok_frames, proc_s, proc_frames, synth_s = [], 0.0, 0, 0.0
+    evals, eval_ids, eval_s, kf_seen = [], [], 0.0, 0
+    every = cfg.pipeline.keyframe_every
     t_all = time.perf_counter()
     for base in range(0, SYSTEM_FRAMES, SYSTEM_CHUNK):
         t0 = time.perf_counter()
@@ -1279,7 +1400,21 @@ def run_system(cfg, dev, gpu):
         if base >= 2 * SYSTEM_CHUNK:
             proc_s += dt
             proc_frames += SYSTEM_CHUNK
-        ok_frames.append(out["tracking_ok_frames"])
+        okf = out["tracking_ok_frames"]
+        ok_frames.append(okf)
+        # every EVAL_EVERY-th keyframe-slot frame that tracked, as
+        # scripts/long_drive_eval.py:373-378 picks them
+        frames = []
+        for i in range(SYSTEM_CHUNK):
+            if (base + i) % every == 0 and okf[i]:
+                if kf_seen % EVAL_EVERY == 0:
+                    frames.append(base + i)
+                kf_seen += 1
+        t0 = time.perf_counter()
+        evals += eval_renders(cfg, system, frames, base, lefts, rights, gt,
+                              scene, dev)
+        eval_ids += frames
+        eval_s += time.perf_counter() - t0
     system.finish()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t_all
@@ -1288,11 +1423,17 @@ def run_system(cfg, dev, gpu):
     be = system.backend
     fused = be.num_keyframes + system.num_culled
     refused = system.num_corrections
+    # the eval's SGM depth launches B3 three times and the tail once too
+    n_eval = len(evals)
     want = dict(tile_sample=fused + 2 * refused + purged[0],
-                tile_sample_rgb=0, sgm_path=3 * fused, sgm_final=fused)
+                tile_sample_rgb=0, sgm_path=3 * (fused + n_eval),
+                sgm_final=fused + n_eval)
     if fused == 0 or launches != want:
         raise AssertionError(f"launches {launches}, want {want} ({fused} "
-                             f"fused, {refused} re-fused, {purged[0]} purged)")
+                             f"fused, {refused} re-fused, {purged[0]} "
+                             f"purged, {n_eval} eval SGMs)")
+    depth_q = {k: mean_metrics(evals, k)
+               for k in ("depth", "depth_gtpose", "depth_input")}
     ok = np.concatenate(ok_frames)
     track = float(ok[1:].mean())
     est = [T for _, T in system.trajectory()]
@@ -1319,14 +1460,17 @@ def run_system(cfg, dev, gpu):
               cull_margin_max=max(be.cull_margins, default=None),
               fps=proc_frames / proc_s, fps_frames=proc_frames,
               process_s=proc_s, wall_s=wall_s, synth_s=synth_s,
-              capture_s=cap.seconds,
+              capture_s=cap.seconds, eval_s=eval_s, eval_frames=eval_ids,
+              **depth_q,
               phase_s={**system.phase_s, **be.phase_s},
               memory_mb=system.memory_bytes() / 1e6,
               blocks=int(system.slam.submaps.active.table.valid.sum()),
               gpu=gpu))
     gates = dict(tracking=track >= 0.95, loop=system.num_loops >= 1,
                  refused=refused >= 1, overflow=overflow == 0,
-                 ate=ate <= 1.0, tick_captured=cap.post is not None)
+                 ate=ate <= 1.0, tick_captured=cap.post is not None,
+                 eval_coverage=depth_q["depth"]["coverage"] >= 0.3,
+                 eval_d1_25=depth_q["depth"]["d1_25"] >= 0.85)
     if not all(gates.values()):
         raise AssertionError(f"system gates failed: {gates}")
     return dict(launches=launches, capture=cap, system=system)
@@ -1418,6 +1562,318 @@ def check_system_against_cpu(cfg, cap):
               tsdf_max_abs_err=tsdf_err,
               tsdf_frac_differ=float((tg != mc.tsdf).float().mean()),
               cpu_tick_s=tick_s, cpu_apply_s=apply_s))
+
+
+def run_render(cfg, dev, fr, stereo, gpu, out=None):
+    """Both renderers on the stereo phase's final map, at its last fused
+    keyframe's estimated pose, through DenseSLAM.raycast_view at 1226x370:
+    the splat renderer (the default) and the sphere-traced raycast, each
+    scored against the ground-truth depth at that pose, timed behind the
+    sleep kernel and profiled once (profile_part: launches, device ms,
+    busy share, host syncs); then the splat z-buffer of the same map
+    cloned to the CPU, whose keys must equal the card's on >= 99.9% of
+    pixels."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.eval import depth_metrics
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.ops import splat
+
+    m = stereo["map"]
+    i = torch.nonzero(stereo["stats"]["fused"]).flatten().tolist()[-1]
+    T = stereo["stats"]["T_wc"][i].clone()
+    gtd = gt_depth(cfg, T, synthetic.street_scene(), dev)
+    lo, hi = eval_floor_m(cfg), cfg.tsdf.max_depth_m
+    rec = dict(phase="render", frame=i, shape=[cfg.rig.intr.height,
+                                               cfg.rig.intr.width])
+    for renderer, reps in (("splat", 20), ("raycast", 3)):
+        slam = DenseSLAM(dataclasses.replace(cfg, pipeline=dataclasses.replace(
+            cfg.pipeline, renderer=renderer)), device=dev)
+        slam.submaps.active = m
+        kernels.reset_counts()
+        rc = slam.raycast_view(T)
+        torch.cuda.synchronize()
+        if any(kernels.launch_counts.values()):
+            raise AssertionError(f"{renderer} launched {kernels.launch_counts}")
+        for name, x in rc._asdict().items():
+            if not torch.isfinite(x.float()).all():
+                raise AssertionError(f"{renderer}: non-finite {name}")
+        q = depth_metrics.depth_metrics(rc.depth.cpu().numpy(), gtd,
+                                        min_depth=lo, max_depth=hi)
+        if not (q["coverage"] > 0.3 and q["d1_25"] > 0.8):
+            raise AssertionError(f"{renderer} depth off the scene: {q}")
+        _, prof = profile_part(f"render_{renderer}", 1,
+                               lambda _: slam.raycast_view(T), None, out)
+        rec[renderer] = dict(
+            # warmed up by the calls above
+            cuda_ms=cuda_ms(lambda: slam.raycast_view(T), reps, warm=0),
+            **{k: prof[k] for k in ("wall_ms", "device_ms",
+                                    "device_busy_share", "launches",
+                                    "host_syncs")},
+            d1_25=q["d1_25"], coverage=q["coverage"], absrel=q["absrel"],
+            mae_m=q["mae"])
+    sc = slam._splat_cfg
+    intr = cfg.rig.intr
+    keys_g = splat.splat_zbuffer(m, T, intr, cfg.tsdf, sc)[0][:-1].cpu()
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    keys_c = splat.splat_zbuffer(clone_map(m, cpu), T.cpu(), intr, cfg.tsdf,
+                                 sc)[0][:-1]
+    cpu_s = time.perf_counter() - t0
+    equal = float((keys_g == keys_c).float().mean())
+    if equal < 0.999:
+        raise AssertionError(f"splat keys card vs CPU equal on {equal}")
+    emit(dict(rec, splat_keys_equal_share=equal,
+              pixels_hit=float((keys_g != 2 ** 31 - 1).float().mean()),
+              cpu_zbuffer_s=cpu_s, gpu=gpu))
+
+
+def drive_frames(cfg, dev, chunks, ba_every: int, loop_every: int):
+    """`chunks` of (lefts, rights) one frame at a time through a fresh
+    SLAMSystem.process_frame on the card, its PD controller pinned at
+    FRAME_PD_SCALE (the controller still runs every frame); the launch
+    counts set to 0 just before and read just after. Returns the frames'
+    telemetry, their seconds, the launches, the purged keyframes, the
+    system, and the window positions before and after its first local
+    BA."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.models.system import SLAMSystem
+
+    system = SLAMSystem(cfg, ba_every=ba_every, loop_every=loop_every,
+                        device=dev, verify_draws=verify_draws(
+                            max(64, cfg.frontend.ransac_iters // 2)))
+    pd = system.pd
+    pd_range = (pd.lo, pd.hi)
+    pd.lo = pd.hi = pd.scale = FRAME_PD_SCALE
+    purge = system.slam.purge_keyframes
+    purged = [0]
+
+    def counted_purge(ids):
+        before = int(system.slam.db.valid.sum())
+        purge(ids)
+        purged[0] += before - int(system.slam.db.valid.sum())
+
+    system.slam.purge_keyframes = counted_purge
+    local_ba = system.backend.local_ba
+    first_ba = {}
+
+    def logged_ba():
+        before = {k.frame_id: k.T_wc[:3, 3].copy()
+                  for k in system.backend.keyframes}
+        res = local_ba()
+        if res is not None and not first_ba:
+            first_ba.update({int(f): (before[int(f)], T[:3, 3].copy())
+                             for f, T in zip(*res)})
+        return res
+
+    system.backend.local_ba = logged_ba
+    outs, frame_s = [], []
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    for lefts, rights in chunks:
+        for j in range(lefts.shape[0]):
+            t0 = time.perf_counter()
+            outs.append(system.process_frame(lefts[j], rights[j]))
+            frame_s.append(time.perf_counter() - t0)
+    return dict(outs=outs, frame_s=frame_s, system=system,
+                launches=dict(kernels.launch_counts), purged=purged[0],
+                first_ba=first_ba, pd_range=pd_range)
+
+
+def frame_stats(run, gt) -> dict:
+    """Launch identity (per fused keyframe 3 of B3 and 1 of the tail; B1
+    once per fused, twice per re-fused and once per purged keyframe), then
+    tracking, ATE, frames/s after the first FRAME_WARMUP frames, and the
+    first BA's keyframe errors against the ground truth, before and after,
+    of one drive_frames run."""
+    from denseslam_tpu_torch.eval import traj_metrics
+
+    outs, system = run["outs"], run["system"]
+    fused = sum(o["fused"] for o in outs)
+    refused = system.num_corrections
+    want = dict(tile_sample=fused + 2 * refused + run["purged"],
+                tile_sample_rgb=0, sgm_path=3 * fused, sgm_final=fused)
+    if fused == 0 or run["launches"] != want:
+        raise AssertionError(f"launches {run['launches']}, want {want} "
+                             f"({fused} fused, {refused} re-fused, "
+                             f"{run['purged']} purged)")
+    if system.backend.num_keyframes + system.num_culled != fused:
+        raise AssertionError("a fused keyframe did not reach the backend")
+    if any(o["budget_scale"] != FRAME_PD_SCALE for o in outs):
+        raise AssertionError("the pinned budget scale moved")
+    est = np.stack([o["T_wc"] for o in outs])
+    if not np.isfinite(est).all():
+        raise AssertionError("non-finite poses")
+    n = len(outs)
+    steady = run["frame_s"][FRAME_WARMUP:]
+    return dict(
+        fused=fused, refused=refused, purged=run["purged"],
+        launches=run["launches"],
+        overflow=int(system.slam.submaps.active.overflow),
+        tracking_ok_share=float(np.mean([o["tracking_ok"]
+                                         for o in outs[1:]])),
+        ate_rmse_m=traj_metrics.ate_rmse(list(est), list(gt[:n])),
+        end_error_m=float(np.linalg.norm(est[-1][:3, 3] - gt[n - 1][:3, 3])),
+        loops=system.num_loops, culled=system.num_culled,
+        relocs=system.num_relocs, ba_rejects=system.backend.ba_rejects,
+        fps=len(steady) / sum(steady),
+        frame_ms_median=1e3 * float(np.median(steady)),
+        frame_ms_max=1e3 * max(steady),
+        first_ba=[dict(frame=f, err_before_m=float(np.linalg.norm(
+                           a - gt[f][:3, 3])),
+                       err_after_m=float(np.linalg.norm(b - gt[f][:3, 3])))
+                  for f, (a, b) in sorted(run["first_ba"].items())])
+
+
+def live_window(run, lefts, rights, out=None):
+    """The PD controller of drive_frames run `run` live again, in its own
+    range, on the frames after the drive: the first FRAME_WINDOW_WARM of
+    `lefts`/`rights` warm up, the next FRAME_WINDOW run under profile_part
+    (device ms, launches, busy share, host syncs a frame). Returns the
+    profile record and the budget scales the window visited."""
+    system = run["system"]
+    system.pd.lo, system.pd.hi = run["pd_range"]
+    spans = ((0, FRAME_WINDOW_WARM),
+             (FRAME_WINDOW_WARM, FRAME_WINDOW_WARM + FRAME_WINDOW))
+    scales = []
+
+    def frames(i):
+        for j in range(*spans[i]):
+            scales.append(system.process_frame(lefts[j],
+                                               rights[j])["budget_scale"])
+        return i + 1
+
+    _, rec = profile_part("frame", FRAME_WINDOW, frames, 0, out)
+    return rec, scales
+
+
+def run_frame(cfg, dev, gpu, out=None):
+    """The per-frame path: the flagship drive's first 128 frames (its
+    first two chunks, the same frames and noise) one at a time through
+    SLAMSystem.process_frame at 1226x370, ba_every=4, loop_every=2, the
+    RANSAC budget pinned at FRAME_PD_SCALE; then the same frames with the
+    backend off (ba_every=0, loop_every=0): the VO and fusion alone; then,
+    on the backend run, the next FRAME_WINDOW_WARM + FRAME_WINDOW frames of
+    the drive with the PD controller live (live_window). Gates: tracking
+    on >= 95% of frames, overflow 0 and the launch identity in both runs;
+    ATE <= FRAME_VO_ATE_M for the VO alone and <= FRAME_ATE_M with the
+    backend. Frames/s counts the frames after the first 16."""
+    gt, scene = system_setup(cfg)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    chunks = [system_chunk(cfg, gt, scene, base,
+                           min(base + SYSTEM_CHUNK, FRAME_FRAMES), gen, dev)
+              for base in range(0, FRAME_FRAMES, SYSTEM_CHUNK)]
+    run = drive_frames(cfg, dev, chunks, 4, 2)
+    full = frame_stats(run, gt)
+    vo = frame_stats(drive_frames(cfg, dev, chunks, 0, 0), gt)
+    end = FRAME_FRAMES + FRAME_WINDOW_WARM + FRAME_WINDOW
+    lefts, rights = system_chunk(cfg, gt, scene, FRAME_FRAMES, end, gen, dev)
+    prof, scales = live_window(run, lefts, rights, out)
+    emit(dict(phase="frame", frames=FRAME_FRAMES, budget_scale=FRAME_PD_SCALE,
+              **full, vo_only=vo,
+              live=dict(frames=[FRAME_FRAMES, end],
+                        profiled=[end - FRAME_WINDOW, end],
+                        budget_scale_min=min(scales),
+                        budget_scale_max=max(scales),
+                        **prof["per_frame"],
+                        device_busy_share=prof["device_busy_share"],
+                        wall_ms_per_frame=prof["wall_ms"] / FRAME_WINDOW),
+              gpu=gpu))
+    gates = dict(tracking=min(full["tracking_ok_share"],
+                              vo["tracking_ok_share"]) >= 0.95,
+                 overflow=full["overflow"] == vo["overflow"] == 0,
+                 ate_vo=vo["ate_rmse_m"] <= FRAME_VO_ATE_M,
+                 ate=full["ate_rmse_m"] <= FRAME_ATE_M)
+    if not all(gates.values()):
+        raise AssertionError(f"frame gates failed: {gates}")
+    return dict(launches=full["launches"], vo_launches=vo["launches"])
+
+
+def icp_frames(cfg, dev):
+    """The internal-ICP drive of the JAX package's own test
+    (tests/test_pipeline.py:171-187: the default scene, make_trajectory at
+    0.04 m and 0.003 rad a frame, rendered depth as the sensor's) at
+    1226x370 for ICP_FRAMES frames, rendered on the card."""
+    from denseslam_tpu_torch.io import synthetic
+
+    poses = synthetic.make_trajectory(ICP_FRAMES, step_m=0.04,
+                                      yaw_rate=0.003)
+    grays, depths = synthetic.render_trajectory(
+        poses, cfg.rig.intr, synthetic.default_scene(), device=dev)
+    return dict(poses=poses, grays=grays, depths=depths)
+
+
+def run_icp(cfg, dev, gpu):
+    """Internal odometry: icp_frames through DenseSLAM.process_frame with
+    use_external_odometry=False (ICP of each frame's depth against a splat
+    render of the map at the last fused pose; fusion every 4th frame
+    through B2), at 1226x370; the launch counts set to 0 just before and
+    read just after. Gates: ICP converged on every frame after the first;
+    on every frame, the ICP pose's step from the last fused pose off the
+    true step by at most ICP_STEP_FRAC of the true step (a pose left at
+    the last fused one is off by all of it); the final position error at
+    most ICP_FINAL_FRAC of the distance travelled; B2 once per fused
+    keyframe; and one `track` call rerun on the CPU from the card's model
+    lands within 1 mm / 1e-4 rad of the card's."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.ops import icp
+
+    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, use_external_odometry=False))
+    fr = icp_frames(cfg, dev)
+    slam = DenseSLAM(cfg, device=dev)
+    outs = []
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    for i in range(ICP_FRAMES):
+        outs.append(slam.process_frame(fr["grays"][i],
+                                       depth=fr["depths"][i]))
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    fused = [o["frame"] for o in outs if o["fused"]]
+    if launches != dict(tile_sample=0, tile_sample_rgb=len(fused),
+                        sgm_path=0, sgm_final=0):
+        raise AssertionError(f"launches {launches} for {len(fused)} fused")
+    est = np.stack([o["T_wc"] for o in outs])
+    gt = fr["poses"]
+    err = np.linalg.norm(est[:, :3, 3] - gt[:, :3, 3], axis=1)
+    converged = float(np.mean([o["tracking_ok"] for o in outs[1:]]))
+    # each frame's step from the keyframe it was tracked against
+    step_frac = []
+    for i in range(1, ICP_FRAMES):
+        k = max(f for f in fused if f < i)
+        d_est = est[i, :3, 3] - est[k, :3, 3]
+        d_gt = gt[i, :3, 3] - gt[k, :3, 3]
+        step_frac.append(float(np.linalg.norm(d_est - d_gt)
+                               / np.linalg.norm(d_gt)))
+    travelled = float(np.linalg.norm(np.diff(gt[:, :3, 3], axis=0),
+                                     axis=1).sum())
+
+    # one track call of the card's last model, on both devices
+    T_prev = slam.last_fused_T
+    rc = slam._render(slam.submaps.active, T_prev)
+    depth = fr["depths"][ICP_FRAMES - 1]
+    args = (depth, rc.points, rc.normals, rc.mask, T_prev, T_prev)
+    rg = icp.track(*args, cfg.rig.intr)
+    rcpu = icp.track(*(a.cpu() for a in args), cfg.rig.intr)
+    t_err, r_err = pose_errors(rg.T_wc[None], rcpu.T_wc[None], "ICP track")
+    emit(dict(phase="icp", frames=ICP_FRAMES, fused=len(fused),
+              launches=launches, converged_share=converged,
+              travelled_m=travelled, final_pos_err_m=float(err[-1]),
+              final_err_frac=float(err[-1]) / travelled,
+              step_err_frac_max=max(step_frac), step_err_frac=step_frac,
+              pos_err_m=err.tolist(),
+              icp_rmse_m=[o.get("icp_rmse") for o in outs[1:]],
+              track_card_vs_cpu_m=t_err, track_card_vs_cpu_rad=r_err,
+              seconds=secs, gpu=gpu))
+    gates = dict(converged=converged == 1.0,
+                 steps=max(step_frac) <= ICP_STEP_FRAC,
+                 final_err=float(err[-1]) <= ICP_FINAL_FRAC * travelled)
+    if not all(gates.values()):
+        raise AssertionError(f"icp gates failed: {gates}")
+    return dict(launches=launches)
 
 
 def profile_tick(cfg, dev, cap, out: str):
@@ -1512,11 +1968,12 @@ def throughput(cfg, dev, run, gpu, reps: int, rgbd_cfg, rgbd_fr,
               quartiles=q, samples=samples, gpu=gpu))
 
 
-def profile_part(part: str, frames: int, fn, state, out: str, setup=None):
+def profile_part(part: str, frames: int, fn, state, out=None, setup=None):
     """Run `fn(state) -> state` once to warm up, then once under
     torch.profiler; with `setup`, each run starts from `setup()` (run
     outside the profiler). Device time is the sum of the kernels' own
-    times; the table goes to <out>/profile_<part>.txt. Returns the state."""
+    times; with `out`, the table goes to <out>/profile_<part>.txt. Prints
+    and returns the record, and returns the state."""
     from torch.profiler import ProfilerActivity, profile
 
     if setup is not None:
@@ -1548,9 +2005,10 @@ def profile_part(part: str, frames: int, fn, state, out: str, setup=None):
     syncs = sum(runtime.get(k, 0) for k in (
         "cudaStreamSynchronize", "cudaDeviceSynchronize",
         "cudaEventSynchronize", "cudaMemcpy")) - 2
-    with open(os.path.join(out, f"profile_{part}.txt"), "w") as fh:
-        fh.write(rows.table(sort_by="self_cuda_time_total", row_limit=60))
-    emit(dict(phase="profile", part=part, frames=frames, wall_ms=wall_ms,
+    if out:
+        with open(os.path.join(out, f"profile_{part}.txt"), "w") as fh:
+            fh.write(rows.table(sort_by="self_cuda_time_total", row_limit=60))
+    rec = dict(phase="profile", part=part, frames=frames, wall_ms=wall_ms,
               device_ms=device_ms, device_busy_share=device_ms / wall_ms,
               launches=launches, host_syncs=syncs,
               scalar_reads=sum(e.count for e in rows
@@ -1560,8 +2018,9 @@ def profile_part(part: str, frames: int, fn, state, out: str, setup=None):
                              launches=launches / frames,
                              host_syncs=syncs / frames),
               top=[dict(name=e.key[:80], ms=getattr(e, attr) / 1e3,
-                        calls=e.count) for e in kernels[:8]]))
-    return state
+                        calls=e.count) for e in kernels[:8]])
+    emit(rec)
+    return state, rec
 
 
 def profile_chunk(cfg, dev, run, out: str):
@@ -1591,7 +2050,7 @@ def profile_chunk(cfg, dev, run, out: str):
     os.makedirs(out, exist_ok=True)
     state = (m, db)
     for part, fn in parts.items():
-        state = profile_part(part, CHUNK, fn, state, out)
+        state, _ = profile_part(part, CHUNK, fn, state, out)
 
 
 def profile_rgbd_chunk(cfg, dev, fr, poses, out: str):
@@ -1631,7 +2090,7 @@ def profile_rgbd_chunk(cfg, dev, fr, poses, out: str):
              dense_slam.make_fusion_db(cfg, device=dev))
     for part, fn in (("rgbd_vo", vo), ("rgbd_fusion", fusion),
                      ("rgbd", both)):
-        state = profile_part(part, RGBD_CHUNK, fn, state, out)
+        state, _ = profile_part(part, RGBD_CHUNK, fn, state, out)
     from denseslam_tpu_torch.models import frontend as fe
     profile_vo_stages(vo, "rgbd_vo_stages", RGBD_CHUNK, [
         (fe.feat_ops, "detect"), (fe.feat_ops, "bucket"),
@@ -1682,7 +2141,7 @@ def profile_stereo_chunk(cfg, dev, fr, poses, out: str):
              dense_slam.make_fusion_db(cfg, device=dev))
     for part, fn in (("stereo_vo", vo), ("stereo_keyframes", keyframes),
                      ("stereo_path", both)):
-        state = profile_part(part, n, fn, state, out)
+        state, _ = profile_part(part, n, fn, state, out)
     profile_vo_stages(vo, "stereo_vo_stages", n, [
         (frontend.feat_ops, "detect"), (frontend.feat_ops, "bucket"),
         (frontend.matching, "quad_match"),
@@ -1747,6 +2206,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=1,
                     help="samples of each throughput number (median printed)")
     args = ap.parse_args(argv)
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script drives "
@@ -1765,34 +2226,51 @@ def main(argv=None) -> int:
     emit(dict(phase="build", seconds_each=built,
               seconds_total=time.perf_counter() - t0))
 
+    phase_s = {}
+
+    def timed(name, fn, *a, **kw):
+        t = time.perf_counter()
+        r = fn(*a, **kw)
+        phase_s[name] = time.perf_counter() - t
+        return r
+
     cfg = slice_config()
-    recs = [check_sampler(cfg, dev, gpu), check_sgm(cfg, dev, gpu)]
-    final, recs[1]["per_launch"] = check_sgm_final(cfg, dev, gpu)
-    check_sgm_ragged(cfg, dev)
-    run = run_slice(cfg, dev)
-    check_against_cpu(cfg, dev, run)
+    recs = [timed("kernel_B1", check_sampler, cfg, dev, gpu),
+            timed("kernel_B3", check_sgm, cfg, dev, gpu)]
+    final, recs[1]["per_launch"] = timed("kernel_P1", check_sgm_final, cfg,
+                                         dev, gpu)
+    timed("kernels_ragged", check_sgm_ragged, cfg, dev)
+    run = timed("slice", run_slice, cfg, dev)
+    timed("slice_cpu_reference", check_against_cpu, cfg, dev, run)
 
     rcfg = drive_config("rgbd")
     fr = rgbd_frames(rcfg, dev)
-    recs.append(check_sampler_rgb(rcfg, dev, gpu, fr))
-    rgbd = run_rgbd(rcfg, fr)
-    check_rgbd_against_cpu(rcfg, dev, fr)
+    recs.append(timed("kernel_B2", check_sampler_rgb, rcfg, dev, gpu, fr))
+    rgbd = timed("rgbd", run_rgbd, rcfg, fr)
+    timed("rgbd_cpu_reference", check_rgbd_against_cpu, rcfg, dev, fr)
 
     scfg = drive_config("stereo")
     sfr = stereo_frames(scfg, dev)
-    stereo = run_stereo(scfg, sfr)
+    stereo = timed("stereo", run_stereo, scfg, sfr)
     recs.append(final)
-    check_stereo_against_cpu(scfg, dev, sfr)
+    timed("stereo_cpu_reference", check_stereo_against_cpu, scfg, dev, sfr)
+    timed("render", run_render, scfg, dev, sfr, stereo, gpu, args.profile)
 
-    system = run_system(scfg, dev, gpu)
-    check_system_against_cpu(scfg, system["capture"])
+    system = timed("system", run_system, scfg, dev, gpu)
+    timed("system_cpu_reference", check_system_against_cpu, scfg,
+          system["capture"])
+    frame = timed("frame", run_frame, scfg, dev, gpu, args.profile)
+    icp = timed("icp", run_icp, rcfg, dev, gpu)
     paths = dict(slice=run["launches"], rgbd=rgbd["launches"],
-                 stereo=stereo["launches"], system=system["launches"])
+                 stereo=stereo["launches"], system=system["launches"],
+                 frame=frame["launches"], frame_vo=frame["vo_launches"],
+                 icp=icp["launches"])
     for rec in recs:
         rec["launches_by_path"] = {k: v[rec["name"]] for k, v in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())
 
-    throughput(cfg, dev, run, gpu, args.reps, rcfg, fr, scfg, sfr)
+    timed("throughput", throughput, cfg, dev, run, gpu, args.reps, rcfg, fr,
+          scfg, sfr)
     if args.profile:
         profile_chunk(cfg, dev, run, args.profile)
         profile_rgbd_chunk(rcfg, dev, fr, rgbd["stats"]["T_wc"],
@@ -1800,6 +2278,8 @@ def main(argv=None) -> int:
         profile_stereo_chunk(scfg, dev, sfr, stereo["stats"]["T_wc"],
                              args.profile)
         profile_tick(scfg, dev, system["capture"], args.profile)
+    emit(dict(phase="seconds", **phase_s,
+              since_start=time.perf_counter() - t0))
 
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_by_path", "max_abs_err", "ms", "plain_ms", "bound_ms",

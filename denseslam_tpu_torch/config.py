@@ -79,10 +79,11 @@ class TsdfConfig:
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
     """Sparse frontend: detection, matching, refinement and RANSAC of the
-    stereo and RGB-D steps (models/frontend.py). Not ported:
-    feature_type="orb" and the mono step's fields (camera_height_m,
-    camera_pitch_rad), nor the PD budget controller's (pd_kp, pd_kd,
-    target_frame_ms); they are kept so configs round-trip."""
+    stereo and RGB-D steps (models/frontend.py), and the gains and target
+    of the per-frame path's PD controller on the RANSAC budget
+    (models/system.py). Not ported: feature_type="orb" and the mono
+    step's fields (camera_height_m, camera_pitch_rad); they are kept so
+    configs round-trip."""
     max_features: int = 2048
     feature_type: str = "gradient"
     orb_levels: int = 3
@@ -151,7 +152,7 @@ class BackendConfig:
 
 @dataclasses.dataclass(frozen=True)
 class SplatParams:
-    """Forward-splat renderer caps (not ported yet)."""
+    """Forward-splat renderer caps (ops/splat.py SplatConfig)."""
     max_blocks: int = 4096
     max_voxels: int = 1 << 19
     surface_eta: float = 0.8

@@ -1,9 +1,12 @@
 """The dense pipeline (port of part of denseslam_tpu/models/dense_slam.py):
-the fused-keyframe DB, `fuse_keyframe` / `fuse_sequence`, the throughput
-paths `process_sequence` (stereo VO + keyframe-gated SGM + fusion) and
-`process_sequence_rgbd`, online correction (`online_correction`,
-`purge_culled`) and the host-side `DenseSLAM` with its single-submap
-`SubmapManager`, as the chunk path of models/system.py uses them.
+the fused-keyframe DB, depth post-processing, `fuse_keyframe` /
+`fuse_sequence`, the throughput paths `process_sequence` (stereo VO +
+keyframe-gated SGM + fusion) and `process_sequence_rgbd`, online
+correction (`online_correction`, `purge_culled`) and the host-side
+`DenseSLAM` with its single-submap `SubmapManager`: the per-frame
+`process_frame` (stereo or RGB-D VO, or ICP against a render of the map),
+the renderers behind `raycast_view`, and what the chunk path of
+models/system.py uses.
 
 The JAX package donates map and DB to each step; here both are updated in
 place and returned. Where the JAX version branches on a device value
@@ -13,6 +16,7 @@ branch needs back to the host once and loops there.
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import List, NamedTuple, Optional, Tuple
 
@@ -22,10 +26,16 @@ import torch
 from ..config import SystemConfig
 from ..device import resolve_device
 from ..ops import features as feat_ops
+from ..ops import icp as icp_ops
 from ..ops import ransac
+from ..ops import raycast as rc_ops
+from ..ops import splat as splat_ops
 from ..ops import stereo as stereo_ops
 from ..ops import tsdf as tsdf_ops
 from ..utils import lie
+from ..utils.camera import backproject, project
+from ..utils.image import (bilateral_filter_depth, depth_bilinear_sample,
+                           rgb_to_gray)
 from . import frontend as fe
 from .backend import _stack_features, signature_device, upload
 
@@ -109,15 +119,37 @@ def db_push(db: FusionDB, depth, gray, T_wc, frame_id) -> FusionDB:
     return db._replace(head=((db.head + 1) % db.depth.shape[0]).to(torch.int32))
 
 
+def depth_postprocess(depth_curr: torch.Tensor, T_curr: torch.Tensor,
+                      depth_prev: torch.Tensor, T_prev: torch.Tensor,
+                      cfg: SystemConfig) -> torch.Tensor:
+    """Cross-frame consistency cull: zero the pixels of depth_curr, in the
+    lower `filter_area` of the image, whose depth seen from the previous
+    fused frame differs from that frame's (edge-aware bilinear) depth by
+    more than `filter_threshold` relative."""
+    intr = cfg.rig.intr
+    pp = cfg.postprocess
+    pts_c = backproject(depth_curr, intr)
+    T_rel = lie.inv_T(T_prev) @ T_curr
+    pts_p = lie.transform_points(T_rel, pts_c.reshape(-1, 3)).reshape(
+        pts_c.shape)
+    uv, z = project(pts_p, intr)
+    d_prev, ok = depth_bilinear_sample(depth_prev, uv, max_gap_m=0.3)
+    rel = (d_prev - z).abs() / torch.clamp(z, min=1e-3)
+    disagree = ok & (z > 0) & (rel > pp.filter_threshold)
+    h = depth_curr.shape[0]
+    rows = torch.arange(h, device=depth_curr.device)[:, None]
+    in_area = rows >= int(h * (1.0 - pp.filter_area))
+    return torch.where(disagree & in_area, 0.0, depth_curr)
+
+
 def fuse_keyframe(m: tsdf_ops.MapState, db: FusionDB, depth, gray, T_wc,
                   frame_id, cfg: SystemConfig) -> Tuple[tsdf_ops.MapState, FusionDB]:
-    """allocate -> integrate -> DB record -> slide-window / decay ->
-    advance. In place on map and DB."""
+    """(bilateral filter ->) allocate -> integrate -> DB record ->
+    slide-window / decay -> advance. In place on map and DB."""
     intr = cfg.rig.intr
     tc = cfg.tsdf
     if cfg.pipeline.bilateral_filter:
-        raise NotImplementedError(
-            "pipeline.bilateral_filter is not ported yet (ROADMAP.md Queue A, A8)")
+        depth = bilateral_filter_depth(depth)
     depth = db_quantize_depth(db, depth)
     color = tsdf_ops.pack_gray(gray) if tc.fuse_color else None
     m, slots, mask = tsdf_ops.allocate_for_frame(m, depth, T_wc, intr, tc)
@@ -389,19 +421,31 @@ class SubmapManager:
         return int(tsdf_ops.num_allocated_blocks(self.maps[idx]))
 
 
+def _pose_tensor(T, device) -> torch.Tensor:
+    """A (4, 4) pose, tensor or array, as float32 on `device`."""
+    if isinstance(T, torch.Tensor):
+        return T.to(device, torch.float32)
+    return upload(np.asarray(T, np.float32), device)
+
+
 class DenseSLAM:
-    """Host-side state of the dense pipeline as the chunk path of
-    models/system.py drives it: the frontend state, one submap and its
-    fusion DB, the frame counter and the pose history; backend pose
-    updates flow into the map through `apply_pose_updates`. On `device`
-    (None = the CUDA card; raises without one).
+    """Host-side state of the dense pipeline: the frontend state, one
+    submap and its fusion DB, the frame counter and the pose history.
+    `process_frame` runs one frame (odometry, keyframe-gated depth,
+    post-processing and fusion); the chunk path of models/system.py runs
+    the throughput scans on the same state; backend pose updates flow into
+    the map through `apply_pose_updates`; `raycast_view` renders the map
+    with the configured renderer (`pipeline.renderer`: "splat", the
+    default, else the sphere-traced raycast). On `device` (None = the
+    CUDA card; raises without one). The per-frame RANSAC draws come from
+    `generator`, seeded by `seed`, unless `process_frame` is handed them.
 
-    Not ported: the per-frame `process_frame` (ROADMAP.md Queue A, A8),
-    rendering (`raycast_view`, A5), more than one submap and the memory
-    budget (A7), a sharded map (A10) and sensor="mono" (A8); those options
-    raise NotImplementedError."""
+    Not ported: more than one submap and the memory budget (ROADMAP.md
+    Queue A, A7), a sharded map (A10) and sensor="mono" (A8); those
+    options raise NotImplementedError."""
 
-    def __init__(self, cfg: SystemConfig, mesh=None, device=None):
+    def __init__(self, cfg: SystemConfig, mesh=None, device=None,
+                 seed: int = 0):
         _check_supported(cfg, mesh)
         if cfg.correction.enabled and cfg.tsdf.storage_dtype == "bfloat16":
             warnings.warn(
@@ -412,10 +456,16 @@ class DenseSLAM:
                 "matters.", stacklevel=2)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.fe_state = fe.init_frontend(cfg, device=self.device)
         self.submaps = SubmapManager(cfg, self.device)
         self.frame = 0
+        self.current_keyframes = 0
         self.pose_history: List[Tuple[int, np.ndarray]] = []
+        self.last_fused_depth: Optional[torch.Tensor] = None
+        self.last_fused_T: Optional[torch.Tensor] = None
+        self._splat_cfg = splat_ops.SplatConfig(
+            **dataclasses.asdict(cfg.splat))
 
     @property
     def db(self) -> FusionDB:
@@ -425,15 +475,152 @@ class DenseSLAM:
     def db(self, value: FusionDB) -> None:
         self.submaps.dbs[self.submaps.active_idx] = value
 
-    def process_frame(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the per-frame DenseSLAM.process_frame is not ported yet "
-            "(ROADMAP.md Queue A, A8); use SLAMSystem.process_chunk")
+    # -- per-frame ---------------------------------------------------------
 
-    def raycast_view(self, T_wc=None):
-        raise NotImplementedError(
-            "rendering (raycast_view) is not ported yet (ROADMAP.md Queue "
-            "A, A5)")
+    def process_frame(self, left: torch.Tensor,
+                      right: Optional[torch.Tensor] = None,
+                      depth: Optional[torch.Tensor] = None,
+                      timestamp: Optional[float] = None,
+                      pose_override=None, budget_scale: float = 1.0,
+                      draws: Optional[torch.Tensor] = None) -> dict:
+        """Process one stereo (or RGB-D) frame: odometry, then on keyframes
+        where tracking holds the depth (the given one, else SGM of the
+        pair), the cross-frame cull when `postprocess.enabled`, and
+        fusion. Images are (H, W) gray or (H, W, 3) colour tensors on the
+        system's device. Returns the frame's telemetry.
+
+        Odometry: `pose_override` (a (4, 4) pose) replaces it; else RGB-D
+        VO (sensor="rgbd") or stereo VO with the PD controller's
+        `budget_scale`, both drawing their RANSAC hypotheses from `draws`
+        (K, 3) or the system's generator; with use_external_odometry=False
+        ICP of the depth against a render of the map at the last fused
+        pose. The JAX version runs SGM on every frame that has a right
+        image; here it runs only where the depth is used (ICP, or a
+        keyframe), which gives the same results. Two values are read back
+        per frame: the odometry's flags, then the pose and block count."""
+        cfg = self.cfg
+        p = cfg.pipeline
+        if left.dim() == 3:
+            left = rgb_to_gray(left)
+        if right is not None and right.dim() == 3:
+            right = rgb_to_gray(right)
+
+        if pose_override is not None:
+            T_wc = _pose_tensor(pose_override, self.device)
+            self.fe_state = self.fe_state._replace(T_wc=T_wc)
+            tracking_ok, vo_stats = True, {}
+        elif p.use_external_odometry:
+            if draws is None:
+                draws = ransac.draw_hypotheses(cfg.frontend.ransac_iters,
+                                               self.generator)
+            if p.sensor == "rgbd":
+                if depth is None:
+                    raise ValueError("rgbd VO needs a depth image")
+                self.fe_state, vo = fe.rgbd_vo_step(self.fe_state, left,
+                                                    depth, cfg, raw=draws)
+            else:
+                if right is None:
+                    raise ValueError("stereo VO needs a right image")
+                self.fe_state, vo = fe.vo_step(self.fe_state, left, right,
+                                               cfg, raw=draws,
+                                               budget_scale=budget_scale)
+            T_wc = vo.T_wc
+            s = torch.stack([vo.tracking_ok.to(torch.float32),
+                             vo.num_inliers.to(torch.float32),
+                             vo.num_quads.to(torch.float32)]).cpu().numpy()
+            tracking_ok = bool(s[0])
+            vo_stats = dict(num_inliers=int(s[1]), num_quads=int(s[2]))
+        else:
+            # internal odometry: ICP against a render of the active map
+            T_prev = (self.last_fused_T if self.last_fused_T is not None
+                      else torch.eye(4, dtype=torch.float32,
+                                     device=self.device))
+            if depth is None:
+                if right is None:
+                    raise ValueError("need depth or a right image")
+                depth, _ = stereo_ops.compute_depth(left, right, cfg.rig,
+                                                    cfg.stereo)
+            if self.frame == 0:
+                T_wc, tracking_ok, vo_stats = T_prev, True, {}
+            else:
+                rc = self._render(self.submaps.active, T_prev)
+                res = icp_ops.track(depth, rc.points, rc.normals, rc.mask,
+                                    T_prev, T_prev, cfg.rig.intr)
+                T_wc = res.T_wc
+                s = torch.stack([res.converged.to(torch.float32),
+                                 res.rmse]).cpu().numpy()
+                tracking_ok = bool(s[0])
+                vo_stats = dict(icp_rmse=float(s[1]))
+
+        fused = False
+        if ((depth is not None or right is not None) and tracking_ok
+                and self.frame % p.keyframe_every == 0):
+            if depth is None:
+                depth, _ = stereo_ops.compute_depth(left, right, cfg.rig,
+                                                    cfg.stereo)
+            if cfg.postprocess.enabled and self.last_fused_depth is not None:
+                depth = depth_postprocess(depth, T_wc, self.last_fused_depth,
+                                          self.last_fused_T, cfg)
+            m, self.db = fuse_keyframe(self.submaps.active, self.db, depth,
+                                       left, T_wc, self.frame, cfg)
+            self.submaps.active = m
+            self.last_fused_depth = depth
+            self.last_fused_T = T_wc
+            self.current_keyframes += 1
+            fused = True
+            self.maybe_spawn_submap(T_wc)
+
+        # pose and block count in one read-back
+        pose_nb = torch.cat([
+            T_wc.reshape(-1).to(torch.float32),
+            tsdf_ops.num_allocated_blocks(self.submaps.active)
+            .to(torch.float32)[None]]).cpu().numpy()
+        return self._finish_frame_record(pose_nb, fused, tracking_ok,
+                                         vo_stats)
+
+    def _finish_frame_record(self, pose_nb, fused, tracking_ok, vo_stats):
+        T_np = pose_nb[:16].reshape(4, 4)
+        nb = int(pose_nb[16])
+        self.pose_history.append((self.frame, T_np))
+        self.frame += 1
+        return dict(T_wc=T_np, fused=fused, tracking_ok=tracking_ok,
+                    frame=self.frame - 1, num_blocks=nb,
+                    memory_bytes=nb * 16 * tsdf_ops.BLOCK_VOL, **vo_stats)
+
+    # -- rendering ---------------------------------------------------------
+
+    def _render(self, m: tsdf_ops.MapState,
+                T_wc: torch.Tensor) -> rc_ops.Raycast:
+        """Render map `m` from T_wc with the configured renderer; splat
+        renders refine their depth by `splat_refine` sphere-tracing steps
+        (pruning by `splat_prune_sdf`) and rebuild points and normals."""
+        cfg = self.cfg
+        intr = cfg.rig.intr
+        if cfg.pipeline.renderer != "splat":
+            return rc_ops.raycast(m, T_wc, intr, cfg.tsdf)
+        rc = splat_ops.splat_render(m, T_wc, intr, cfg.tsdf, self._splat_cfg)
+        refine = cfg.pipeline.splat_refine
+        if refine > 0:
+            d = splat_ops.refine_depth(m, rc.depth, rc.mask, T_wc, intr,
+                                       cfg.tsdf, steps=refine,
+                                       prune_sdf=cfg.pipeline.splat_prune_sdf)
+            mask = d > 0
+            pts = splat_ops.depth_points(d, mask, T_wc, intr)
+            nx, ny, nz, _ = rc_ops._normals_soA(*pts, mask)
+            rc = rc._replace(depth=d, mask=mask,
+                             points=torch.stack(pts, dim=-1),
+                             normals=torch.stack([nx, ny, nz], dim=-1))
+        return rc
+
+    def raycast_view(self, T_wc=None) -> rc_ops.Raycast:
+        """Render the active map from T_wc (a (4, 4) pose; default the
+        frontend's current pose)."""
+        T = (self.fe_state.T_wc if T_wc is None
+             else _pose_tensor(T_wc, self.device))
+        return self._render(self.submaps.active, T)
+
+    def get_preview(self, kind: str, T_wc=None) -> torch.Tensor:
+        return rc_ops.render_preview(self.raycast_view(T_wc), kind)
 
     def maybe_spawn_submap(self, T_wc, defer_enforce: bool = False) -> bool:
         """The new-submap policy; new_submap_threshold < 0 (the only value

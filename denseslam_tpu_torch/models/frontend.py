@@ -115,15 +115,16 @@ def _advance(state: FrontendState, q: matching.QuadMatches,
 
 def vo_step(state: FrontendState, left: torch.Tensor, right: torch.Tensor,
             cfg: SystemConfig, raw: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None
+            generator: Optional[torch.Generator] = None,
+            budget_scale: Optional[float] = None
             ) -> Tuple[FrontendState, VOOutput]:
     """One frame of stereo VO: both images scaled by the running exposure,
     features of each, the circular quad match (gated around the motion
     prior while the last RANSAC held), flow consensus, subpixel refinement,
     the per-feature stereo disparities for the next frame's prior, RANSAC
     and the exposure update from this frame's matched patches. `raw` /
-    `generator`: the RANSAC draws (see ops/ransac.py). The JAX step's
-    `budget_scale` (the PD feature-budget controller) is not taken."""
+    `generator`: the RANSAC draws (see ops/ransac.py); `budget_scale`: the
+    PD controller's RANSAC budget (see `estimate_stereo_motion`)."""
     fc = cfg.frontend
     intr = cfg.rig.intr
     if fc.gain_normalization:
@@ -157,7 +158,8 @@ def vo_step(state: FrontendState, left: torch.Tensor, right: torch.Tensor,
         disp_rc = disp_lc
     res = ransac.estimate_stereo_motion(q, cfg.rig, fc, raw=raw,
                                         T_init=state.T_delta_prev,
-                                        generator=generator)
+                                        generator=generator,
+                                        budget_scale=budget_scale)
 
     exposure = state.exposure
     if fc.gain_normalization:

@@ -1,17 +1,18 @@
-"""The whole SLAM system on the chunk path (port of
-denseslam_tpu/models/system.py): the dense pipeline's chunk scan
-(`process_sequence`, or `process_sequence_rgbd` for sensor="rgbd"), then
-keyframe registration and one backend tick per chunk (loop detection and
-pose-graph relaxation, local BA, keyframe culling) whose optimised poses
-flow back into the map through online correction. Also the PD controller
-on the feature budget.
+"""The whole SLAM system (port of denseslam_tpu/models/system.py): the
+dense pipeline, frame by frame (`process_frame`: one frame, and a backend
+tick on every fused keyframe) or a chunk at a time (`process_chunk`: the
+chunk scan, `process_sequence` or `process_sequence_rgbd` for
+sensor="rgbd", then keyframe registration and one backend tick per chunk);
+the tick runs loop detection and pose-graph relaxation, local BA and
+keyframe culling, and its optimised poses flow back into the map through
+online correction. Also the PD controller on the RANSAC budget, which the
+per-frame path feeds with its wall time.
 
-The scan's RANSAC draws are an argument of `process_chunk` (the port's
-seam: the parity tests hand it the JAX draws); without them they come from
-the system's `torch.Generator`, seeded by `seed`. The JAX version's
-`warmup` compiles its device programs ahead of the drive; nothing here
-compiles, and it is not ported. The per-frame `process_frame` path is not
-ported (ROADMAP.md Queue A, A8).
+RANSAC draws are an argument of both entry points (the port's seam: the
+parity tests hand them the JAX draws); without them they come from the
+pipeline's `torch.Generator`, seeded by `seed`. The JAX version's `warmup`
+compiles its device programs ahead of the drive; nothing here compiles,
+and it is not ported.
 """
 
 from __future__ import annotations
@@ -78,11 +79,11 @@ class SLAMSystem:
                  reloc_after: int = 3, device=None,
                  verify_draws: Optional[Callable[[int], torch.Tensor]] = None):
         self.cfg = cfg
-        self.slam = DenseSLAM(cfg, device=device)
+        self.slam = DenseSLAM(cfg, device=device, seed=seed)
         self.device = self.slam.device
         self.backend = Backend(cfg, device=self.device,
                                verify_draws=verify_draws)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.generator = self.slam.generator
         self.ba_every = ba_every
         self.loop_every = loop_every
         self.reloc_after = reloc_after   # lost frames before relocalizing
@@ -352,10 +353,111 @@ class SLAMSystem:
                 ids, poses, enforce_budget=False)
         self.phase_s["tick_apply"] += time.perf_counter() - t0
 
-    def process_frame(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the per-frame SLAMSystem.process_frame is not ported yet "
-            "(ROADMAP.md Queue A, A8); use process_chunk")
+    def process_frame(self, left, right=None, depth=None,
+                      timestamp: Optional[float] = None,
+                      draws: Optional[torch.Tensor] = None) -> dict:
+        """Run one frame through `DenseSLAM.process_frame` at the PD
+        controller's RANSAC budget; relocalize after `reloc_after` lost
+        frames; register a fused keyframe with the backend and run its
+        tick, whose optimisation moves the frontend pose at once. `draws`
+        (K, 3): the frame's RANSAC draws (default: from the generator).
+        The frame's wall time feeds the PD controller."""
+        if self._prefetched is not None:
+            raise RuntimeError("a prefetched chunk is pending: call "
+                               "process_chunk before process_frame")
+        t0 = time.perf_counter()
+        slam = self.slam
+        out = slam.process_frame(left, right, depth=depth,
+                                 timestamp=timestamp,
+                                 budget_scale=self.pd.scale, draws=draws)
+
+        # relocalization after a sustained loss: the constant-velocity
+        # fallback alone never re-locks
+        if out["tracking_ok"]:
+            self._lost_streak = 0
+        else:
+            self._lost_streak += 1
+            if (self.reloc_after and self._lost_streak >= self.reloc_after
+                    and self.backend.num_keyframes):
+                st = slam.fe_state
+                T = self.backend.relocalize(st.feats_l, st.feats_r)
+                if T is not None:
+                    T = np.asarray(T, np.float32)
+                    slam.fe_state = st._replace(
+                        T_wc=upload(T, self.device),
+                        T_delta_prev=torch.eye(4, dtype=torch.float32,
+                                               device=self.device),
+                        prior_ok=torch.zeros((), dtype=torch.bool,
+                                             device=self.device))
+                    slam.pose_history[-1] = (slam.pose_history[-1][0], T)
+                    out["T_wc"] = T
+                    out["relocalized"] = True
+                    self.num_relocs += 1
+                    self._lost_streak = 0
+
+        if out["fused"]:
+            st = slam.fe_state
+            self.backend.add_keyframe(out["frame"], out["T_wc"], st.feats_l,
+                                      st.feats_r)
+            self._chain_scan = None     # per-frame registration breaks the
+            self._backend_tick()        # chunk path's scan chain
+
+        frame_ms = (time.perf_counter() - t0) * 1000.0
+        out["frame_ms"] = frame_ms
+        out["budget_scale"] = self.pd.update(frame_ms)
+        out["num_loops"] = self.num_loops
+        out["num_corrections"] = self.num_corrections
+        out["ba_ms"] = self.backend.last_ba_ms
+        return out
+
+    def _backend_tick(self, resync: bool = True) -> np.ndarray:
+        """The per-frame path's keyframe-rate backend work: loop closing
+        every `loop_every` keyframes, local BA (and culling) every
+        `ba_every`; the optimised poses re-fuse the map and, with
+        `resync`, move the frontend pose. Returns the world-side delta
+        applied to it."""
+        D = np.eye(4, dtype=np.float32)
+        be = self.backend
+        nkf = be.num_keyframes
+        if self.loop_every and nkf % self.loop_every == 0:
+            if be.detect_loop() is not None:
+                self.num_loops += 1
+                T_before = be.keyframes[-1].T_wc.copy()
+                ids, opt = be.optimize_graph()
+                self.num_corrections += self.slam.apply_pose_updates(ids, opt)
+                if resync:
+                    D = self._resync_pose(T_before) @ D
+        if self.ba_every and nkf >= 2 and nkf % self.ba_every == 0:
+            T_before = be.keyframes[-1].T_wc.copy()
+            res = be.local_ba()
+            if res is not None:
+                ids, opt = res
+                self.num_corrections += self.slam.apply_pose_updates(ids, opt)
+                if resync:
+                    D = self._resync_pose(T_before) @ D
+                culled = be.cull_redundant()
+                if culled:
+                    self.slam.purge_keyframes(np.asarray(culled))
+                    self.num_culled += len(culled)
+        return D
+
+    def _resync_pose(self, T_before: np.ndarray) -> np.ndarray:
+        """Move the frontend pose by the world-side delta the backend
+        applied to the last keyframe (T_before -> its stored pose): a no-op
+        when the optimiser left it, the overwrite when the frontend is at
+        the keyframe. Returns the delta."""
+        eye = np.eye(4, dtype=np.float32)
+        if not self.backend.keyframes:
+            return eye
+        last = self.backend.keyframes[-1]
+        delta = (np.asarray(last.T_wc, np.float32)
+                 @ _inv_se3(np.asarray(T_before, np.float32)))
+        if np.allclose(delta, eye, atol=1e-7):
+            return eye
+        st = self.slam.fe_state
+        self.slam.fe_state = st._replace(
+            T_wc=upload(delta, self.device) @ st.T_wc)
+        return delta
 
     def finish(self) -> None:
         """Sequence end: land in-flight spills, replay deferred corrections,

@@ -15,8 +15,10 @@ Returns T_prev_curr ("T_delta"): p_curr = R p_prev + t.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from ..config import FrontendConfig
@@ -118,15 +120,27 @@ def _gn_refine(T0, pts_prev, obs_l, obs_r, weights, rig, iters: int):
     return T
 
 
+def _active_hypotheses(k: int, budget_scale: float) -> int:
+    """ceil(K * clip(scale, 1/K, 1)) in float32, at least 1: the JAX
+    version's count, computed on the host."""
+    scale = np.clip(np.float32(budget_scale), np.float32(1.0 / k),
+                    np.float32(1.0))
+    return max(int(math.ceil(np.float32(k) * scale)), 1)
+
+
 def estimate_stereo_motion(q: QuadMatches, rig: StereoRig,
                            cfg: FrontendConfig,
                            raw: Optional[torch.Tensor] = None,
                            T_init: Optional[torch.Tensor] = None,
-                           generator: Optional[torch.Generator] = None
-                           ) -> VOResult:
+                           generator: Optional[torch.Generator] = None,
+                           budget_scale: Optional[float] = None) -> VOResult:
     """RANSAC + refit over quad matches. `raw` (K, 3) are the hypothesis
     draws (K = cfg.ransac_iters); when None they are drawn from
-    `generator`."""
+    `generator`.
+
+    budget_scale (a host number in (0, 1], optional) is the PD frame-time
+    controller's knob: only the first ceil(K * budget_scale) hypotheses
+    may win the vote (all K are still solved, as in the JAX version)."""
     dev = q.uv_lc.device
     pts_prev, ok = triangulate_prev(q, rig)
     obs_l = q.uv_lc
@@ -159,6 +173,10 @@ def estimate_stereo_motion(q: QuadMatches, rig: StereoRig,
         return good.to(torch.int32).sum(dim=-1), good
 
     counts, inlier_sets = count(T_hyp)                         # (K,), (K, N)
+    if budget_scale is not None:
+        counts = torch.where(
+            torch.arange(k, device=dev) < _active_hypotheses(k, budget_scale),
+            counts, -1)
     # first max; a (1,) index, since a 0-d one is read back to the host
     best = torch.argmax(counts).reshape(1)
     best_inliers = inlier_sets.index_select(0, best)[0]

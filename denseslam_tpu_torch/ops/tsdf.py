@@ -456,3 +456,79 @@ def _free_blocks(m: MapState, drop: torch.Tensor, kill=None,
 
 def advance_frame(m: MapState) -> MapState:
     return m._replace(frame=(m.frame + 1).to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# Voxel sampling (the renderers' and refinement's point lookups) — SoA
+# ---------------------------------------------------------------------------
+
+def _voxel_lookup(m: MapState, px, py, pz, cfg: TsdfConfig):
+    """The voxel holding each SoA world point (any common shape): its flat
+    index into the (S * 512) pool and whether its block is allocated, both
+    flat."""
+    inv_v = 1.0 / cfg.voxel_size_m
+    vx = _floor_i32(px * inv_v)
+    vy = _floor_i32(py * inv_v)
+    vz = _floor_i32(pz * inv_v)
+    bx, by, bz = vx >> 3, vy >> 3, vz >> 3
+    keys = vhash.pack_xyz(bx, by, bz)
+    slots = vhash.lookup_keys(m.table, keys.reshape(-1), cfg.probe_len)
+    lidx = ((vx - (bx << 3)) + (vy - (by << 3)) * BLOCK
+            + (vz - (bz << 3)) * (BLOCK * BLOCK)).reshape(-1)
+    found = slots >= 0
+    flat = torch.where(found, slots, torch.zeros_like(slots)) * BLOCK_VOL + lidx
+    return flat.long(), found
+
+
+def sample_tsdf_xyz(m: MapState, px, py, pz, cfg: TsdfConfig):
+    """Nearest-voxel TSDF sample at SoA world coords (any common shape).
+    Returns (sdf, weight); sdf = +1, w = 0 where unallocated."""
+    flat, found = _voxel_lookup(m, px, py, pz, cfg)
+    sdf = m.tsdf.reshape(-1)[flat].to(torch.float32)
+    wgt = m.weight.reshape(-1)[flat].to(torch.float32)
+    sdf = torch.where(found, sdf, torch.ones_like(sdf)).reshape(px.shape)
+    wgt = torch.where(found, wgt, torch.zeros_like(wgt)).reshape(px.shape)
+    return sdf, wgt
+
+
+def sample_tsdf_nearest(m: MapState, pts_w: torch.Tensor, cfg: TsdfConfig):
+    """(..., 3) form of `sample_tsdf_xyz`."""
+    return sample_tsdf_xyz(m, pts_w[..., 0], pts_w[..., 1], pts_w[..., 2], cfg)
+
+
+def sample_color_xyz(m: MapState, px, py, pz, cfg: TsdfConfig):
+    """Nearest-voxel packed colour sample; returns (r, g, b) floats, 0
+    where unallocated."""
+    flat, found = _voxel_lookup(m, px, py, pz, cfg)
+    packed = m.color.reshape(-1)[flat]
+    packed = torch.where(found, packed, torch.zeros_like(packed))
+    return unpack_rgb(packed.reshape(px.shape))
+
+
+def sample_tsdf_trilinear_xyz(m: MapState, px, py, pz, cfg: TsdfConfig):
+    """Trilinear TSDF sample from the 8 nearest voxel centres; returns
+    (sdf, the least of their weights)."""
+    vsz = cfg.voxel_size_m
+    gx = true_div(px, vsz) - 0.5
+    gy = true_div(py, vsz) - 0.5
+    gz = true_div(pz, vsz) - 0.5
+    g0x, g0y, g0z = torch.floor(gx), torch.floor(gy), torch.floor(gz)
+    fx, fy, fz = gx - g0x, gy - g0y, gz - g0z
+    acc, wmin = 0.0, None
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                s, w = sample_tsdf_xyz(m, (g0x + dx + 0.5) * vsz,
+                                       (g0y + dy + 0.5) * vsz,
+                                       (g0z + dz + 0.5) * vsz, cfg)
+                wt = ((fx if dx else 1 - fx) * (fy if dy else 1 - fy)
+                      * (fz if dz else 1 - fz))
+                acc = acc + s * wt
+                wmin = w if wmin is None else torch.minimum(wmin, w)
+    return acc, wmin
+
+
+def sample_tsdf_trilinear(m: MapState, pts_w: torch.Tensor, cfg: TsdfConfig):
+    """(..., 3) form of `sample_tsdf_trilinear_xyz`."""
+    return sample_tsdf_trilinear_xyz(m, pts_w[..., 0], pts_w[..., 1],
+                                     pts_w[..., 2], cfg)

