@@ -93,7 +93,31 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    correction from the card's poses re-fuses as many
                    keyframes and gives the card's keys, weights and tsdf
                    (within 1e-6).
- 12. frame         the per-frame path: the drive's first 128 frames one at
+ 12. submaps       the same drive (the same frames, noise and draws) with
+                   submaps and swapping: --submap-threshold 0.3
+                   --map-budget-mb 400 of scripts/long_drive_eval.py; the
+                   eval renders the composite of every submap
+                   (raycast_composite, ghost renders of spilled submaps)
+                   and re-enforces the budget after each eval burst;
+                   launch identities as in `system`, plus B1 twice per
+                   frame that a restore or the sequence-end flush replays;
+                   every pose within 1e-4 m of the `system` phase's,
+                   tracking >= 95%, >= 1 verified loop, >= 3 submaps, >= 1
+                   on the host at the end, >= 1 eviction and ghost render,
+                   overflow 0 in every submap, eval d1.25 >= 0.85 and
+                   coverage >= 0.3, after every finalize_spills the
+                   committed bytes less the active submap's within the
+                   budget; then a spilled submap restored and evicted, by
+                   the sync path and by the async one, each time the card's
+                   allocated bytes rising and falling by >= 0.9 of its
+                   bytes.
+ 13. submaps_cpu_reference  the drive's final state carried to the CPU
+                   through io/convert.py and one composite made from it on
+                   both devices: splat keys of every render in it equal on
+                   >= 99.9% of pixels; then a spilled submap through each
+                   spill (sync compacted, async, delta) and a restore, bit
+                   for bit with the device copy before it.
+ 14. frame         the per-frame path: the drive's first 128 frames one at
                    a time through SLAMSystem.process_frame, ba_every=4,
                    loop_every=2, the RANSAC budget pinned at
                    FRAME_PD_SCALE, then again with the backend off; launch
@@ -104,7 +128,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    launches, busy share, host syncs a frame); frames/s,
                    the live budget's range and the first local BA's moves
                    printed.
- 13. icp           internal odometry (use_external_odometry=False) on the
+ 15. icp           internal odometry (use_external_odometry=False) on the
                    JAX package's own internal-ICP drive (default scene,
                    0.04 m a frame, rendered depth), 16 frames at 1226x370
                    through DenseSLAM.process_frame, ICP against a splat
@@ -114,7 +138,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    ICP_FINAL_FRAC of the distance travelled, B2 once per
                    fused keyframe, and one `track` call rerun on the CPU
                    from the card's model within 1 mm / 1e-4 rad.
- 14. throughput    frames/s of stereo + fusion, of the fusion tail alone
+ 16. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
@@ -163,6 +187,8 @@ SYSTEM_LOOP_FRAMES = 500
 SYSTEM_FRAMES = 576
 SYSTEM_CHUNK = 64
 EVAL_EVERY = 25          # scripts/long_drive_eval.py --depth-eval-every
+SUBMAP_THRESHOLD = 0.3   # scripts/long_drive_eval.py --submap-threshold
+SUBMAP_BUDGET_MB = 400.0  # and --map-budget-mb of the submaps record
 FRAME_FRAMES = 128       # the per-frame phase: the drive's first 2 chunks
 FRAME_WARMUP = 16        # frames/s counts the frames after these
 # the live-PD window after the drive: FRAME_WINDOW_WARM frames, then
@@ -1149,7 +1175,8 @@ def check_against_cpu(cfg, dev, run):
     db0 = dense_slam.make_fusion_db(cfg, device=dev)
     m0, _ = dense_slam.fuse_keyframe(m0, db0, run["depth"][0], run["lefts"][0],
                                      run["T"][0], 0, cfg)
-    inter = [fusion_intermediates(cfg, clone_map(m0, d), run["depth"][1].to(d),
+    inter = [fusion_intermediates(cfg, dense_slam.copy_map(m0, d),
+                                  run["depth"][1].to(d),
                                   run["lefts"][1].to(d), run["T"][1].to(d))
              for d in (dev, cpu)]
     differ = {}
@@ -1162,15 +1189,6 @@ def check_against_cpu(cfg, dev, run):
               stereo_depth_close=close, tables_equal=True,
               weights_equal=True, tsdf_max_abs_err=tsdf_err,
               tsdf_frac_differ=tsdf_frac, frame1_intermediates=differ))
-
-
-def clone_map(m, device):
-    """A copy of map `m` on `device`."""
-    from denseslam_tpu_torch.ops import hash as vhash
-    return m._replace(table=vhash.HashTable(keys=m.table.keys.to(device,
-                                                                 copy=True)),
-                      **{f: getattr(m, f).to(device, copy=True)
-                         for f in m._fields if f != "table"})
 
 
 def fusion_intermediates(cfg, m, depth, gray, T):
@@ -1234,12 +1252,6 @@ def system_chunk(cfg, gt, scene, lo: int, hi: int, gen, dev):
             torch.clamp(rights * gain + 2.0 * nr, 0, 255))
 
 
-def clone_db(db, device):
-    """A copy of fusion DB `db` on `device`."""
-    return db._replace(**{f: getattr(db, f).to(device, copy=True)
-                          for f in db._fields})
-
-
 class TickCapture:
     """Records, for the first backend tick of a SLAMSystem that runs local
     BA without a reject and re-fuses keyframes, the state it read (the
@@ -1259,6 +1271,8 @@ class TickCapture:
 
     def _snapshot(self, with_map: bool):
         import copy
+
+        from denseslam_tpu_torch.models.dense_slam import copy_db, copy_map
         t0 = time.perf_counter()
         sy = self.system
         be = copy.copy(sy.backend)
@@ -1270,8 +1284,8 @@ class TickCapture:
                     num_corrections=sy.num_corrections,
                     num_culled=sy.num_culled)
         if with_map:
-            snap.update(map=clone_map(sy.slam.submaps.active, sy.device),
-                        db=clone_db(sy.slam.db, sy.device))
+            snap.update(map=copy_map(sy.slam.submaps.active, sy.device),
+                        db=copy_db(sy.slam.db, sy.device))
         torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
         return snap
@@ -1317,12 +1331,14 @@ def gt_depth(cfg, T, scene, dev) -> np.ndarray:
     return d
 
 
-def eval_renders(cfg, system, frames, base, lefts, rights, gt, scene, dev):
+def eval_renders(cfg, system, frames, base, lefts, rights, gt, scene, dev,
+                 render):
     """scripts/long_drive_eval.py:421-490 on one chunk: for each eval
-    frame t, the map rendered by raycast_view at t's estimated pose,
-    scored against the ground-truth depth at that pose (`depth`) and at
-    the true pose (`depth_gtpose`), and the frame's SGM depth against the
-    latter (`depth_input`). Returns the metrics of each frame."""
+    frame t, the map rendered by `render` (a pose -> Raycast) at t's
+    estimated pose, scored against the ground-truth depth at that pose
+    (`depth`) and at the true pose (`depth_gtpose`), and the frame's SGM
+    depth against the latter (`depth_input`). Returns the metrics of each
+    frame."""
     from denseslam_tpu_torch.eval import depth_metrics
     from denseslam_tpu_torch.ops import stereo
 
@@ -1331,7 +1347,7 @@ def eval_renders(cfg, system, frames, base, lefts, rights, gt, scene, dev):
     for t in frames:
         T_est = next(T for f, T in reversed(system.slam.pose_history)
                      if f == t)
-        rc = system.slam.raycast_view(T_est).depth.cpu().numpy()
+        rc = render(T_est).depth.cpu().numpy()
         gtd = gt_depth(cfg, gt[t], scene, dev)
         d_in, v_in = stereo.compute_depth(lefts[t - base], rights[t - base],
                                           cfg.rig, cfg.stereo,
@@ -1355,34 +1371,18 @@ def mean_metrics(per_frame, key):
     return {k: float(np.nanmean([r[k] for r in rows])) for k in rows[0]}
 
 
-def run_system(cfg, dev, gpu):
-    """The whole system: the flagship drive, 576 frames in 9 chunks of 64,
-    through SLAMSystem.process_chunk and finish() on the card, with the
-    launch counts set to 0 just before and read just after, and the
-    drive's depth evaluation every 25th fused keyframe (eval_renders).
-    Frames/s counts process_chunk's time from chunk 2 on, as
-    scripts/long_drive_eval.py:296-298 does (less the tick capture's
-    copies); the eval renders stay out of it, as there."""
-    from denseslam_tpu_torch import kernels
-    from denseslam_tpu_torch.eval import traj_metrics
-    from denseslam_tpu_torch.models.system import SLAMSystem
-
-    gt, scene = system_setup(cfg)
+def drive_system(cfg, dev, system, gt, scene, render, cap=None,
+                 after_eval=None):
+    """The flagship drive through `system`: 576 frames in 9 chunks of 64,
+    each rendered on the card (system_chunk, noise from a card generator
+    seeded 2) and run through SLAMSystem.process_chunk, the drive's depth
+    evaluation every 25th fused keyframe through `render` (eval_renders),
+    then `after_eval()` after each chunk that had eval frames, and
+    finish(). Frames/s counts process_chunk's time from chunk 2 on, as
+    scripts/long_drive_eval.py:296-298 does, less the copies of a tick
+    capture `cap`. Returns the tracking flags, the eval metrics and
+    frames, and the seconds."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    k_verify = max(64, cfg.frontend.ransac_iters // 2)
-    system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
-                        verify_draws=verify_draws(k_verify))
-    cap = TickCapture(system)
-    purge = system.slam.purge_keyframes
-    purged = [0]
-
-    def counted_purge(ids):
-        before = int(system.slam.db.valid.sum())
-        purge(ids)
-        purged[0] += before - int(system.slam.db.valid.sum())
-
-    system.slam.purge_keyframes = counted_purge
-    kernels.reset_counts()
     ok_frames, proc_s, proc_frames, synth_s = [], 0.0, 0, 0.0
     evals, eval_ids, eval_s, kf_seen = [], [], 0.0, 0
     every = cfg.pipeline.keyframe_every
@@ -1393,10 +1393,12 @@ def run_system(cfg, dev, gpu):
                                      base + SYSTEM_CHUNK, gen, dev)
         torch.cuda.synchronize()
         synth_s += time.perf_counter() - t0
-        cap_s = cap.seconds
+        cap_s = cap.seconds if cap is not None else 0.0
         t0 = time.perf_counter()
         out = system.process_chunk(lefts, rights)
-        dt = time.perf_counter() - t0 - (cap.seconds - cap_s)
+        dt = time.perf_counter() - t0
+        if cap is not None:
+            dt -= cap.seconds - cap_s
         if base >= 2 * SYSTEM_CHUNK:
             proc_s += dt
             proc_frames += SYSTEM_CHUNK
@@ -1412,13 +1414,52 @@ def run_system(cfg, dev, gpu):
                 kf_seen += 1
         t0 = time.perf_counter()
         evals += eval_renders(cfg, system, frames, base, lefts, rights, gt,
-                              scene, dev)
+                              scene, dev, render)
+        if frames and after_eval is not None:
+            after_eval()
         eval_ids += frames
         eval_s += time.perf_counter() - t0
     system.finish()
     torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t_all
+    return dict(ok_frames=ok_frames, evals=evals, eval_ids=eval_ids,
+                proc_s=proc_s, proc_frames=proc_frames,
+                wall_s=time.perf_counter() - t_all, synth_s=synth_s,
+                eval_s=eval_s)
+
+
+def run_system(cfg, dev, gpu):
+    """The whole system: the flagship drive, 576 frames in 9 chunks of 64,
+    through SLAMSystem.process_chunk and finish() on the card, with the
+    launch counts set to 0 just before and read just after, and the
+    drive's depth evaluation every 25th fused keyframe (eval_renders).
+    Frames/s counts process_chunk's time from chunk 2 on, as
+    scripts/long_drive_eval.py:296-298 does (less the tick capture's
+    copies); the eval renders stay out of it, as there."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.eval import traj_metrics
+    from denseslam_tpu_torch.models.system import SLAMSystem
+
+    gt, scene = system_setup(cfg)
+    k_verify = max(64, cfg.frontend.ransac_iters // 2)
+    system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
+                        verify_draws=verify_draws(k_verify))
+    cap = TickCapture(system)
+    purge = system.slam.purge_keyframes
+    purged = [0]
+
+    def counted_purge(ids):
+        before = int(system.slam.db.valid.sum())
+        purge(ids)
+        purged[0] += before - int(system.slam.db.valid.sum())
+
+    system.slam.purge_keyframes = counted_purge
+    kernels.reset_counts()
+    d = drive_system(cfg, dev, system, gt, scene, system.slam.raycast_view,
+                     cap=cap)
     launches = dict(kernels.launch_counts)
+    ok_frames, evals, eval_ids = d["ok_frames"], d["evals"], d["eval_ids"]
+    proc_s, proc_frames = d["proc_s"], d["proc_frames"]
+    wall_s, synth_s, eval_s = d["wall_s"], d["synth_s"], d["eval_s"]
 
     be = system.backend
     fused = be.num_keyframes + system.num_culled
@@ -1486,7 +1527,8 @@ def check_system_against_cpu(cfg, cap):
     Also printed: how much of the window's observation mask the two
     devices build alike, and the card's window problem solved on both."""
     from denseslam_tpu_torch.io import convert
-    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.models.dense_slam import (DenseSLAM, copy_db,
+                                                       copy_map)
     from denseslam_tpu_torch.models.system import SLAMSystem
     from denseslam_tpu_torch.ops import ba
 
@@ -1510,8 +1552,8 @@ def check_system_against_cpu(cfg, cap):
     solve_t, solve_r = pose_errors(bg, bc, "BA solve of one problem")
     before = cap.apply["before"]
     # the map the tick starts from: its correction replays from the DB
-    sy.slam.submaps.active = clone_map(before["map"], cpu)
-    sy.slam.db = clone_db(before["db"], cpu)
+    sy.slam.submaps.active = copy_map(before["map"], cpu)
+    sy.slam.db = copy_db(before["db"], cpu)
     t0 = time.perf_counter()
     sy._chunk_tick()
     tick_s = time.perf_counter() - t0
@@ -1530,8 +1572,8 @@ def check_system_against_cpu(cfg, cap):
                              f"{culled_c} on the card")
 
     slam = DenseSLAM(cfg, device=cpu)
-    slam.submaps.active = clone_map(before["map"], cpu)
-    slam.db = clone_db(before["db"], cpu)
+    slam.submaps.active = copy_map(before["map"], cpu)
+    slam.db = copy_db(before["db"], cpu)
     t0 = time.perf_counter()
     n = slam.apply_pose_updates(cap.apply["ids"], cap.apply["poses"],
                                 enforce_budget=False)
@@ -1564,6 +1606,279 @@ def check_system_against_cpu(cfg, cap):
               cpu_tick_s=tick_s, cpu_apply_s=apply_s))
 
 
+def submaps_config(cfg):
+    """The drive's configuration with scripts/long_drive_eval.py's
+    --submap-threshold 0.3 --map-budget-mb 400."""
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, new_submap_threshold=SUBMAP_THRESHOLD,
+        map_memory_budget_mb=SUBMAP_BUDGET_MB))
+
+
+def allocated_now(dev) -> int:
+    """torch.cuda.memory_allocated once the card is idle; a one-element
+    allocation first lets the caching allocator free blocks whose side-
+    stream uses (record_stream) have completed."""
+    torch.cuda.synchronize()
+    torch.empty(1, device=dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def check_memory_freed(sm, idx: int, dev) -> dict:
+    """Restore spilled submap `idx` and evict it again, synchronized on
+    both sides, once with evict_to_host (a clean restore: the free path)
+    and once, after mark_dirty, with evict_to_host_async and
+    finalize_spills: each time the card's allocated bytes must rise, then
+    fall, by >= 0.9 x the submap's submap_device_bytes."""
+    out = {}
+    for kind in ("sync", "async"):
+        a0 = allocated_now(dev)
+        sm.restore_to_device(idx)
+        a1 = allocated_now(dev)
+        nbytes = sm.submap_device_bytes(idx)
+        if kind == "sync":
+            sm.evict_to_host(idx)
+        else:
+            sm.mark_dirty(idx)
+            if not sm.evict_to_host_async(idx):
+                raise AssertionError(f"submap {idx}: no async spill started")
+            sm.finalize_spills()
+        a2 = allocated_now(dev)
+        out[kind] = dict(submap_bytes=nbytes, rise=a1 - a0, fall=a1 - a2)
+        if not (sm.is_on_host(idx) and a1 - a0 >= 0.9 * nbytes
+                and a1 - a2 >= 0.9 * nbytes):
+            raise AssertionError(f"submap {idx} {kind} spill: {out[kind]}")
+    return out
+
+
+def run_submaps(cfg, dev, gpu, ref):
+    """The flagship drive again (drive_system: the same frames, noise and
+    draws as `system`) with submaps and swapping on (submaps_config): the
+    eval renders the composite (raycast_composite(respill=False,
+    ghost=True) once there is more than one submap) and re-enforces the
+    budget after each eval burst, as scripts/long_drive_eval.py:444-493
+    does; the launch counts set to 0 just before and read just after.
+    `ref` is the `system` phase's SLAMSystem: every pose must be within
+    1e-4 m of its pose for the same frame (the submaps leave the
+    trajectory alone). Then check_memory_freed on a spilled submap."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.eval import traj_metrics
+    from denseslam_tpu_torch.models.system import SLAMSystem
+
+    scfg = submaps_config(cfg)
+    gt, scene = system_setup(scfg)
+    k_verify = max(64, scfg.frontend.ransac_iters // 2)
+    system = SLAMSystem(scfg, ba_every=4, loop_every=2, device=dev,
+                        verify_draws=verify_draws(k_verify))
+    slam = system.slam
+    sm = slam.submaps
+    purge, restore, finalize = (slam.purge_keyframes, slam.restore_submap,
+                                sm.finalize_spills)
+    purged, replayed, over_budget = [0], [0], []
+
+    def counted_purge(ids):
+        before = int(slam.db.valid.sum())
+        purge(ids)
+        purged[0] += before - int(slam.db.valid.sum())
+
+    def counted_restore(si, force_replay=False):
+        n = restore(si, force_replay=force_replay)
+        replayed[0] += n
+        return n
+
+    def checked_finalize():
+        finalize()
+        over_budget.append(sm.committed_memory_bytes()
+                           - sm.submap_device_bytes(sm.active_idx))
+
+    def render(T):
+        if sm.num_local_maps > 1:
+            return slam.raycast_composite(T, respill=False, ghost=True)
+        return slam.raycast_view(T)
+
+    def after_eval():
+        if sm.num_local_maps > 1:
+            sm.enforce_memory_budget()
+
+    slam.purge_keyframes = counted_purge
+    slam.restore_submap = counted_restore
+    sm.finalize_spills = checked_finalize
+    kernels.reset_counts()
+    d = drive_system(scfg, dev, system, gt, scene, render,
+                     after_eval=after_eval)
+    launches = dict(kernels.launch_counts)
+
+    be = system.backend
+    fused = be.num_keyframes + system.num_culled
+    refused = system.num_corrections
+    n_eval = len(d["evals"])
+    want = dict(tile_sample=fused + 2 * refused + purged[0]
+                + 2 * replayed[0], tile_sample_rgb=0,
+                sgm_path=3 * (fused + n_eval), sgm_final=fused + n_eval)
+    if fused == 0 or launches != want:
+        raise AssertionError(f"launches {launches}, want {want} ({fused} "
+                             f"fused, {refused} re-fused, {purged[0]} "
+                             f"purged, {replayed[0]} replayed, {n_eval} "
+                             "eval SGMs)")
+    depth_q = {k: mean_metrics(d["evals"], k)
+               for k in ("depth", "depth_gtpose", "depth_input")}
+    ok = np.concatenate(d["ok_frames"])
+    track = float(ok[1:].mean())
+    est = np.stack([T for _, T in system.trajectory()])
+    ref_T = np.stack([T for _, T in ref.trajectory()])
+    if est.shape != ref_T.shape or not np.isfinite(est).all():
+        raise AssertionError("trajectory has the wrong length or "
+                             "non-finite poses")
+    pose_gap = float(np.abs(est[:, :3, 3] - ref_T[:, :3, 3]).max())
+    ate = traj_metrics.ate_rmse(list(est), list(gt))
+    n = sm.num_local_maps
+    on_host = [sm.is_on_host(i) for i in range(n)]
+    overflow = [int(m.overflow) for m in sm.maps]
+    over_max = max(over_budget)
+    t0 = time.perf_counter()
+    freed = check_memory_freed(sm, on_host.index(True), dev) \
+        if any(on_host) else None
+    freed_s = time.perf_counter() - t0
+    ph = {**system.phase_s, **be.phase_s}
+    emit(dict(phase="submaps", frames=SYSTEM_FRAMES, chunk=SYSTEM_CHUNK,
+              threshold=SUBMAP_THRESHOLD, budget_mb=SUBMAP_BUDGET_MB,
+              submaps=n, on_host=on_host, anchor_frames=sm.anchor_frames,
+              evictions=sm.num_evictions, restores=sm.num_restores,
+              async_spills=sm.num_async_spills,
+              delta_spills=sm.num_delta_spills,
+              ghost_renders=sm.num_ghost_renders,
+              submap_device_bytes=max(sm.submap_device_bytes(i)
+                                      for i in range(n)),
+              memory_report=slam.memory_report(),
+              committed_minus_active_max=over_max,
+              fused=fused, refused=refused, purged=purged[0],
+              replayed=replayed[0], launches=launches, overflow=overflow,
+              tracking_ok_share=track, loops=system.num_loops,
+              culled=system.num_culled, pose_gap_to_system_m=pose_gap,
+              ate_rmse_m=ate, eval_frames=d["eval_ids"], **depth_q,
+              fps=d["proc_frames"] / d["proc_s"], process_s=d["proc_s"],
+              wall_s=d["wall_s"], synth_s=d["synth_s"], eval_s=d["eval_s"],
+              phase_s={k: ph[k] for k in ("spawn", "spill_wait",
+                                          "tick_apply", "tick") if k in ph},
+              memory_freed=freed, memory_freed_s=freed_s, gpu=gpu))
+    gates = dict(tracking=track >= 0.95, loop=system.num_loops >= 1,
+                 submaps=n >= 3, on_host=any(on_host),
+                 evictions=sm.num_evictions >= 1,
+                 ghosts=sm.num_ghost_renders >= 1,
+                 overflow=not any(overflow), poses=pose_gap <= 1e-4,
+                 eval_coverage=depth_q["depth"]["coverage"] >= 0.3,
+                 eval_d1_25=depth_q["depth"]["d1_25"] >= 0.85,
+                 budget=over_max <= SUBMAP_BUDGET_MB * 1e6)
+    if not all(gates.values()):
+        raise AssertionError(f"submaps gates failed: {gates}")
+    return dict(launches=launches, system=system)
+
+
+def _leaves_equal(a, b) -> bool:
+    return all(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu())
+               for x, y in zip(a, b))
+
+
+def check_spills_exact(sm, idx: int, dev) -> dict:
+    """Spilled submap `idx` restored, then spilled by each path (the sync
+    compacted spill, the async one, the delta respill after a change to
+    some rows named to mark_dirty) and restored again: each host copy and
+    each restore bit-equal, in every plane and DB field, to the device copy
+    before the spill."""
+    from denseslam_tpu_torch.models.dense_slam import (_map_leaves, copy_db,
+                                                       copy_map)
+
+    def leaves(i):
+        return _map_leaves(sm.maps[i]) + list(sm.dbs[i])
+
+    out = {}
+    sm.restore_to_device(idx)
+    n0 = (sm.num_async_spills, sm.num_delta_spills)
+    for kind in ("sync", "async", "delta"):
+        if kind == "delta":
+            m = sm.maps[idx]
+            rows = torch.nonzero(m.table.valid).flatten()[::7]
+            m.tsdf[rows] = -m.tsdf[rows]
+            sm.mark_dirty(idx, changed_slots=rows.cpu().numpy())
+        else:
+            sm.mark_dirty(idx)
+        snap = (_map_leaves(copy_map(sm.maps[idx], dev))
+                + list(copy_db(sm.dbs[idx], dev)))
+        if kind == "async":
+            if not sm.evict_to_host_async(idx):
+                raise AssertionError("the async spill did not start")
+            sm.finalize_spills()
+        else:
+            sm.evict_to_host(idx)
+        host_equal = _leaves_equal(snap, leaves(idx))
+        sm.restore_to_device(idx)
+        back_equal = _leaves_equal(snap, leaves(idx))
+        out[kind] = dict(host_equal=host_equal, restore_equal=back_equal)
+        if not (host_equal and back_equal):
+            raise AssertionError(f"{kind} spill of submap {idx}: {out}")
+    if (sm.num_async_spills, sm.num_delta_spills) != (n0[0] + 1, n0[1] + 1):
+        raise AssertionError("the spills did not take their paths")
+    sm.evict_to_host(idx)
+    return out
+
+
+def check_submaps_against_cpu(cfg, dev, run):
+    """The submaps drive's final state carried to the CPU through
+    io/convert.py and one composite render (the drive's: ghost=True,
+    respill=False) made from it on both devices at the last frame's
+    estimated pose: the splat z-buffer keys of every render inside it
+    equal on >= 99.9% of pixels (the `render` phase's bar); then
+    check_spills_exact on the card."""
+    from denseslam_tpu_torch.io import convert
+    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.ops import splat
+
+    system = run["system"]
+    slam = system.slam
+    scfg = slam.cfg
+    T = slam.trajectory()[-1][1]
+    t0 = time.perf_counter()
+    cpu = DenseSLAM(scfg, device=torch.device("cpu"))
+    convert.slam_state_from_numpy(
+        convert.slam_state_to_numpy(slam, np.zeros(2, np.uint32)), cpu)
+    copy_s = time.perf_counter() - t0
+
+    def keyed(s):
+        keys, render = [], s._render
+
+        def wrapped(m, T_wc):
+            keys.append(splat.splat_zbuffer(m, T_wc, scfg.rig.intr,
+                                            scfg.tsdf, s._splat_cfg)[0][:-1]
+                        .cpu())
+            return render(m, T_wc)
+
+        s._render = wrapped
+        return keys
+
+    kg, kc = keyed(slam), keyed(cpu)
+    dg = slam.raycast_composite(T, respill=False, ghost=True).depth.cpu()
+    t0 = time.perf_counter()
+    dc = cpu.raycast_composite(T, respill=False, ghost=True).depth
+    cpu_s = time.perf_counter() - t0
+    del slam._render, cpu._render
+    if len(kg) != len(kc) or not kg:
+        raise AssertionError(f"{len(kg)} renders on the card, {len(kc)} on "
+                             "the CPU")
+    equal = float(sum(int((a == b).sum()) for a, b in zip(kg, kc))
+                  / sum(a.numel() for a in kg))
+    depth_equal = float((dg == dc).float().mean())
+    if equal < 0.999:
+        raise AssertionError(f"composite splat keys card vs CPU: {equal}")
+    slam.submaps.enforce_memory_budget()
+    sm = slam.submaps
+    idx = next(i for i in range(sm.num_local_maps) if sm.is_on_host(i))
+    spills = check_spills_exact(sm, idx, torch.device(dev))
+    emit(dict(phase="submaps_cpu_reference", renders=len(kg),
+              splat_keys_equal_share=equal, depth_equal_share=depth_equal,
+              pixels_hit=float((dg > 0).float().mean()), spills=spills,
+              spill_submap=idx, copy_to_cpu_s=copy_s,
+              cpu_composite_s=cpu_s))
+
+
 def run_render(cfg, dev, fr, stereo, gpu, out=None):
     """Both renderers on the stereo phase's final map, at its last fused
     keyframe's estimated pose, through DenseSLAM.raycast_view at 1226x370:
@@ -1576,7 +1891,7 @@ def run_render(cfg, dev, fr, stereo, gpu, out=None):
     from denseslam_tpu_torch import kernels
     from denseslam_tpu_torch.eval import depth_metrics
     from denseslam_tpu_torch.io import synthetic
-    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.models.dense_slam import DenseSLAM, copy_map
     from denseslam_tpu_torch.ops import splat
 
     m = stereo["map"]
@@ -1617,7 +1932,7 @@ def run_render(cfg, dev, fr, stereo, gpu, out=None):
     keys_g = splat.splat_zbuffer(m, T, intr, cfg.tsdf, sc)[0][:-1].cpu()
     t0 = time.perf_counter()
     cpu = torch.device("cpu")
-    keys_c = splat.splat_zbuffer(clone_map(m, cpu), T.cpu(), intr, cfg.tsdf,
+    keys_c = splat.splat_zbuffer(copy_map(m, cpu), T.cpu(), intr, cfg.tsdf,
                                  sc)[0][:-1]
     cpu_s = time.perf_counter() - t0
     equal = float((keys_g == keys_c).float().mean())
@@ -1882,6 +2197,7 @@ def profile_tick(cfg, dev, cap, out: str):
     detect_loop (retrieval + verification), optimize_graph, and
     apply_pose_updates of the tick's updates on the map and DB it found."""
     from denseslam_tpu_torch.io import convert
+    from denseslam_tpu_torch.models.dense_slam import copy_db, copy_map
     from denseslam_tpu_torch.models.system import SLAMSystem
 
     k_verify = max(64, cfg.frontend.ransac_iters // 2)
@@ -1895,8 +2211,8 @@ def profile_tick(cfg, dev, cap, out: str):
         return None
 
     def map_setup():
-        sy.slam.submaps.active = clone_map(before["map"], sy.device)
-        sy.slam.db = clone_db(before["db"], sy.device)
+        sy.slam.submaps.active = copy_map(before["map"], sy.device)
+        sy.slam.db = copy_db(before["db"], sy.device)
         return None
 
     parts = (
@@ -2259,10 +2575,14 @@ def main(argv=None) -> int:
     system = timed("system", run_system, scfg, dev, gpu)
     timed("system_cpu_reference", check_system_against_cpu, scfg,
           system["capture"])
+    submaps = timed("submaps", run_submaps, scfg, dev, gpu, system["system"])
+    timed("submaps_cpu_reference", check_submaps_against_cpu, scfg, dev,
+          submaps)
     frame = timed("frame", run_frame, scfg, dev, gpu, args.profile)
     icp = timed("icp", run_icp, rcfg, dev, gpu)
     paths = dict(slice=run["launches"], rgbd=rgbd["launches"],
                  stereo=stereo["launches"], system=system["launches"],
+                 submaps=submaps["launches"],
                  frame=frame["launches"], frame_vo=frame["vo_launches"],
                  icp=icp["launches"])
     for rec in recs:

@@ -22,11 +22,14 @@ The host-side state of the system travels as plain dicts of numpy values
            sig_next, sig_free; the buffer itself is rebuilt from the
            keyframes' signatures, and a freed slot scores -1 either way),
            the last BA window's evidence and the reject counters;
-  slam     map and DB leaves, frontend state leaves (with a PRNG key in
-           the JAX order), frame counter and pose history;
+  slam     every submap (map and DB leaves, where it lives, global and
+           spawn poses, anchor frame, deferred corrections, dirty flag),
+           frontend state leaves (with a PRNG key in the JAX order), frame
+           counter and pose history;
   system   both of the above and the system's counters and chaining state.
-`backend_state_to_numpy` reads the JAX package's Backend as well (the
-attribute names are the same and its arrays go through np.asarray).
+`backend_state_to_numpy` and `submap_state_to_numpy` read the JAX
+package's Backend and SubmapManager as well (the attribute names are the
+same and their arrays go through numpy).
 """
 
 from __future__ import annotations
@@ -74,6 +77,12 @@ def _plane_to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         return _np(t.view(torch.int16)).view(np.uint16)
     return _np(t)
+
+
+def _array(x) -> np.ndarray:
+    """A numpy copy of an array, bf16 as its uint16 bits."""
+    a = np.array(x)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
 
 
 def _i32(a, dev) -> torch.Tensor:
@@ -263,11 +272,35 @@ def backend_state_from_numpy(state: Mapping, be: Backend) -> Backend:
     return be
 
 
-def slam_state_to_numpy(slam: DenseSLAM, key) -> dict:
-    """The port's DenseSLAM state; `key` (numpy) takes the frontend PRNG
-    key's place in the JAX leaf order."""
-    return dict(map=map_state_to_numpy(slam.submaps.active),
-                db=fusion_db_to_numpy(slam.db),
+def submap_state_to_numpy(sm, i: int) -> dict:
+    """Submap `i` of a SubmapManager (the port's or the JAX package's):
+    its map and DB leaves, where it lives, its global and spawn poses, its
+    anchor frame, its deferred corrections (frame id -> (pose, drift)) and
+    its dirty flag."""
+    if isinstance(sm.maps[i], MapState):
+        m, db = map_state_to_numpy(sm.maps[i]), fusion_db_to_numpy(sm.dbs[i])
+    else:
+        m = [_array(x) for x in (sm.maps[i].table.keys,) + tuple(
+            sm.maps[i])[1:]]
+        db = [np.array(x) for x in sm.dbs[i]]
+    return dict(map=m, db=db, on_host=bool(sm.is_on_host(i)),
+                global_pose=np.asarray(sm.global_poses[i], np.float32),
+                spawn_pose=np.asarray(sm.spawn_poses[i], np.float32),
+                anchor_frame=int(sm.anchor_frames[i]),
+                pending={int(f): (np.asarray(T, np.float32), float(e))
+                         for f, (T, e) in
+                         sm.pending_corrections[i].items()},
+                dirty=bool(sm.dirty[i]))
+
+
+def slam_state_to_numpy(slam, key) -> dict:
+    """A DenseSLAM's state (the port's; the submaps of the JAX package's
+    too): every submap (`submap_state_to_numpy`), the frontend state, with
+    `key` (numpy) in the PRNG key's place of the JAX leaf order, the frame
+    counter and the pose history."""
+    sm = slam.submaps
+    return dict(submaps=[submap_state_to_numpy(sm, i)
+                         for i in range(sm.num_local_maps)],
                 fe_state=frontend_state_to_numpy(slam.fe_state, key),
                 frame=int(slam.frame),
                 pose_history=[(int(f), np.asarray(T, np.float32))
@@ -275,10 +308,22 @@ def slam_state_to_numpy(slam: DenseSLAM, key) -> dict:
 
 
 def slam_state_from_numpy(state: Mapping, slam: DenseSLAM) -> DenseSLAM:
-    """Load `state` into the port's DenseSLAM `slam` (on its device)."""
+    """Load `state` into the port's DenseSLAM `slam`: submaps on its
+    device, spilled ones as CPU tensors."""
     dev = slam.device
-    slam.submaps.active = map_state_from_numpy(state["map"], dev)
-    slam.db = fusion_db_from_numpy(state["db"], dev)
+    sm = slam.submaps
+    sm.finalize_spills()
+    sm._reset()
+    for e in state["submaps"]:
+        where = torch.device("cpu") if e["on_host"] else dev
+        i = sm._append(map_state_from_numpy(e["map"], where),
+                       fusion_db_from_numpy(e["db"], where),
+                       e["global_pose"], e["spawn_pose"], e["anchor_frame"],
+                       e["on_host"])
+        sm.pending_corrections[i] = {
+            int(f): (np.asarray(T, np.float32), float(err))
+            for f, (T, err) in e["pending"].items()}
+        sm.dirty[i] = bool(e["dirty"])
     slam.fe_state = frontend_state_from_numpy(state["fe_state"], dev)
     slam.frame = int(state["frame"])
     slam.pose_history = [(int(f), np.asarray(T, np.float32))

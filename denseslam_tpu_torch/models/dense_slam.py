@@ -2,11 +2,13 @@
 the fused-keyframe DB, depth post-processing, `fuse_keyframe` /
 `fuse_sequence`, the throughput paths `process_sequence` (stereo VO +
 keyframe-gated SGM + fusion) and `process_sequence_rgbd`, online
-correction (`online_correction`, `purge_culled`) and the host-side
-`DenseSLAM` with its single-submap `SubmapManager`: the per-frame
-`process_frame` (stereo or RGB-D VO, or ICP against a render of the map),
-the renderers behind `raycast_view`, and what the chunk path of
-models/system.py uses.
+correction (`online_correction`, `online_correction_delta`,
+`purge_culled`), the `SubmapManager` (submaps with estimated global poses,
+host swapping under a memory budget, deferred corrections) and the
+host-side `DenseSLAM`: the per-frame `process_frame` (stereo or RGB-D VO,
+or ICP against a render of the map), the renderers behind `raycast_view`
+and `raycast_composite`, and what the chunk path of models/system.py
+uses.
 
 The JAX package donates map and DB to each step; here both are updated in
 place and returned. Where the JAX version branches on a device value
@@ -26,7 +28,9 @@ import torch
 from ..config import SystemConfig
 from ..device import resolve_device
 from ..ops import features as feat_ops
+from ..ops import hash as vhash
 from ..ops import icp as icp_ops
+from ..ops import posegraph
 from ..ops import ransac
 from ..ops import raycast as rc_ops
 from ..ops import splat as splat_ops
@@ -362,34 +366,251 @@ def purge_culled(m: tsdf_ops.MapState, db: FusionDB, culled: torch.Tensor,
 # Submaps and the host-side pipeline
 # ---------------------------------------------------------------------------
 
+def online_correction_delta(m: tsdf_ops.MapState, db: FusionDB,
+                            opt_T: torch.Tensor, opt_valid: torch.Tensor,
+                            cfg: SystemConfig):
+    """`online_correction` plus the mask (S,) of pool rows whose content it
+    changed, found by comparing the pool before and after: it covers every
+    mutation, the replay and its GC alike, and feeds the delta respill.
+    The correction works in place, so the keys and the tsdf, weight and
+    colour planes are copied first (about 0.8 GB at the drive's pool).
+    The alloc_frame / last_seen stamps are left out: they change on every
+    visible slot of every replayed frame, and folding them in would make
+    the delta most of the pool."""
+    before = (m.table.keys.clone(), m.tsdf.clone(), m.weight.clone(),
+              m.color.clone())
+    m, db, num = online_correction(m, db, opt_T, opt_valid, cfg)
+    changed = ((m.table.keys != before[0])
+               | (m.tsdf != before[1]).any(dim=-1)
+               | (m.weight != before[2]).any(dim=-1)
+               | (m.color != before[3]).any(dim=-1))
+    return m, db, num, changed
+
+
+def _composite_transform(rc: rc_ops.Raycast,
+                         D: torch.Tensor) -> rc_ops.Raycast:
+    """Map a submap render's points and normals through its alignment
+    delta D (4, 4)."""
+    pts = lie.transform_points(D, rc.points.reshape(-1, 3)).reshape(
+        rc.points.shape)
+    pts = torch.where(rc.mask[..., None], pts, 0.0)
+    nrm = (rc.normals.reshape(-1, 3) @ D[:3, :3].T).reshape(rc.normals.shape)
+    return rc._replace(points=pts, normals=nrm)
+
+
+def _composite_merge(best: rc_ops.Raycast, rc: rc_ops.Raycast,
+                     D: torch.Tensor) -> rc_ops.Raycast:
+    """Delta-transform `rc` and merge it into `best` by minimum depth."""
+    rc = _composite_transform(rc, D)
+    closer = rc.mask & (~best.mask | (rc.depth < best.depth))
+    return rc_ops.Raycast(
+        depth=torch.where(closer, rc.depth, best.depth),
+        points=torch.where(closer[..., None], rc.points, best.points),
+        normals=torch.where(closer[..., None], rc.normals, best.normals),
+        mask=best.mask | rc.mask,
+        color=torch.where(closer[..., None], rc.color, best.color),
+    )
+
+
 def _check_supported(cfg: SystemConfig, mesh) -> None:
-    p = cfg.pipeline
-    if p.new_submap_threshold >= 0 or p.map_memory_budget_mb >= 0:
-        raise NotImplementedError(
-            "more than one submap (new_submap_threshold >= 0) and the map "
-            "memory budget are not ported yet (ROADMAP.md Queue A, A7)")
     if mesh is not None:
         raise NotImplementedError(
             "a sharded map is not ported yet (ROADMAP.md Queue A, A10)")
-    if p.sensor == "mono":
+    if cfg.pipeline.sensor == "mono":
         raise NotImplementedError(
             "sensor='mono' is not ported yet (ROADMAP.md Queue A, A8)")
 
 
+def _map_leaves(m: tsdf_ops.MapState) -> List[torch.Tensor]:
+    return [m.table.keys] + [getattr(m, f) for f in m._fields[1:]]
+
+
+def copy_map(m: tsdf_ops.MapState, device) -> tsdf_ops.MapState:
+    """A copy of map `m` on `device` that shares no storage with it (on the
+    CPU, `.to("cpu")` would return the tensor itself)."""
+    return m._replace(
+        table=vhash.HashTable(keys=m.table.keys.to(device, copy=True)),
+        **{f: getattr(m, f).to(device, copy=True) for f in m._fields[1:]})
+
+
+def copy_db(db: FusionDB, device) -> FusionDB:
+    """A copy of fusion DB `db` on `device` that shares no storage with it."""
+    return FusionDB(*(t.to(device, copy=True) for t in db))
+
+
+def _pose_np(T) -> np.ndarray:
+    """A (4, 4) pose, tensor or array, as a float32 numpy array."""
+    if isinstance(T, torch.Tensor):
+        return T.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(T, np.float32)
+
+
+def _pad_rows(a: torch.Tensor, slots: torch.Tensor, npad: int, fill):
+    """The rows `slots` (n,) of host tensor `a`, then rows of `fill` up to
+    npad."""
+    out = torch.full((npad,) + tuple(a.shape[1:]), fill, dtype=a.dtype)
+    out[:slots.numel()] = a[slots]
+    return out
+
+
+def _expand_rows(rows, slots: torch.Tensor, s: int, frame, decayed,
+                 overflow) -> tsdf_ops.MapState:
+    """The full host pool of S slots from compact host rows: row i of each
+    plane into slot slots[i], free space elsewhere (the ordinary MapState
+    that every consumer reads)."""
+    n = slots.numel()
+    bv = tsdf_ops.BLOCK_VOL
+    full = tsdf_ops.MapState(
+        table=vhash.HashTable(keys=torch.full((s,), vhash.EMPTY_KEY,
+                                              dtype=torch.int32)),
+        tsdf=torch.ones((s, bv), dtype=rows[1].dtype),
+        weight=torch.zeros((s, bv), dtype=rows[2].dtype),
+        color=torch.zeros((s, bv), dtype=torch.int32),
+        alloc_frame=torch.zeros((s,), dtype=torch.int32),
+        last_seen=torch.zeros((s,), dtype=torch.int32),
+        frame=frame, decayed_blocks=decayed, overflow=overflow)
+    for plane, r in zip(_map_leaves(full)[:6], rows):
+        plane[slots] = r[:n]
+    return full
+
+
 class SubmapManager:
-    """The single-submap registry the chunk path reads (the JAX
-    SubmapManager holds many submaps, spills them to the host and defers
-    their corrections; that is ROADMAP.md Queue A, A7): one active map and
-    its fusion DB, on `device`."""
+    """Registry of the submaps (reference surface: createNewLocalMap /
+    setEstimatedGlobalPose / getLocalMap / numLocalMaps), each with its
+    own map and fusion DB, on `device` or spilled to the host.
+
+    Per submap: `spawn_poses[i]`, the camera pose at spawn (a record);
+    `global_poses[i]`, its current estimated global anchor pose, moved by
+    the inter-submap pose graph (`optimize_alignment`), so that
+    `delta(i) = global_poses[i] @ inv(spawn_poses[i])` is the rigid
+    correction of its content at composite-render time; `anchor_frames[i]`,
+    the frame it was spawned at; `pending_corrections[i]`, frame id ->
+    (latest optimised pose, its drift): corrections deferred while the
+    submap is inactive (replay de-fuses at the DB's fused pose, so only a
+    frame's latest pose matters); `dirty[i]`: its device content changed
+    since its last restore.
+
+    Swapping (ITMSwappingEngine::SaveToGlobalMemory): a spilled submap's
+    map and DB are CPU tensors, and `is_on_host` reads an explicit flag,
+    because on the CPU a tensor's device cannot tell host from device.
+    Host and device copies never share storage: every evict and restore
+    copies. A restore keeps the host copy as a clean cache, so an
+    untouched submap evicts for free, and `mark_dirty(changed_slots=...)`
+    keeps it and re-sends only those rows (the delta respill). Transfers
+    cross in the compact form of `gather_block_rows`, padded to a multiple
+    of `_SPILL_GRAN` rows; a pool whose rows pad to all S slots crosses
+    whole."""
+
+    _SPILL_GRAN = 4096          # row-count bucket of a compacted transfer
 
     def __init__(self, cfg: SystemConfig, device=None):
-        dev = resolve_device(device)
         self.cfg = cfg
-        self.maps: List[tsdf_ops.MapState] = [tsdf_ops.make_map(cfg.tsdf, dev)]
-        self.dbs: List[FusionDB] = [make_fusion_db(cfg, dev)]
-        # deferred corrections of inactive submaps: none with one submap
-        self.pending_corrections: List[dict] = [{}]
-        self.dirty: List[bool] = [True]
+        self.device = resolve_device(device)
+        self._copy_stream = None
+        self.num_evictions = 0
+        self.num_restores = 0
+        self.num_ghost_renders = 0
+        self.num_delta_spills = 0
+        self.num_async_spills = 0
+        self._reset()
+        self.create_new(np.eye(4, dtype=np.float32), anchor_frame_id=0)
+
+    def _reset(self) -> None:
+        """Empty the registry (state loading rebuilds it)."""
+        self.maps: List[tsdf_ops.MapState] = []
+        self.dbs: List[FusionDB] = []
+        self.global_poses: List[np.ndarray] = []
+        self.spawn_poses: List[np.ndarray] = []
+        self.anchor_frames: List[int] = []
+        self.pending_corrections: List[dict] = []
+        self.dirty: List[bool] = []
+        self._on_host: List[bool] = []
+        # the clean-restore cache: (host map, host db) kept after a restore
+        self._spill_cache: List[Optional[tuple]] = []
+        # the rows changed since that restore (delta respill), or None
+        self._delta_rows: List[Optional[np.ndarray]] = []
+        # idx -> async spill in flight: (host tensors, event, slots, S)
+        self._inflight: dict = {}
+
+    def _append(self, m: tsdf_ops.MapState, db: FusionDB, T_global, T_spawn,
+                anchor_frame_id: int, on_host: bool) -> int:
+        self.maps.append(m)
+        self.dbs.append(db)
+        self.global_poses.append(np.asarray(T_global))
+        self.spawn_poses.append(np.asarray(T_spawn))
+        self.anchor_frames.append(int(anchor_frame_id))
+        self.pending_corrections.append({})
+        self.dirty.append(True)
+        self._on_host.append(bool(on_host))
+        self._spill_cache.append(None)
+        self._delta_rows.append(None)
+        return len(self.maps) - 1
+
+    def create_new(self, T_global, anchor_frame_id: int = -1,
+                   async_spill: bool = False, enforce: bool = True) -> int:
+        """A fresh submap (map and DB on the device) anchored at
+        `T_global`, now the active one. A spawn is when the device
+        footprint grows by a pool and a DB, so the budget is checked,
+        unless `enforce` is False (the chunk path enforces after its tick,
+        so that no spill queues behind the tick). Returns its index."""
+        T = _pose_np(T_global)
+        idx = self._append(tsdf_ops.make_map(self.cfg.tsdf, self.device),
+                           make_fusion_db(self.cfg, self.device), T, T,
+                           anchor_frame_id, on_host=False)
+        if enforce:
+            self.enforce_memory_budget(async_spill=async_spill)
+        return idx
+
+    def delta(self, idx: int) -> np.ndarray:
+        """Rigid correction of submap `idx`'s content: the optimised anchor
+        pose relative to the spawn-time anchor pose."""
+        G = torch.tensor(np.asarray(self.global_poses[idx], np.float32))
+        S = torch.tensor(np.asarray(self.spawn_poses[idx], np.float32))
+        return (G @ lie.inv_T(S)).numpy()
+
+    def optimize_alignment(self, anchor_meas: dict) -> None:
+        """Relax every submap's global pose against (a) optimised anchor
+        poses from the backend (`anchor_meas`: submap idx -> (4, 4)),
+        weight 5, and (b) the spawn-chain odometry between consecutive
+        submaps, weight 0.5, only where one of the two lacks an anchor
+        measurement (the chain holds the drift the anchors correct). Node 0
+        is the fixed world anchor and submap i node i + 1, in a graph of
+        the backend's caps, as the loop-closure graph has."""
+        s = len(self.maps)
+        if s == 0 or (not anchor_meas and s < 2):
+            return
+        edges = [(0, idx + 1, np.asarray(T, np.float32), 5.0)
+                 for idx, T in anchor_meas.items()]
+        for i in range(s - 1):
+            if i in anchor_meas and (i + 1) in anchor_meas:
+                continue
+            Si, Sj = (torch.tensor(np.asarray(self.spawn_poses[k],
+                                              np.float32))
+                      for k in (i, i + 1))
+            edges.append((i + 1, i + 2, (lie.inv_T(Si) @ Sj).numpy(), 0.5))
+        if not edges:
+            return
+        dev = self.device
+        g = posegraph.make_graph(self.cfg.backend, dev)
+        n, e = s + 1, len(edges)
+        poses = np.stack([np.eye(4, dtype=np.float32)]
+                         + [np.asarray(p, np.float32)
+                            for p in self.global_poses])
+        T_wc, valid = g.T_wc.clone(), g.node_valid.clone()
+        T_wc[:n] = upload(poses, dev)
+        valid[:n] = True
+        ei, ej, T_ij, w = (g.edge_i.clone(), g.edge_j.clone(),
+                           g.T_ij.clone(), g.edge_weight.clone())
+        ei[:e] = upload(np.array([x[0] for x in edges], np.int64), dev)
+        ej[:e] = upload(np.array([x[1] for x in edges], np.int64), dev)
+        T_ij[:e] = upload(np.stack([x[2] for x in edges]), dev)
+        w[:e] = upload(np.array([x[3] for x in edges], np.float32), dev)
+        g = posegraph.optimize(
+            g._replace(T_wc=T_wc, node_valid=valid, edge_i=ei, edge_j=ej,
+                       T_ij=T_ij, edge_weight=w), self.cfg.backend)
+        opt = g.T_wc[1:n].cpu().numpy()
+        for i in range(s):
+            self.global_poses[i] = opt[i]
 
     @property
     def num_local_maps(self) -> int:
@@ -407,18 +628,363 @@ class SubmapManager:
     def active(self, m: tsdf_ops.MapState) -> None:
         self.maps[-1] = m
 
-    def mark_dirty(self, idx: int) -> None:
-        self.dirty[idx] = True
+    def set_estimated_global_pose(self, idx: int, T: np.ndarray) -> None:
+        self.global_poses[idx] = np.asarray(T)
+
+    # -- host spill ------------------------------------------------------
+
+    def _npad(self, n: int, s: int) -> int:
+        g = self._SPILL_GRAN
+        return min(((max(n, 1) + g - 1) // g) * g, s)
+
+    @staticmethod
+    def _alloc_slots(m: tsdf_ops.MapState) -> torch.Tensor:
+        """The allocated slots of `m`, ascending, as CPU int64 (the keys
+        are read back once)."""
+        keys = m.table.keys.to("cpu")
+        return torch.nonzero(keys != vhash.EMPTY_KEY).flatten()
+
+    @staticmethod
+    def _gather(m: tsdf_ops.MapState, slots: torch.Tensor, npad: int):
+        """`gather_block_rows` of `m`, on its device, at `slots` padded to
+        npad rows (the pad rows read slot 0)."""
+        pad = torch.zeros((npad,), dtype=torch.int64)
+        pad[:slots.numel()] = slots
+        return tsdf_ops.gather_block_rows(m, pad.to(m.tsdf.device))
+
+    def _stage(self, tensors) -> Tuple[List[torch.Tensor], Optional[object]]:
+        """Start copying `tensors` to the host. On the card: into pinned
+        staging buffers, on a side stream that waits for the current one,
+        with the tensors marked as used by it (so the caching allocator
+        hands out none of their memory while the copy runs); returns the
+        buffers and an event that completes with the copy. On the CPU:
+        copies, made now, and no event."""
+        if self.device.type != "cuda":
+            return [t.clone() for t in tensors], None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        side = self._copy_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        out = []
+        with torch.cuda.stream(side):
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(side)
+                out.append(h)
+            ev = torch.cuda.Event()
+            ev.record(side)
+        return out, ev
+
+    def _land(self, idx: int) -> None:
+        """Install the host copy of submap `idx`'s async spill once the copy
+        has completed: the pool re-expanded from the staged rows, the DB
+        copied out of the staging buffers (only those are pinned)."""
+        staged, ev, slots, s = self._inflight.pop(idx)
+        if ev is not None:
+            ev.synchronize()
+        self.maps[idx] = _expand_rows(staged[:6], slots, s, *staged[6:9])
+        self.dbs[idx] = FusionDB(*(t.clone() for t in staged[9:]))
+        self._on_host[idx] = True
+        self._spill_cache[idx] = None
+        self._delta_rows[idx] = None
+
+    def _join(self, idx: int) -> None:
+        if idx in self._inflight:
+            self._land(idx)
 
     def finalize_spills(self) -> None:
-        """No spill is ever in flight: there is no memory budget."""
+        """Land every async spill in flight."""
+        for idx in list(self._inflight):
+            self._land(idx)
+
+    def evict_to_host_async(self, idx: int) -> bool:
+        """Start a compacted spill of submap `idx` whose copy runs on a side
+        stream while the caller goes on (the reference's swapping engine
+        has a CUDA stream of its own); it lands at `finalize_spills` or at
+        the submap's next evict or restore, and the submap counts as
+        resident until then. The cheap cases (a clean cache, delta rows)
+        and a pool that does not compact take the sync path. Returns True
+        when a copy was started.
+
+        Inherited from the JAX package (denseslam_tpu/models/dense_slam.py
+        `evict_to_host_async`): the host copy is the snapshot taken here,
+        at dispatch, so a device-side change to the submap between this
+        call and the landing is lost."""
+        if idx in self._inflight:
+            return True
+        if self.is_on_host(idx):
+            return False
+        if self._spill_cache[idx] is not None:
+            self.evict_to_host(idx)
+            return False
+        m, db = self.maps[idx], self.dbs[idx]
+        s = m.num_slots
+        slots = self._alloc_slots(m)
+        npad = self._npad(slots.numel(), s)
+        if npad >= s:
+            self.evict_to_host(idx)
+            return False
+        # the DB stays live until the landing: copy it now, on the current
+        # stream, so that the spill is the dispatch-time snapshot
+        payload = (self._gather(m, slots, npad)
+                   + (m.frame, m.decayed_blocks, m.overflow)
+                   + tuple(t.clone() for t in db))
+        staged, ev = self._stage(payload)
+        self._inflight[idx] = (staged, ev, slots, s)
+        self.num_evictions += 1
+        self.num_async_spills += 1
+        return True
+
+    def evict_to_host(self, idx: int) -> None:
+        """Spill submap `idx` to the host now: free when it is an untouched
+        restore, only the delta rows when `mark_dirty` named them, else the
+        compacted pool (the whole pool when it does not compact)."""
+        self._join(idx)
+        if self.is_on_host(idx):
+            return
+        if not self.dirty[idx] and self._spill_cache[idx] is not None:
+            self.maps[idx], self.dbs[idx] = self._spill_cache[idx]
+            self._spill_cache[idx] = None
+            self._on_host[idx] = True
+            self.num_evictions += 1
+            return
+        if (self.dirty[idx] and self._spill_cache[idx] is not None
+                and self._delta_rows[idx] is not None):
+            self._evict_delta(idx)
+            return
+        m = self.maps[idx]
+        s = m.num_slots
+        slots = self._alloc_slots(m)
+        npad = self._npad(slots.numel(), s)
+        cpu = torch.device("cpu")
+        if npad < s:
+            rows = [t.to(cpu, copy=True) for t in self._gather(m, slots, npad)]
+            self.maps[idx] = _expand_rows(
+                rows, slots, s, *(t.to(cpu, copy=True) for t in
+                                  (m.frame, m.decayed_blocks, m.overflow)))
+        else:
+            self.maps[idx] = copy_map(m, cpu)
+        self.dbs[idx] = copy_db(self.dbs[idx], cpu)
+        self._spill_cache[idx] = None
+        self._on_host[idx] = True
+        self.num_evictions += 1
+
+    def _evict_delta(self, idx: int) -> None:
+        """Evict a submap whose changes since its restore are the rows in
+        `_delta_rows`: only those rows cross, with the (S,) stamp planes
+        whole (they change on every visible slot of a replayed frame) and
+        the DB's poses and flags (a replay never changes the stored
+        frames), merged into copies of the cached host planes."""
+        slots = torch.as_tensor(np.asarray(self._delta_rows[idx]),
+                                dtype=torch.int64)
+        m, db = self.maps[idx], self.dbs[idx]
+        host_m, host_db = self._spill_cache[idx]
+        if slots.numel():
+            cpu = torch.device("cpu")
+            rows = self._gather(m, slots, self._npad(slots.numel(),
+                                                     m.num_slots))[:4]
+            (keys_r, tsdf_r, w_r, c_r, af, ls, fr, dec, ovf, dbT, dbf, dbv,
+             dbh) = (t.to(cpu, copy=True) for t in rows + (
+                 m.alloc_frame, m.last_seen, m.frame, m.decayed_blocks,
+                 m.overflow, db.T_fused, db.frame_id, db.valid, db.head))
+            n = slots.numel()
+
+            def merge(plane, r):
+                out = plane.clone()
+                out[slots] = r[:n]
+                return out
+
+            self.maps[idx] = tsdf_ops.MapState(
+                table=vhash.HashTable(keys=merge(host_m.table.keys, keys_r)),
+                tsdf=merge(host_m.tsdf, tsdf_r),
+                weight=merge(host_m.weight, w_r),
+                color=merge(host_m.color, c_r),
+                alloc_frame=af, last_seen=ls, frame=fr, decayed_blocks=dec,
+                overflow=ovf)
+            self.dbs[idx] = host_db._replace(T_fused=dbT, frame_id=dbf,
+                                             valid=dbv, head=dbh)
+            self.num_delta_spills += 1
+        else:
+            self.maps[idx], self.dbs[idx] = host_m, host_db
+        self._spill_cache[idx] = None
+        self._delta_rows[idx] = None
+        self._on_host[idx] = True
+        self.num_evictions += 1
+
+    def restore_to_device(self, idx: int) -> None:
+        """Bring spilled submap `idx` back: its allocated rows cross and
+        `rebuild_from_rows` rebuilds the pool on the device; the host copy
+        stays as the clean cache."""
+        self._join(idx)
+        if not self.is_on_host(idx):
+            return
+        m, db = self.maps[idx], self.dbs[idx]
+        dev = self.device
+        s = m.num_slots
+        slots = self._alloc_slots(m)
+        n = slots.numel()
+        npad = self._npad(n, s)
+        if npad < s:
+            inv = torch.full((s,), npad, dtype=torch.int64)
+            inv[slots] = torch.arange(n)
+            fills = (vhash.EMPTY_KEY, 1, 0, 0, 0, 0)
+            rows = [_pad_rows(a, slots, npad, f).to(dev)
+                    for a, f in zip(_map_leaves(m)[:6], fills)]
+            self.maps[idx] = tsdf_ops.rebuild_from_rows(
+                inv.to(dev), *rows, m.frame, m.decayed_blocks, m.overflow)
+        else:
+            self.maps[idx] = copy_map(m, dev)
+        self.dbs[idx] = copy_db(db, dev)
+        self._spill_cache[idx] = (m, db)
+        self._on_host[idx] = False
+        self.dirty[idx] = False
+        self.num_restores += 1
+
+    def mark_dirty(self, idx: int,
+                   changed_slots: Optional[np.ndarray] = None) -> None:
+        """Submap `idx`'s device content changed, so its clean cache is
+        stale, unless `changed_slots` names every row that changed: then
+        the cache stays valid for the other rows and the next evict sends
+        only those."""
+        self.dirty[idx] = True
+        if changed_slots is not None and self._spill_cache[idx] is not None:
+            prev = self._delta_rows[idx]
+            self._delta_rows[idx] = (np.asarray(changed_slots) if prev is None
+                                     else np.union1d(prev, changed_slots))
+            return
+        self._spill_cache[idx] = None
+        self._delta_rows[idx] = None
+
+    def ghost_render_state(self, idx: int,
+                           slots: np.ndarray) -> tsdf_ops.MapState:
+        """A transient render-only device state of spilled submap `idx`:
+        only the rows `slots` (its in-view blocks) cross, as f16 tsdf and u8
+        weight rounded up, with every key (probe chains must stay whole).
+        The splat renderer reads weight only as an observed mask (w > 0),
+        which rounding up keeps; colour reads zero, so a ghost serves depth,
+        not colour. The host copy stays authoritative: nothing is marked
+        resident or dirty."""
+        m = self.maps[idx]
+        dev = self.device
+        s = m.num_slots
+        sl = torch.as_tensor(np.asarray(slots), dtype=torch.int64)
+        n = sl.numel()
+        npad = self._npad(n, s)
+        pad = torch.zeros((npad,), dtype=torch.int64)
+        pad[:n] = sl
+        inv = torch.full((s,), npad, dtype=torch.int64)
+        inv[sl] = torch.arange(n)
+        inv = inv.to(dev)
+        tsdf_r = m.tsdf[pad].to(torch.float32).to(torch.float16)
+        w_r = torch.ceil(torch.clamp(m.weight[pad].to(torch.float32), 0,
+                                     255)).to(torch.uint8)
+        sd = m.tsdf.dtype
+        bv = tsdf_ops.BLOCK_VOL
+        tsdf_p = torch.cat([tsdf_r.to(dev).to(sd),
+                            torch.ones((1, bv), dtype=sd, device=dev)])
+        w_p = torch.cat([w_r.to(dev).to(sd),
+                         torch.zeros((1, bv), dtype=sd, device=dev)])
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+        return tsdf_ops.MapState(
+            table=vhash.HashTable(keys=m.table.keys.to(dev, copy=True)),
+            tsdf=tsdf_p[inv], weight=w_p[inv], color=zeros(s, bv),
+            alloc_frame=zeros(s), last_seen=zeros(s),
+            frame=m.frame.to(dev, torch.int32, copy=True),
+            decayed_blocks=zeros(), overflow=zeros())
+
+    def is_on_host(self, idx: int) -> bool:
+        return self._on_host[idx]
+
+    # -- the memory-budget policy ------------------------------------------
+
+    def submap_device_bytes(self, idx: int) -> int:
+        """Device bytes of submap `idx` (0 on the host): pool, hash table
+        and fusion DB, each allocated whole. The port's DB depth is int32,
+        so a submap holds more bytes than in the JAX package."""
+        if self.is_on_host(idx):
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in _map_leaves(self.maps[idx]) + list(self.dbs[idx]))
+
+    def device_memory_bytes(self) -> int:
+        return sum(self.submap_device_bytes(i) for i in range(len(self.maps)))
+
+    def committed_memory_bytes(self) -> int:
+        """Device bytes that would cost a transfer to reclaim: the active
+        submap and the dirty residents (a clean resident evicts free)."""
+        last = len(self.maps) - 1
+        return sum(self.submap_device_bytes(i) for i in range(last + 1)
+                   if i == last or self.dirty[i])
 
     def enforce_memory_budget(self, async_spill: bool = False) -> List[int]:
-        """No budget (map_memory_budget_mb < 0): nothing to evict."""
-        return []
+        """Spill the oldest non-active dirty residents until the committed
+        bytes fit `pipeline.map_memory_budget_mb` (< 0: no budget; the
+        active submap is never spilled); with `async_spill`, start one async
+        spill and stop (its bytes free only when it lands). Then drop clean
+        residents, oldest first, for free until the device bytes fit too.
+        Returns the indices evicted."""
+        budget_mb = self.cfg.pipeline.map_memory_budget_mb
+        if budget_mb < 0 or len(self.maps) < 2:
+            return []
+        budget = int(budget_mb * 1e6)
+        evicted: List[int] = []
+        for idx in range(len(self.maps) - 1):
+            if self.committed_memory_bytes() <= budget:
+                break
+            if not self.is_on_host(idx) and self.dirty[idx]:
+                if async_spill:
+                    self.evict_to_host_async(idx)
+                else:
+                    self.evict_to_host(idx)
+                evicted.append(idx)
+                if async_spill:
+                    break
+        if self.device_memory_bytes() > budget:
+            for idx in range(len(self.maps) - 1):
+                if self.device_memory_bytes() <= budget:
+                    break
+                if (not self.is_on_host(idx) and not self.dirty[idx]
+                        and self._spill_cache[idx] is not None):
+                    self.evict_to_host(idx)
+                    evicted.append(idx)
+        return evicted
+
+    def drop_clean_cache(self) -> int:
+        """Free every clean resident's device copy (a free evict). Returns
+        the number dropped."""
+        n = 0
+        for idx in range(len(self.maps) - 1):
+            if (not self.is_on_host(idx) and not self.dirty[idx]
+                    and self._spill_cache[idx] is not None):
+                self.evict_to_host(idx)
+                n += 1
+        return n
+
+    @property
+    def num_active_local_maps(self) -> int:
+        """Device-resident submaps (reference: numActiveLocalMaps)."""
+        return sum(1 for i in range(len(self.maps)) if not self.is_on_host(i))
 
     def local_map_size(self, idx: int) -> int:
+        """Allocated blocks of submap `idx` (counted where it lives)."""
         return int(tsdf_ops.num_allocated_blocks(self.maps[idx]))
+
+    def should_start_new(self, visible_blocks: int, threshold: float,
+                         size: Optional[int] = None) -> bool:
+        """A new submap when the visible share of the active map's blocks
+        falls below `threshold` (< 0 disables); `size`, the active map's
+        allocated blocks, when the caller has read it already."""
+        if threshold < 0:
+            return False
+        if size is None:
+            size = self.local_map_size(self.active_idx)
+        if size == 0:
+            return False
+        return visible_blocks / size < threshold
 
 
 def _pose_tensor(T, device) -> torch.Tensor:
@@ -429,20 +995,25 @@ def _pose_tensor(T, device) -> torch.Tensor:
 
 
 class DenseSLAM:
-    """Host-side state of the dense pipeline: the frontend state, one
-    submap and its fusion DB, the frame counter and the pose history.
-    `process_frame` runs one frame (odometry, keyframe-gated depth,
-    post-processing and fusion); the chunk path of models/system.py runs
-    the throughput scans on the same state; backend pose updates flow into
-    the map through `apply_pose_updates`; `raycast_view` renders the map
-    with the configured renderer (`pipeline.renderer`: "splat", the
-    default, else the sphere-traced raycast). On `device` (None = the
-    CUDA card; raises without one). The per-frame RANSAC draws come from
-    `generator`, seeded by `seed`, unless `process_frame` is handed them.
+    """Host-side state of the dense pipeline: the frontend state, the
+    submaps (`SubmapManager`: the active one, whose fusion DB is `db`, and
+    the earlier ones, on the card or spilled to the host), the frame
+    counter and the pose history. `process_frame` runs one frame
+    (odometry, keyframe-gated depth, post-processing, fusion, the
+    new-submap policy); the chunk path of models/system.py runs the
+    throughput scans on the same state; backend pose updates flow into
+    the map through `apply_pose_updates` (the active submap corrected at
+    once, the others deferred until they are used, the submaps' global
+    poses relaxed from their anchor keyframes); `raycast_view` renders the
+    active map with the configured renderer (`pipeline.renderer`:
+    "splat", the default, else the sphere-traced raycast) and
+    `raycast_composite` every submap under its alignment. On `device`
+    (None = the CUDA card; raises without one). The per-frame RANSAC draws
+    come from `generator`, seeded by `seed`, unless `process_frame` is
+    handed them.
 
-    Not ported: more than one submap and the memory budget (ROADMAP.md
-    Queue A, A7), a sharded map (A10) and sensor="mono" (A8); those
-    options raise NotImplementedError."""
+    Not ported: a sharded map (ROADMAP.md Queue A, A10) and sensor="mono"
+    (A8); those options raise NotImplementedError."""
 
     def __init__(self, cfg: SystemConfig, mesh=None, device=None,
                  seed: int = 0):
@@ -622,44 +1193,153 @@ class DenseSLAM:
     def get_preview(self, kind: str, T_wc=None) -> torch.Tensor:
         return rc_ops.render_preview(self.raycast_view(T_wc), kind)
 
+    def _spawn_stats(self, m: tsdf_ops.MapState) -> Tuple[int, int]:
+        """The blocks of `m` seen by its last fused frame and its allocated
+        blocks, read back together."""
+        v = torch.stack([
+            ((m.last_seen == m.frame - 1) & m.table.valid).sum(),
+            tsdf_ops.num_allocated_blocks(m)]).cpu()
+        return int(v[0]), int(v[1])
+
     def maybe_spawn_submap(self, T_wc, defer_enforce: bool = False) -> bool:
-        """The new-submap policy; new_submap_threshold < 0 (the only value
-        the port accepts) disables it."""
-        return False
+        """The new-submap policy (reference: shouldStartNewLocalMap and
+        createNewLocalMap): spawn a submap anchored at T_wc when the share
+        of the active map's blocks that its last fused frame saw falls
+        below `pipeline.new_submap_threshold` (< 0, the default, disables
+        it, before any device work). The per-frame path checks after every
+        fused keyframe, the chunk path once a chunk. The old submap keeps
+        its fusion DB. A spawn enforces the memory budget unless
+        `defer_enforce`. Returns True if a submap was started."""
+        thr = self.cfg.pipeline.new_submap_threshold
+        if thr < 0:
+            return False
+        visible, size = self._spawn_stats(self.submaps.active)
+        if not self.submaps.should_start_new(visible, thr, size=size):
+            return False
+        self.submaps.create_new(_pose_np(T_wc), anchor_frame_id=self.frame,
+                                enforce=not defer_enforce)
+        if not defer_enforce:
+            self.submaps.enforce_memory_budget()
+        return True
 
-    def flush_deferred_corrections(self) -> int:
-        """Sequence-end replay of deferred corrections: with one submap
-        nothing is ever deferred. Returns the number of submaps flushed."""
-        return 0
-
-    def apply_pose_updates(self, frame_ids: np.ndarray, poses: np.ndarray,
-                           enforce_budget: bool = True) -> int:
-        """Feed backend-optimised poses (frame_ids (n,), poses (n, 4, 4))
-        to online correction of the active submap. Returns the number of
-        re-fused keyframes."""
-        if not self.cfg.correction.enabled:
+    def restore_submap(self, si: int, force_replay: bool = False) -> int:
+        """Restore submap `si` to the card and replay the corrections
+        deferred while it was inactive, so that it looks as if it had been
+        corrected in place. The replay runs when a pending pose moved by
+        more than `correction.inactive_min_error`, or with `force_replay`;
+        below that the stash stays pending (a later trigger or the
+        sequence-end flush replays it), so a transient eval restore pays no
+        correction. A replay that re-fuses marks the submap dirty with the
+        rows it changed (the delta respill). Returns the number of
+        re-fused frames (each launches the sampler twice)."""
+        self.submaps.restore_to_device(si)
+        pend = self.submaps.pending_corrections[si]
+        if not pend:
             return 0
-        lut = {int(f): i for i, f in enumerate(frame_ids)}
-        si = self.submaps.active_idx
-        db = self.submaps.dbs[si]
-        db_ids = db.frame_id.cpu().numpy()
+        if not (force_replay or any(
+                err > self.cfg.correction.inactive_min_error
+                for _, err in pend.values())):
+            return 0
+        db_i = self.submaps.dbs[si]
+        db_ids = db_i.frame_id.cpu().numpy()
         opt_T = np.tile(np.eye(4, dtype=np.float32), (db_ids.shape[0], 1, 1))
         opt_valid = np.zeros(db_ids.shape[0], bool)
         for slot, fid in enumerate(db_ids):
-            if int(fid) in lut:
-                opt_T[slot] = poses[lut[int(fid)]]
+            if int(fid) in pend:
+                opt_T[slot] = pend[int(fid)][0]
                 opt_valid[slot] = True
+        pend.clear()
         if not opt_valid.any():
             return 0
-        m, db, num = online_correction(
-            self.submaps.maps[si], db, upload(opt_T, self.device),
+        m, db, num, changed = online_correction_delta(
+            self.submaps.maps[si], db_i, upload(opt_T, self.device),
             upload(opt_valid, self.device), self.cfg)
         self.submaps.maps[si] = m
         self.submaps.dbs[si] = db
         if num > 0:
-            self.submaps.mark_dirty(si)
-        if enforce_budget:
+            self.submaps.mark_dirty(
+                si, changed_slots=torch.nonzero(changed).flatten()
+                .cpu().numpy())
+        return num
+
+    def flush_deferred_corrections(self) -> int:
+        """Sequence-end replay of every deferred correction, those below
+        the replay trigger too, so the finished map carries the whole
+        correction history. Returns the number of submaps flushed.
+
+        Inherited from the JAX package (denseslam_tpu/models/dense_slam.py
+        `flush_deferred_corrections`): the memory budget is enforced once,
+        after the loop, so every flushed submap is on the card at the same
+        moment."""
+        n = 0
+        for si in range(self.submaps.num_local_maps):
+            if self.submaps.pending_corrections[si]:
+                self.restore_submap(si, force_replay=True)
+                n += 1
+        if n:
             self.submaps.enforce_memory_budget()
+        return n
+
+    def apply_pose_updates(self, frame_ids: np.ndarray, poses: np.ndarray,
+                           enforce_budget: bool = True) -> int:
+        """Feed backend-optimised poses (frame_ids (n,), poses (n, 4, 4)).
+        With more than one submap, those whose anchor keyframe moved get a
+        global-pose measurement and the inter-submap graph is relaxed
+        (`optimize_alignment`). Online correction then runs on the active
+        submap; an inactive submap's frames that drifted past
+        `correction.min_error` are stashed, the latest pose per frame, for
+        `restore_submap` (correcting inactive pools live costs a replay
+        per tick and deferring coalesces ticks). Returns the number of
+        re-fused keyframes."""
+        lut = {int(f): i for i, f in enumerate(frame_ids)}
+        sm = self.submaps
+        if sm.num_local_maps > 1:
+            anchor_meas = {si: poses[lut[af]]
+                           for si, af in enumerate(sm.anchor_frames)
+                           if af in lut}
+            if anchor_meas:
+                sm.optimize_alignment(anchor_meas)
+        if not self.cfg.correction.enabled:
+            return 0
+        num = 0
+        for si in range(sm.num_local_maps):
+            db = sm.dbs[si]
+            # the DB's index in one read-back (none for a spilled one)
+            c = db.frame_id.shape[0]
+            h = torch.cat([db.frame_id.to(torch.float32),
+                           db.valid.to(torch.float32),
+                           db.T_fused.reshape(-1)]).cpu().numpy()
+            db_ids = h[:c].astype(np.int64)
+            db_valid = h[c:2 * c] > 0.5
+            if si != sm.active_idx:
+                pend = sm.pending_corrections[si]
+                T_f = h[2 * c:].reshape(c, 4, 4)
+                for slot, fid in enumerate(db_ids):
+                    if not db_valid[slot] or int(fid) not in lut:
+                        continue
+                    T_opt = poses[lut[int(fid)]]
+                    err = lie.pose_error_weighted_np(T_f[slot], T_opt)
+                    if err > self.cfg.correction.min_error:
+                        pend[int(fid)] = (np.asarray(T_opt, np.float32), err)
+                continue
+            opt_T = np.tile(np.eye(4, dtype=np.float32), (c, 1, 1))
+            opt_valid = np.zeros(c, bool)
+            for slot, fid in enumerate(db_ids):
+                if int(fid) in lut:
+                    opt_T[slot] = poses[lut[int(fid)]]
+                    opt_valid[slot] = True
+            if not opt_valid.any():
+                continue
+            m, db, n = online_correction(
+                sm.maps[si], db, upload(opt_T, self.device),
+                upload(opt_valid, self.device), self.cfg)
+            sm.maps[si] = m
+            sm.dbs[si] = db
+            if n > 0:
+                sm.mark_dirty(si)
+            num += n
+        if enforce_budget:
+            sm.enforce_memory_budget()
         return num
 
     def purge_keyframes(self, culled_frame_ids: np.ndarray) -> None:
@@ -679,11 +1359,121 @@ class DenseSLAM:
             self.submaps.active = tsdf_ops.decay(self.submaps.active, w, 0,
                                                  force_all=True)
 
+    def _inview_slots(self, idx: int, T_wc) -> np.ndarray:
+        """The allocated slots of submap `idx` whose block centres, moved by
+        the submap's alignment delta, project into the camera at T_wc
+        within max_depth: host-side float64 numpy on the unpacked keys, no
+        device work for a spilled submap. The frustum pad grows as a
+        block's extent (half-diagonal 0.87 * block size) projects up close,
+        with a 16 px floor."""
+        keys = self.submaps.maps[idx].table.keys.cpu().numpy()
+        alloc = np.flatnonzero(keys != vhash.EMPTY_KEY).astype(np.int32)
+        if alloc.size == 0:
+            return alloc
+        ks = keys[alloc]
+        half = int(vhash.PACK_HALF)
+        mask = (1 << int(vhash.PACK_BITS)) - 1
+        bx = (ks & mask) - half
+        by = ((ks >> int(vhash.PACK_BITS)) & mask) - half
+        bz = ((ks >> (2 * int(vhash.PACK_BITS))) & mask) - half
+        bs = tsdf_ops.BLOCK * self.cfg.tsdf.voxel_size_m
+        P = (np.stack([bx, by, bz], -1).astype(np.float64) + 0.5) * bs
+        M = np.linalg.inv(_pose_np(T_wc).astype(np.float64)) @ np.asarray(
+            self.submaps.delta(idx), np.float64)
+        pc = P @ M[:3, :3].T + M[:3, 3]
+        z = pc[:, 2]
+        ok = (z > 0.2 - bs) & (z < self.cfg.tsdf.max_depth_m + 2 * bs)
+        intr = self.cfg.rig.intr
+        u = pc[:, 0] / np.maximum(z, 0.2) * intr.fx + intr.cx
+        v = pc[:, 1] / np.maximum(z, 0.2) * intr.fy + intr.cy
+        pad = np.maximum(intr.fx * 0.87 * bs / np.maximum(z, 0.2), 16.0)
+        ok &= ((u > -pad) & (u < intr.width + pad)
+               & (v > -pad) & (v < intr.height + pad))
+        return alloc[ok]
+
+    def _spilled_submap_in_view(self, idx: int, T_wc,
+                                min_blocks: int = 2) -> bool:
+        """The composite's visibility gate: at least `min_blocks` blocks in
+        view (a false positive costs one restore, a false negative a hole
+        in the composite)."""
+        return self._inview_slots(idx, T_wc).size >= min_blocks
+
+    def raycast_composite(self, T_wc=None, respill: bool = True,
+                          ghost: bool = False) -> rc_ops.Raycast:
+        """Render every submap from T_wc (default: the frontend's pose)
+        under its current alignment delta D (the camera inv(D) @ T_wc sees
+        the submap's content as T_wc sees it moved by D) and merge the
+        renders by minimum depth, so that pose-graph updates realign the
+        composite. A spilled submap with no block in view is skipped; one
+        in view is restored (its deferred corrections replayed) and, with
+        `respill`, spilled again after its render; respill=False leaves it
+        resident for a burst of renders (re-enforce the budget after it).
+        With `ghost`, a spilled submap is rendered from
+        `ghost_render_state` instead, unless a deferred correction past
+        the replay trigger forces the restore; ghosts render depth, not
+        colour. An inactive resident with deferred corrections replays
+        them first."""
+        T = (self.fe_state.T_wc if T_wc is None
+             else _pose_tensor(T_wc, self.device))
+        sm = self.submaps
+        best: Optional[rc_ops.Raycast] = None
+        for idx in range(sm.num_local_maps):
+            respill_this = False
+            m = None
+            if sm.is_on_host(idx):
+                slots = self._inview_slots(idx, T)
+                if slots.size < 2:
+                    continue
+                trigger = any(err > self.cfg.correction.inactive_min_error
+                              for _, err in
+                              sm.pending_corrections[idx].values())
+                if ghost and not trigger:
+                    m = sm.ghost_render_state(idx, slots)
+                    sm.num_ghost_renders += 1
+                else:
+                    self.restore_submap(idx)
+                    respill_this = respill
+            elif idx != sm.active_idx and sm.pending_corrections[idx]:
+                self.restore_submap(idx)
+            D = upload(sm.delta(idx), self.device)
+            rc = self._render(sm.maps[idx] if m is None else m,
+                              lie.inv_T(D) @ T)
+            best = (_composite_transform(rc, D) if best is None
+                    else _composite_merge(best, rc, D))
+            if respill_this:
+                sm.evict_to_host(idx)
+        if best is None:
+            raise RuntimeError("no submap to render")
+        return best
+
     def memory_bytes(self) -> int:
-        """Used map bytes (16 per voxel of every allocated block)."""
+        """Used map bytes (16 per voxel of every allocated block) of every
+        submap, on the card or the host."""
         blocks = sum(self.submaps.local_map_size(i)
                      for i in range(self.submaps.num_local_maps))
         return blocks * 16 * tsdf_ops.BLOCK_VOL
+
+    def memory_report(self) -> dict:
+        """Used map bytes by where the submaps live, the card bytes of the
+        whole pools and DBs (`device_memory_bytes`) and the committed part
+        of them (the active submap and dirty residents), in MB, and the
+        submap counts."""
+        sm = self.submaps
+        dev_used = host_used = 0
+        for i in range(sm.num_local_maps):
+            b = sm.local_map_size(i) * 16 * tsdf_ops.BLOCK_VOL
+            if sm.is_on_host(i):
+                host_used += b
+            else:
+                dev_used += b
+        return dict(
+            used_device_mb=round(dev_used / 1e6, 1),
+            used_host_mb=round(host_used / 1e6, 1),
+            hbm_footprint_mb=round(sm.device_memory_bytes() / 1e6, 1),
+            hbm_committed_mb=round(sm.committed_memory_bytes() / 1e6, 1),
+            submaps=sm.num_local_maps,
+            submaps_on_host=sum(1 for i in range(sm.num_local_maps)
+                                if sm.is_on_host(i)))
 
     @property
     def current_pose(self) -> np.ndarray:

@@ -458,6 +458,55 @@ def advance_frame(m: MapState) -> MapState:
     return m._replace(frame=(m.frame + 1).to(torch.int32))
 
 
+
+# ---------------------------------------------------------------------------
+# Block-row transfer (the swap path's compact form of a map)
+# ---------------------------------------------------------------------------
+
+def gather_block_rows(m: MapState, slots: torch.Tensor):
+    """The rows of the slot indices `slots` (Npad,) of every per-slot
+    plane: keys, tsdf, weight, color, alloc_frame, last_seen. The form in
+    which a submap crosses the host boundary: the pool is mostly empty
+    slots at street scale, so only allocated rows travel."""
+    s = slots.long()
+    return (m.table.keys[s], m.tsdf[s], m.weight[s], m.color[s],
+            m.alloc_frame[s], m.last_seen[s])
+
+
+def rebuild_from_rows(inv_perm: torch.Tensor, keys_r, tsdf_r, weight_r,
+                      color_r, af_r, ls_r, frame, decayed_blocks,
+                      overflow) -> MapState:
+    """Inverse of `gather_block_rows`: the full pool from compact rows
+    (Npad,) through one gather per plane. `inv_perm` (S,) maps each slot
+    to its row; the value Npad selects a sentinel empty row appended to
+    the rows, so unallocated slots read free space and no scatter runs.
+    On the device of `inv_perm`."""
+    dev = inv_perm.device
+    inv = inv_perm.long()
+
+    def plane(rows, fill, dtype):
+        rows = rows.to(dev)
+        pad = torch.full((1,) + tuple(rows.shape[1:]), fill, dtype=dtype,
+                         device=dev)
+        return torch.cat([rows, pad])[inv]
+
+    def scalar(x):
+        return torch.as_tensor(x, dtype=torch.int32).to(
+            dev, copy=True).reshape(())
+
+    return MapState(
+        table=vhash.HashTable(keys=plane(keys_r, vhash.EMPTY_KEY,
+                                         torch.int32)),
+        tsdf=plane(tsdf_r, 1, tsdf_r.dtype),
+        weight=plane(weight_r, 0, weight_r.dtype),
+        color=plane(color_r, 0, torch.int32),
+        alloc_frame=plane(af_r, 0, torch.int32),
+        last_seen=plane(ls_r, 0, torch.int32),
+        frame=scalar(frame),
+        decayed_blocks=scalar(decayed_blocks),
+        overflow=scalar(overflow),
+    )
+
 # ---------------------------------------------------------------------------
 # Voxel sampling (the renderers' and refinement's point lookups) — SoA
 # ---------------------------------------------------------------------------

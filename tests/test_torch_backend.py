@@ -318,6 +318,11 @@ def test_local_ba_matches_jax(revisit):
 
 
 def test_cull_redundant_matches_jax(revisit):
+    """The same cull as the JAX package, including the defect the port
+    inherits from its `cull_redundant` (denseslam_tpu/models/backend.py
+    :439-442): a near candidate sets best_frac to its own, lower, share,
+    so a later keyframe co-observed at least as much takes the cull from
+    it. Matched, not fixed: equality is the check."""
     got, want = revisit["cull"]
     pb, jb = revisit["backends"]
     if want:           # the window's evidence is dropped after a cull

@@ -203,7 +203,8 @@ def test_finish_and_state_round_trip(runs):
     fresh = convert.system_state_from_numpy(
         state, psys.SLAMSystem(psystem.cfg, device="cpu"))
     back = convert.system_state_to_numpy(fresh, key)
-    for a, b in zip(back["slam"]["map"], state["slam"]["map"]):
+    [sub_b], [sub_s] = back["slam"]["submaps"], state["slam"]["submaps"]
+    for a, b in zip(sub_b["map"], sub_s["map"]):
         np.testing.assert_array_equal(a, b)
     assert back["num_corrections"] == state["num_corrections"]
     assert ([k["frame_id"] for k in back["backend"]["keyframes"]]
@@ -211,14 +212,6 @@ def test_finish_and_state_round_trip(runs):
 
 
 UNPORTED = {
-    "new_submap_threshold": lambda c: pd.DenseSLAM(dataclasses.replace(
-        c, pipeline=dataclasses.replace(c.pipeline,
-                                        new_submap_threshold=0.5)),
-        device="cpu"),
-    "map_memory_budget_mb": lambda c: pd.DenseSLAM(dataclasses.replace(
-        c, pipeline=dataclasses.replace(c.pipeline,
-                                        map_memory_budget_mb=100.0)),
-        device="cpu"),
     "mesh": lambda c: pd.DenseSLAM(c, mesh=object(), device="cpu"),
     "mono": lambda c: pd.DenseSLAM(dataclasses.replace(
         c, pipeline=dataclasses.replace(c.pipeline, sensor="mono")),
