@@ -117,7 +117,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    >= 99.9% of pixels; then a spilled submap through each
                    spill (sync compacted, async, delta) and a restore, bit
                    for bit with the device copy before it.
- 14. frame         the per-frame path: the drive's first 128 frames one at
+ 14. frame         the per-frame path: the drive's first 64 frames one at
                    a time through SLAMSystem.process_frame, ba_every=4,
                    loop_every=2, the RANSAC budget pinned at
                    FRAME_PD_SCALE, then again with the backend off; launch
@@ -138,7 +138,55 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    ICP_FINAL_FRAC of the distance travelled, B2 once per
                    fused keyframe, and one `track` call rerun on the CPU
                    from the card's model within 1 mm / 1e-4 rad.
- 16. throughput    frames/s of stereo + fusion, of the fusion tail alone
+ 16. mesh          (after system_cpu_reference) DenseSLAM.save_mesh of the
+                   system phase's final map (1<<17 slots) into
+                   build/mesh_system.obj: >= 1e4 triangles, edges under 2
+                   voxels, the median distance of the vertices to the loop
+                   scene's spheres and plane under 2 voxels (p95 printed);
+                   the same map meshed on the CPU: the same triangles
+                   within 1e-5 m; seconds, blocks, OBJ bytes, and the
+                   card's extraction at 512 and 4096 blocks a chunk.
+ 17. mono          the mono loop drive of scripts/long_drive_eval.py
+                   --sensor mono --frames 300 (384 frames, 6 chunks of 64,
+                   the depth-sensor model: photometric noise 2.0, gain
+                   0.15, 1% depth noise, 5% holes; decay 30, window 60)
+                   through SLAMSystem.process_chunk and finish(),
+                   ba_every=4, loop_every=2, the depth evaluation every 8th
+                   fused keyframe (at the estimated pose, at the true pose,
+                   and of the supplied depth); launch counts read around
+                   exactly this run: B1 once per fused keyframe, twice per
+                   re-fused and once per purged one, no SGM kernel;
+                   tracking >= 95%, >= 1 verified loop, >= 1 re-fused
+                   keyframe, no overflow but the hash's probe failures
+                   (the reference's, counted apart), depth_input d1.25 >=
+                   0.99, depth_gtpose d1.25 >= 0.5 and coverage >= 0.3;
+                   the median ATE of this drive and 4 more with other
+                   8-point draws <= MONO_ATE_M; frames/s from chunk 2 on.
+ 18. mono_cpu_reference  frames 0-4 of that drive through
+                   process_sequence_mono on the card and on the CPU with
+                   the same draws: VO poses within 1 mm / 1e-4 rad; the
+                   CPU fusing at the card's poses gives the card's keys,
+                   weights and colours, tsdf within 1e-6.
+ 19. mono_frame    the drive's first 32 frames through
+                   DenseSLAM.process_frame with the supplied depth, no
+                   backend (B1 once per fused keyframe): poses within
+                   1e-5 m of process_sequence_mono's over the same frames
+                   and draws.
+ 20. orb           detect_pyramid on a street frame at 1226x370 on the
+                   card and the CPU (keypoints and validity equal, >=
+                   99.9% of descriptor bits), hamming_matrix and match
+                   equal on both devices, the detection's time; then the
+                   stereo phase's 64 frames through process_sequence with
+                   feature_type="orb": launches as in `stereo`, tracking
+                   >= 95%, the final position within 3% of the distance.
+ 21. bilinear      4 frames of the slice fused with bilinear_fusion=True
+                   on the card and the CPU: B1 launched 0 times (the tile
+                   sampler is bypassed), keys and weights equal, tsdf
+                   within 1e-6.
+ 22. tracks        triangulate_tracks on 4096 tracks x 8 views made from a
+                   seed at 1226x370: card against CPU within 1e-4, the
+                   card's ms.
+ 23. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
@@ -189,7 +237,10 @@ SYSTEM_CHUNK = 64
 EVAL_EVERY = 25          # scripts/long_drive_eval.py --depth-eval-every
 SUBMAP_THRESHOLD = 0.3   # scripts/long_drive_eval.py --submap-threshold
 SUBMAP_BUDGET_MB = 400.0  # and --map-budget-mb of the submaps record
-FRAME_FRAMES = 128       # the per-frame phase: the drive's first 2 chunks
+# the per-frame phase: the drive's first chunk (it ran two until the mono,
+# ORB and mesh phases came; cut to keep the script within half its time
+# limit)
+FRAME_FRAMES = 64
 FRAME_WARMUP = 16        # frames/s counts the frames after these
 # the live-PD window after the drive: FRAME_WINDOW_WARM frames, then
 # FRAME_WINDOW under the profiler (4 keyframes: one local BA and two loop
@@ -202,7 +253,7 @@ ICP_FRAMES = 16
 # about the mean the live PD controller held on the card (PERF.md
 # section 6)
 FRAME_PD_SCALE = 0.45
-# the frame phase's ATE bounds over the 128 frames, set from the live-PD
+# the frame phase's ATE bounds, set over 128 frames from the live-PD
 # readings before the first pinned run: the VO and fusion alone, and with
 # the backend on. The reference's local BA, started at the ground truth
 # on this drive's first keyframes, pulls them 10-12 cm off it, and the
@@ -216,6 +267,31 @@ FRAME_ATE_M = 0.3
 # the step and ends off by about the distance travelled
 ICP_STEP_FRAC = 0.5
 ICP_FINAL_FRAC = 0.25
+# the mono loop drive of results_mono.json: scripts/long_drive_eval.py
+# --sensor mono --frames 300 (its loop closes on frame 80 at frame 380),
+# 40 closure frames extended to 6 chunks of 64, the depth evaluation at
+# every 8th fused keyframe
+MONO_LOOP_FRAMES = 300
+MONO_FRAMES = 384
+MONO_EVAL_EVERY = 8
+MONO_FRAME_FRAMES = 32   # the mono_frame phase: the drive's first frames
+# the mono phase's gates, set before its first run on the card (PERF.md
+# section 6): the JAX package's TPU record of this drive is ATE 1.76 m,
+# depth_gtpose d1.25 0.616, coverage 0.37
+MONO_ATE_M = 2.5
+# ... held by the median ATE of the drive on MONO_ATE_DRAWS sets of
+# 8-point draws (the system's generator seeds 0-4): one drive's ATE is
+# decided by which of the hypotheses tied at the top count win, which
+# last bits move (ROADMAP.md Queue C), and it moves by more than the
+# margin between the JAX record and this bound from one draw set to the
+# next (PERF.md section 6)
+MONO_ATE_DRAWS = 5
+MONO_INPUT_D1 = 0.99
+MONO_GTPOSE_D1 = 0.5
+MONO_GTPOSE_COVERAGE = 0.3
+# the tracks phase: tracks x views triangulated from a seed
+TRACKS = 4096
+TRACK_VIEWS = 8
 
 
 def emit(obj) -> None:
@@ -1315,8 +1391,11 @@ class TickCapture:
 
 
 def eval_floor_m(cfg) -> float:
-    """The depth metrics' near limit: the rig's resolvable depth, as
-    scripts/long_drive_eval.py:270-275 sets it for stereo."""
+    """The depth metrics' near limit, as scripts/long_drive_eval.py:270-275
+    sets it: the rig's resolvable depth for stereo, 0.5 m for a supplied
+    depth (rgbd, mono)."""
+    if cfg.pipeline.sensor in ("rgbd", "mono"):
+        return 0.5
     return max(0.5, cfg.rig.intr.fx * cfg.rig.baseline_m
                / (cfg.stereo.max_disparity - 1))
 
@@ -1336,9 +1415,10 @@ def eval_renders(cfg, system, frames, base, lefts, rights, gt, scene, dev,
     """scripts/long_drive_eval.py:421-490 on one chunk: for each eval
     frame t, the map rendered by `render` (a pose -> Raycast) at t's
     estimated pose, scored against the ground-truth depth at that pose
-    (`depth`) and at the true pose (`depth_gtpose`), and the frame's SGM
-    depth against the latter (`depth_input`). Returns the metrics of each
-    frame."""
+    (`depth`) and at the true pose (`depth_gtpose`), and the frame's input
+    depth against the latter (`depth_input`: the SGM depth of the pair, or
+    for rgbd and mono the supplied depth, which `rights` then holds).
+    Returns the metrics of each frame."""
     from denseslam_tpu_torch.eval import depth_metrics
     from denseslam_tpu_torch.ops import stereo
 
@@ -1349,10 +1429,13 @@ def eval_renders(cfg, system, frames, base, lefts, rights, gt, scene, dev,
                      if f == t)
         rc = render(T_est).depth.cpu().numpy()
         gtd = gt_depth(cfg, gt[t], scene, dev)
-        d_in, v_in = stereo.compute_depth(lefts[t - base], rights[t - base],
-                                          cfg.rig, cfg.stereo,
-                                          max_depth_m=hi)
-        d_in = torch.where(v_in, d_in, 0.0).cpu().numpy()
+        if cfg.pipeline.sensor in ("rgbd", "mono"):
+            d_in = rights[t - base].cpu().numpy()
+        else:
+            d_in, v_in = stereo.compute_depth(
+                lefts[t - base], rights[t - base], cfg.rig, cfg.stereo,
+                max_depth_m=hi)
+            d_in = torch.where(v_in, d_in, 0.0).cpu().numpy()
         out.append(dict(
             depth=depth_metrics.depth_metrics(
                 rc, gt_depth(cfg, T_est, scene, dev), min_depth=lo,
@@ -1372,25 +1455,28 @@ def mean_metrics(per_frame, key):
 
 
 def drive_system(cfg, dev, system, gt, scene, render, cap=None,
-                 after_eval=None):
-    """The flagship drive through `system`: 576 frames in 9 chunks of 64,
-    each rendered on the card (system_chunk, noise from a card generator
+                 after_eval=None, frames: int = SYSTEM_FRAMES,
+                 eval_every: int = EVAL_EVERY, make_chunk=None):
+    """A loop drive through `system`: `frames` frames (the flagship
+    drive's 576 by default) in chunks of 64, each made on the card by
+    `make_chunk` (system_chunk by default; noise from a card generator
     seeded 2) and run through SLAMSystem.process_chunk, the drive's depth
-    evaluation every 25th fused keyframe through `render` (eval_renders),
-    then `after_eval()` after each chunk that had eval frames, and
-    finish(). Frames/s counts process_chunk's time from chunk 2 on, as
-    scripts/long_drive_eval.py:296-298 does, less the copies of a tick
-    capture `cap`. Returns the tracking flags, the eval metrics and
+    evaluation every `eval_every`-th fused keyframe through `render`
+    (eval_renders), then `after_eval()` after each chunk that had eval
+    frames, and finish(). Frames/s counts process_chunk's time from chunk
+    2 on, as scripts/long_drive_eval.py:296-298 does, less the copies of
+    a tick capture `cap`. Returns the tracking flags, the eval metrics and
     frames, and the seconds."""
+    make_chunk = make_chunk or system_chunk
     gen = torch.Generator(device=dev).manual_seed(2)
     ok_frames, proc_s, proc_frames, synth_s = [], 0.0, 0, 0.0
     evals, eval_ids, eval_s, kf_seen = [], [], 0.0, 0
     every = cfg.pipeline.keyframe_every
     t_all = time.perf_counter()
-    for base in range(0, SYSTEM_FRAMES, SYSTEM_CHUNK):
+    for base in range(0, frames, SYSTEM_CHUNK):
         t0 = time.perf_counter()
-        lefts, rights = system_chunk(cfg, gt, scene, base,
-                                     base + SYSTEM_CHUNK, gen, dev)
+        lefts, rights = make_chunk(cfg, gt, scene, base,
+                                   base + SYSTEM_CHUNK, gen, dev)
         torch.cuda.synchronize()
         synth_s += time.perf_counter() - t0
         cap_s = cap.seconds if cap is not None else 0.0
@@ -1404,20 +1490,20 @@ def drive_system(cfg, dev, system, gt, scene, render, cap=None,
             proc_frames += SYSTEM_CHUNK
         okf = out["tracking_ok_frames"]
         ok_frames.append(okf)
-        # every EVAL_EVERY-th keyframe-slot frame that tracked, as
+        # every eval_every-th keyframe-slot frame that tracked, as
         # scripts/long_drive_eval.py:373-378 picks them
-        frames = []
+        picked = []
         for i in range(SYSTEM_CHUNK):
             if (base + i) % every == 0 and okf[i]:
-                if kf_seen % EVAL_EVERY == 0:
-                    frames.append(base + i)
+                if kf_seen % eval_every == 0:
+                    picked.append(base + i)
                 kf_seen += 1
         t0 = time.perf_counter()
-        evals += eval_renders(cfg, system, frames, base, lefts, rights, gt,
+        evals += eval_renders(cfg, system, picked, base, lefts, rights, gt,
                               scene, dev, render)
-        if frames and after_eval is not None:
+        if picked and after_eval is not None:
             after_eval()
-        eval_ids += frames
+        eval_ids += picked
         eval_s += time.perf_counter() - t0
     system.finish()
     torch.cuda.synchronize()
@@ -1425,6 +1511,21 @@ def drive_system(cfg, dev, system, gt, scene, render, cap=None,
                 proc_s=proc_s, proc_frames=proc_frames,
                 wall_s=time.perf_counter() - t_all, synth_s=synth_s,
                 eval_s=eval_s)
+
+
+def count_purges(system):
+    """Wrap the system's purge_keyframes to count the DB entries it drops;
+    returns the one-element list that holds the count."""
+    purge = system.slam.purge_keyframes
+    purged = [0]
+
+    def counted_purge(ids):
+        before = int(system.slam.db.valid.sum())
+        purge(ids)
+        purged[0] += before - int(system.slam.db.valid.sum())
+
+    system.slam.purge_keyframes = counted_purge
+    return purged
 
 
 def run_system(cfg, dev, gpu):
@@ -1444,15 +1545,7 @@ def run_system(cfg, dev, gpu):
     system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
                         verify_draws=verify_draws(k_verify))
     cap = TickCapture(system)
-    purge = system.slam.purge_keyframes
-    purged = [0]
-
-    def counted_purge(ids):
-        before = int(system.slam.db.valid.sum())
-        purge(ids)
-        purged[0] += before - int(system.slam.db.valid.sum())
-
-    system.slam.purge_keyframes = counted_purge
+    purged = count_purges(system)
     kernels.reset_counts()
     d = drive_system(cfg, dev, system, gt, scene, system.slam.raycast_view,
                      cap=cap)
@@ -1960,15 +2053,7 @@ def drive_frames(cfg, dev, chunks, ba_every: int, loop_every: int):
     pd = system.pd
     pd_range = (pd.lo, pd.hi)
     pd.lo = pd.hi = pd.scale = FRAME_PD_SCALE
-    purge = system.slam.purge_keyframes
-    purged = [0]
-
-    def counted_purge(ids):
-        before = int(system.slam.db.valid.sum())
-        purge(ids)
-        purged[0] += before - int(system.slam.db.valid.sum())
-
-    system.slam.purge_keyframes = counted_purge
+    purged = count_purges(system)
     local_ba = system.backend.local_ba
     first_ba = {}
 
@@ -2063,8 +2148,8 @@ def live_window(run, lefts, rights, out=None):
 
 
 def run_frame(cfg, dev, gpu, out=None):
-    """The per-frame path: the flagship drive's first 128 frames (its
-    first two chunks, the same frames and noise) one at a time through
+    """The per-frame path: the flagship drive's first 64 frames (its
+    first chunk, the same frames and noise) one at a time through
     SLAMSystem.process_frame at 1226x370, ba_every=4, loop_every=2, the
     RANSAC budget pinned at FRAME_PD_SCALE; then the same frames with the
     backend off (ba_every=0, loop_every=0): the VO and fusion alone; then,
@@ -2189,6 +2274,531 @@ def run_icp(cfg, dev, gpu):
     if not all(gates.values()):
         raise AssertionError(f"icp gates failed: {gates}")
     return dict(launches=launches)
+
+
+def mono_setup():
+    """The mono drive's ground truth (make_loop_trajectory(300,
+    radius_m=18, closure_frames=84)) and scene (loop_scene), as
+    scripts/long_drive_eval.py:187-189 makes them for --frames 300."""
+    from denseslam_tpu_torch.io import synthetic
+    gt = synthetic.make_loop_trajectory(
+        MONO_LOOP_FRAMES, radius_m=18.0,
+        closure_frames=MONO_FRAMES - MONO_LOOP_FRAMES)
+    return gt, synthetic.loop_scene(gt)
+
+
+def mono_chunk(cfg, gt, scene, lo: int, hi: int, gen, dev):
+    """Frames [lo, hi) of the mono drive as (grays, supplied depths)
+    rendered on the card, under the depth-sensor model of
+    scripts/long_drive_eval.py:240-254 (gain 1 + 0.15 sin(2 pi t / 150),
+    photometric noise 2.0, 1% relative depth noise, 5% holes, no depth
+    past max_depth_m), the noise drawn from the card's generator `gen`."""
+    from denseslam_tpu_torch.io import synthetic
+    grays, depths = synthetic.render_trajectory(gt[lo:hi], cfg.rig.intr,
+                                                scene, device=dev)
+    t = torch.arange(lo, hi, dtype=torch.float32, device=dev)
+    gain = (1.0 + 0.15 * torch.sin(2 * math.pi * t / 150.0))[:, None, None]
+    photo = torch.randn(grays.shape, generator=gen, device=dev)
+    rel = torch.randn(depths.shape, generator=gen, device=dev)
+    holes = torch.rand(depths.shape, generator=gen, device=dev) < 0.05
+    drop = holes | (depths <= 0) | (depths > cfg.tsdf.max_depth_m)
+    return (torch.clamp(grays * gain + 2.0 * photo, 0, 255),
+            torch.where(drop, 0.0, depths * (1.0 + 0.01 * rel)))
+
+
+def mono_frames(cfg, dev, n: int, seed: int):
+    """The mono drive's first n frames, as its first chunk made them (the
+    same generator), the ground truth, and n frames of 8-point draws from
+    a CPU generator seeded `seed`, on the card."""
+    from denseslam_tpu_torch.ops import ransac
+    gt, scene = mono_setup()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    grays, depths = mono_chunk(cfg, gt, scene, 0, SYSTEM_CHUNK, gen, dev)
+    cpu_gen = torch.Generator().manual_seed(seed)
+    draws = torch.stack([ransac.draw_hypotheses(cfg.frontend.ransac_iters,
+                                                cpu_gen, size=8)
+                         for _ in range(n)])
+    torch.cuda.synchronize()
+    return dict(grays=grays[:n].clone(), depths=depths[:n].clone(),
+                draws=draws.to(dev), poses=gt[:n],
+                fids=torch.arange(n, dtype=torch.int32, device=dev))
+
+
+def drive_mono(cfg, fr):
+    """process_sequence_mono over all frames of `fr` in one call, from a
+    fresh state on their device. Returns (map, stats)."""
+    from denseslam_tpu_torch.models import dense_slam, frontend
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    d = fr["grays"].device
+    st = frontend.init_frontend(cfg, device=d)
+    m = tsdf_ops.make_map(cfg.tsdf, device=d)
+    db = dense_slam.make_fusion_db(cfg, device=d)
+    _, m, _, stats = dense_slam.process_sequence_mono(
+        st, m, db, fr["grays"], fr["depths"], fr["fids"], cfg,
+        draws=fr["draws"])
+    return m, stats
+
+
+def count_insert_failures(m_ops):
+    """Wrap tsdf.allocate_keys to count, over every allocation (fusion and
+    correction replays), the keys the hash could not insert within its
+    probe length and the visible blocks dropped past max_visible_blocks,
+    and to keep the most blocks the table held; returns the dict that
+    holds the counts and the function to unwrap."""
+    orig = m_ops.allocate_keys
+    counts = dict(insert_failed=0, visible_dropped=0, peak_blocks=0)
+
+    def allocate_keys(m, uniq, umask, total, cfg):
+        m, slots, live = orig(m, uniq, umask, total, cfg)
+        counts["insert_failed"] += int((umask & ~live).sum())
+        counts["visible_dropped"] += max(int(total) - cfg.max_visible_blocks,
+                                         0)
+        counts["peak_blocks"] = max(counts["peak_blocks"],
+                                    int(m.table.valid.sum()))
+        return m, slots, live
+
+    m_ops.allocate_keys = allocate_keys
+    return counts, lambda: setattr(m_ops, "allocate_keys", orig)
+
+
+def run_mono(cfg, dev, gpu):
+    """The monocular system: the mono loop drive of
+    scripts/long_drive_eval.py --sensor mono (384 frames in 6 chunks of
+    64, 8-point VO with the ground-plane scale, fusion of the supplied
+    depth) through SLAMSystem.process_chunk and finish(), ba_every=4,
+    loop_every=2, with the depth evaluation every 8th fused keyframe (the
+    map at the estimated and at the true pose, and the supplied depth);
+    the launch counts set to 0 just before and read just after: B1 once
+    per fused keyframe, twice per re-fused and once per purged one, no SGM
+    kernel. The map's overflow is counted by source: the hash's probe
+    failures apart, none other allowed. The ATE gate holds the median of
+    this drive's and MONO_ATE_DRAWS - 1 more drives' (other 8-point
+    draws, no eval). Frames/s from chunk 2 on, the eval kept out of it."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.eval import traj_metrics
+    from denseslam_tpu_torch.models.system import SLAMSystem
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    gt, scene = mono_setup()
+    system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
+                        verify_draws=verify_draws(
+                            max(64, cfg.frontend.ransac_iters // 2)))
+    purged = count_purges(system)
+    sources, unwrap = count_insert_failures(tsdf_ops)
+    kernels.reset_counts()
+    try:
+        d = drive_system(cfg, dev, system, gt, scene,
+                         system.slam.raycast_view, frames=MONO_FRAMES,
+                         eval_every=MONO_EVAL_EVERY, make_chunk=mono_chunk)
+    finally:
+        unwrap()
+    launches = dict(kernels.launch_counts)
+
+    be = system.backend
+    fused = be.num_keyframes + system.num_culled
+    refused = system.num_corrections
+    want = dict(tile_sample=fused + 2 * refused + purged[0],
+                tile_sample_rgb=0, sgm_path=0, sgm_final=0)
+    if fused == 0 or launches != want:
+        raise AssertionError(f"launches {launches}, want {want} ({fused} "
+                             f"fused, {refused} re-fused, {purged[0]} "
+                             "purged)")
+    evals = d["evals"]
+    depth_q = {k: mean_metrics(evals, k)
+               for k in ("depth", "depth_gtpose", "depth_input")}
+    ok = np.concatenate(d["ok_frames"])
+    track = float(ok[1:].mean())
+    est = [T for _, T in system.trajectory()]
+    if len(est) != MONO_FRAMES or not np.isfinite(np.stack(est)).all():
+        raise AssertionError("trajectory has the wrong length or "
+                             "non-finite poses")
+    ate = traj_metrics.ate_rmse(est, list(gt))
+    kitti = traj_metrics.kitti_sequence_errors(est, list(gt))
+    overflow = int(system.slam.submaps.active.overflow)
+    ates = [ate] + [mono_ate(cfg, dev, gt, scene, seed)
+                    for seed in range(1, MONO_ATE_DRAWS)]
+    emit(dict(phase="mono", frames=MONO_FRAMES, chunk=SYSTEM_CHUNK,
+              fused=fused, refused=refused, purged=purged[0],
+              launches=launches, overflow=overflow,
+              overflow_sources=sources,
+              blocks=int(tsdf_ops.num_allocated_blocks(
+                  system.slam.submaps.active)),
+              tracking_ok_share=track,
+              loops=system.num_loops, corrections=refused,
+              culled=system.num_culled, relocs=system.num_relocs,
+              keyframes=be.num_keyframes, ba_rejects=be.ba_rejects,
+              pg_rejects=be.pg_rejects, ate_rmse_m=ate,
+              ate_by_draws_m=ates, ate_median_m=float(np.median(ates)),
+              end_error_m=float(np.linalg.norm(est[-1][:3, 3]
+                                               - gt[-1][:3, 3])),
+              kitti_t_err_pct=kitti["kitti_t_err_pct"],
+              kitti_r_err_deg_per_m=kitti["kitti_r_err_deg_per_m"],
+              loops_accepted=[lg for lg in be.loop_log
+                              if lg["accepted"] is not None],
+              fps=d["proc_frames"] / d["proc_s"],
+              fps_frames=d["proc_frames"], process_s=d["proc_s"],
+              wall_s=d["wall_s"], synth_s=d["synth_s"], eval_s=d["eval_s"],
+              eval_frames=d["eval_ids"], **depth_q,
+              phase_s={**system.phase_s, **be.phase_s},
+              memory_mb=system.memory_bytes() / 1e6, gpu=gpu))
+    # the hash's probe failures are the reference's (ROADMAP.md Queue C:
+    # the same table state and keys through the JAX package's
+    # insert_keys fail alike); every other source of overflow must be 0
+    gates = dict(tracking=track >= 0.95, loop=system.num_loops >= 1,
+                 refused=refused >= 1,
+                 overflow=overflow == sources["insert_failed"]
+                 and sources["visible_dropped"] == 0,
+                 ate=float(np.median(ates)) <= MONO_ATE_M,
+                 input_d1_25=depth_q["depth_input"]["d1_25"]
+                 >= MONO_INPUT_D1,
+                 gtpose_d1_25=depth_q["depth_gtpose"]["d1_25"]
+                 >= MONO_GTPOSE_D1,
+                 gtpose_coverage=depth_q["depth_gtpose"]["coverage"]
+                 >= MONO_GTPOSE_COVERAGE)
+    if not all(gates.values()):
+        raise AssertionError(f"mono gates failed: {gates}")
+    return dict(launches=launches)
+
+
+def mono_ate(cfg, dev, gt, scene, seed: int) -> float:
+    """The mono drive again (the same frames and noise, no eval) with the
+    8-point draws of the system's generator seeded `seed`: its ATE."""
+    from denseslam_tpu_torch.eval import traj_metrics
+    from denseslam_tpu_torch.models.system import SLAMSystem
+
+    system = SLAMSystem(cfg, seed=seed, ba_every=4, loop_every=2,
+                        device=dev, verify_draws=verify_draws(
+                            max(64, cfg.frontend.ransac_iters // 2)))
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for base in range(0, MONO_FRAMES, SYSTEM_CHUNK):
+        system.process_chunk(*mono_chunk(cfg, gt, scene, base,
+                                         base + SYSTEM_CHUNK, gen, dev))
+    system.finish()
+    est = [T for _, T in system.trajectory()]
+    return traj_metrics.ate_rmse(est, list(gt))
+
+
+def check_mono_against_cpu(cfg, dev):
+    """Frames 0-4 of the mono drive through process_sequence_mono on the
+    card and on the CPU with the same draws: the VO poses agree, and the
+    CPU fusing the card's keyframes at the card's poses rebuilds the
+    card's map (keys, weights, colours equal, tsdf within 1e-6)."""
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    cpu = torch.device("cpu")
+    fr = mono_frames(cfg, dev, N_CPU_FRAMES, seed=3)
+    mg, sg = drive_mono(cfg, fr)
+    fr_cpu = {k: (v.to(cpu) if isinstance(v, torch.Tensor) else v)
+              for k, v in fr.items()}
+    t0 = time.perf_counter()
+    _, sc = drive_mono(cfg, fr_cpu)
+    cpu_s = time.perf_counter() - t0
+    t_err, r_err = pose_errors(sg["T_wc"], sc["T_wc"])
+    if not torch.equal(sg["fused"].cpu(), sc["fused"]):
+        raise AssertionError("card and CPU fused different keyframes")
+    if not torch.equal(sg["num_inliers"].cpu(), sc["num_inliers"]):
+        raise AssertionError("card and CPU counted different inliers")
+
+    mc = tsdf_ops.make_map(cfg.tsdf, device=cpu)
+    db = dense_slam.make_fusion_db(cfg, device=cpu)
+    for i in torch.nonzero(sc["fused"]).flatten().tolist():
+        mc, db = dense_slam.fuse_keyframe(
+            mc, db, fr_cpu["depths"][i], fr_cpu["grays"][i],
+            sg["T_wc"][i].cpu(), i, cfg)
+    if not torch.equal(mg.table.keys.cpu(), mc.table.keys):
+        raise AssertionError("hash tables differ between card and CPU")
+    for name in ("weight", "color"):
+        if not torch.equal(getattr(mg, name).cpu(), getattr(mc, name)):
+            raise AssertionError(f"{name} differs between card and CPU")
+    tg, tc = mg.tsdf.cpu().float(), mc.tsdf.float()
+    tsdf_err = float((tg - tc).abs().max())
+    if tsdf_err > 1e-6:
+        raise AssertionError(f"tsdf card vs CPU: {tsdf_err}")
+    emit(dict(phase="mono_cpu_reference", frames=N_CPU_FRAMES,
+              fused=int(sc["fused"].sum()), vo_pos_err_m=t_err,
+              vo_rot_err_rad=r_err,
+              inliers=sg["num_inliers"].cpu().tolist(), tables_equal=True,
+              weights_equal=True, colours_equal=True,
+              tsdf_max_abs_err=tsdf_err,
+              tsdf_frac_differ=float((tg != tc).float().mean()),
+              cpu_s=cpu_s))
+
+
+def run_mono_frame(cfg, dev, gpu):
+    """The mono drive's first 32 frames one at a time through
+    DenseSLAM.process_frame (the CLI's default path) with the supplied
+    depth and the frames' draws, no backend, with the launch counts set
+    to 0 just before and read just after (B1 once per fused keyframe);
+    then process_sequence_mono over the same frames and draws: every pose
+    within 1e-5 m and 1e-5 rad of it, the same keyframes fused."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+
+    fr = mono_frames(cfg, dev, MONO_FRAME_FRAMES, seed=4)
+    slam = DenseSLAM(cfg, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    outs = [slam.process_frame(fr["grays"][i], depth=fr["depths"][i],
+                               draws=fr["draws"][i])
+            for i in range(MONO_FRAME_FRAMES)]
+    frame_s = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    fused = [o["fused"] for o in outs]
+    want = dict(tile_sample=sum(fused), tile_sample_rgb=0, sgm_path=0,
+                sgm_final=0)
+    if not any(fused) or launches != want:
+        raise AssertionError(f"launches {launches}, want {want}")
+    _, stats = drive_mono(cfg, fr)
+    if fused != stats["fused"].cpu().tolist():
+        raise AssertionError("per-frame and chunk paths fused different "
+                             "keyframes")
+    est = torch.as_tensor(np.stack([o["T_wc"] for o in outs]))
+    seq = stats["T_wc"].cpu()
+    t_err = float((est[:, :3, 3] - seq[:, :3, 3]).norm(dim=-1).max())
+    r_err = float((est[:, :3, :3] - seq[:, :3, :3]).abs().max())
+    track = float(np.mean([o["tracking_ok"] for o in outs[1:]]))
+    emit(dict(phase="mono_frame", frames=MONO_FRAME_FRAMES,
+              fused=sum(fused), launches=launches,
+              tracking_ok_share=track, pose_err_m=t_err, rot_err=r_err,
+              fps=MONO_FRAME_FRAMES / frame_s, gpu=gpu))
+    if t_err > 1e-5 or r_err > 1e-5 or track < 0.95:
+        raise AssertionError(f"mono_frame: {t_err} m, {r_err}, tracking "
+                             f"{track}")
+    return dict(launches=launches)
+
+
+def run_orb(cfg, dev, fr, gpu):
+    """The ORB feature stack at 1226x370: detect_pyramid on the stereo
+    phase's first street frame on the card and on the CPU (keypoints and
+    validity equal, >= 99.9% of descriptor bits equal), hamming_matrix
+    and match of the card's descriptors equal on both devices; then the
+    stereo phase's 64 frames through process_sequence with
+    feature_type="orb", with the launch counts set to 0 just before and
+    read just after (per fused keyframe 3 of B3, 1 of the tail, 1 of B1),
+    tracking on >= 95% of frames, the final position within 3% of the
+    distance travelled."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.ops import orb
+
+    ocfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
+        cfg.frontend, feature_type="orb"))
+    fc = ocfg.frontend
+
+    def detect(img):
+        return orb.detect_pyramid(img, fc.max_features, levels=fc.orb_levels,
+                                  thresh=fc.orb_thresh)
+
+    left, right = fr["lefts"][0], fr["rights"][0]
+    fg, fg_r = detect(left), detect(right)
+    t0 = time.perf_counter()
+    f_cpu = detect(left.cpu())
+    cpu_s = time.perf_counter() - t0
+    for name in ("uv", "valid"):
+        if not torch.equal(getattr(fg, name).cpu(), getattr(f_cpu, name)):
+            raise AssertionError(f"ORB {name} differs between card and CPU")
+    shifts = torch.arange(32)
+    bits_g = (fg.desc.cpu()[..., None] >> shifts) & 1
+    bits_c = (f_cpu.desc[..., None] >> shifts) & 1
+    bit_share = float((bits_g == bits_c).float().mean())
+    if bit_share < 0.999:
+        raise AssertionError(f"ORB descriptor bits agree on {bit_share}")
+    ham = orb.hamming_matrix(fg.desc, fg_r.desc)
+    match = orb.match(fg, fg_r)
+    cpu_f = [f._replace(**{k: getattr(f, k).cpu() for k in f._fields})
+             for f in (fg, fg_r)]
+    if not (torch.equal(ham.cpu(), orb.hamming_matrix(cpu_f[0].desc,
+                                                       cpu_f[1].desc))
+            and torch.equal(match.cpu(), orb.match(*cpu_f))):
+        raise AssertionError("hamming_matrix or match differs between "
+                             "card and CPU")
+    detect_ms = cuda_ms(lambda: detect(left), 5)
+
+    kernels.reset_counts()
+    m, stats, secs = drive_stereo(ocfg, fr)
+    launches = dict(kernels.launch_counts)
+    fused = int(stats["fused"].sum())
+    want = dict(tile_sample=fused, tile_sample_rgb=0, sgm_path=3 * fused,
+                sgm_final=fused)
+    if fused == 0 or launches != want:
+        raise AssertionError(f"launches {launches} for {fused} fused "
+                             f"keyframes, want {want}")
+    ok = stats["tracking_ok"].cpu().numpy()
+    track = float(ok[1:].mean())
+    emit(dict(phase="orb", features=int(fg.valid.sum()),
+              matches_left_right=int((match >= 0).sum()),
+              desc_bits_equal_share=bit_share, detect_ms=detect_ms,
+              detect_cpu_s=cpu_s, frames=STEREO_FRAMES, fused=fused,
+              launches=launches, tracking_ok_share=track,
+              inliers_median=float(np.median(
+                  stats["num_inliers"].cpu().numpy()[1:])),
+              overflow=int(m.overflow), seconds=secs, gpu=gpu))
+    if track < 0.95:
+        raise AssertionError(f"ORB tracking held on {track:.3f} of frames")
+    traj = trajectory_gates(stats["T_wc"], fr["poses"])
+    emit(dict(phase="orb_trajectory", **traj))
+    return dict(launches=launches)
+
+
+def surface_distances(v: torch.Tensor, scene) -> torch.Tensor:
+    """Distance of each point (N, 3) to the nearest true surface of a
+    loop scene: its spheres and its ground plane."""
+    c = torch.as_tensor(scene.sphere_centers, device=v.device)
+    r = torch.as_tensor(scene.sphere_radii, device=v.device)
+    d = (v[:, 1] - scene.plane_y).abs()
+    for i in range(c.shape[0]):
+        d = torch.minimum(d, ((v - c[i]).norm(dim=-1) - r[i]).abs())
+    return d
+
+
+def run_mesh(cfg, dev, system, gpu):
+    """DenseSLAM.save_mesh of the system phase's final map (1<<17 slots)
+    into build/mesh_system.obj: >= 1e4 triangles, edges under 2 voxels,
+    the median distance of the vertices to the loop scene's spheres and
+    plane under 2 voxels (the map is stereo depth fused at estimated
+    poses); the same map meshed on the CPU: the same triangles within
+    1e-5 m. Also the card's extraction time at 512 blocks a chunk (the
+    JAX version's) and 4096."""
+    from denseslam_tpu_torch.models.dense_slam import copy_map
+    from denseslam_tpu_torch.ops import meshing
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    slam = system.slam
+    m = slam.submaps.active
+    path = os.path.join(ROOT, "build", "mesh_system.obj")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n = slam.save_mesh(path)
+    save_s = time.perf_counter() - t0
+    extract_s = {}
+    for chunk in (512, 4096):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tris = meshing.extract_mesh(m, cfg.tsdf, chunk=chunk)
+        extract_s[chunk] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tris_c = meshing.extract_mesh(copy_map(m, torch.device("cpu")),
+                                  cfg.tsdf)
+    cpu_s = time.perf_counter() - t0
+    if tris.shape != tris_c.shape or tris.shape[0] != n:
+        raise AssertionError(f"triangles: {n} saved, {tris.shape[0]} card, "
+                             f"{tris_c.shape[0]} CPU")
+    cpu_err = float(np.abs(tris - tris_c).max()) if n else 0.0
+    vsz = cfg.tsdf.voxel_size_m
+    edge = float(np.linalg.norm(tris[:, [1, 2, 0]] - tris, axis=-1).max())
+    _, scene = system_setup(cfg)
+    d = surface_distances(torch.as_tensor(tris.reshape(-1, 3), device=dev),
+                          scene)
+    d = d.cpu().numpy()
+    med, p95 = float(np.median(d)), float(np.quantile(d, 0.95))
+    emit(dict(phase="mesh", triangles=n,
+              blocks=int(tsdf_ops.num_allocated_blocks(m)),
+              obj_bytes=os.path.getsize(path), save_mesh_s=save_s,
+              extract_s_by_chunk=extract_s, cpu_extract_s=cpu_s,
+              cpu_max_abs_err_m=cpu_err, edge_max_m=edge,
+              surface_dist_median_m=med, surface_dist_p95_m=p95, gpu=gpu))
+    gates = dict(triangles=n >= 10_000, cpu=cpu_err <= 1e-5,
+                 edges=edge < 2 * vsz, surface=med < 2 * vsz)
+    if not all(gates.values()):
+        raise AssertionError(f"mesh gates failed: {gates}")
+
+
+def run_bilinear(cfg, dev, run):
+    """4 frames of the slice (their SGM depth, at their poses) fused with
+    bilinear_fusion=True on the card and on the CPU, the launch counts set
+    to 0 just before the card's and read just after: the tile sampler is
+    bypassed (B1 launched 0 times); keys and weights equal, tsdf within
+    1e-6."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+
+    bcfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, bilinear_fusion=True))
+    n = 4
+    maps = []
+    for d in (dev, torch.device("cpu")):
+        m = tsdf_ops.make_map(bcfg.tsdf, device=d)
+        db = dense_slam.make_fusion_db(bcfg, device=d)
+        kernels.reset_counts()
+        m, db = dense_slam.fuse_sequence(
+            m, db, run["depth"][:n].to(d), run["lefts"][:n].to(d),
+            run["T"][:n].to(d), run["fids"][:n].to(d), bcfg)
+        if d == dev:
+            launches = dict(kernels.launch_counts)
+        maps.append(m)
+    mg, mc = maps
+    if any(launches.values()):
+        raise AssertionError(f"bilinear fusion launched {launches}")
+    if not torch.equal(mg.table.keys.cpu(), mc.table.keys):
+        raise AssertionError("hash tables differ between card and CPU")
+    if not torch.equal(mg.weight.cpu(), mc.weight):
+        raise AssertionError("weights differ between card and CPU")
+    tg, tc = mg.tsdf.cpu().float(), mc.tsdf.float()
+    err = float((tg - tc).abs().max())
+    if err > 1e-6:
+        raise AssertionError(f"bilinear tsdf card vs CPU: {err}")
+    emit(dict(phase="bilinear", frames=n, launches=launches,
+              blocks=int(tsdf_ops.num_allocated_blocks(mg)),
+              fused_voxels=int((mg.weight > 0).sum()), tables_equal=True,
+              weights_equal=True, tsdf_max_abs_err=err,
+              tsdf_frac_differ=float((tg != tc).float().mean())))
+    return dict(launches=launches)
+
+
+def run_tracks(cfg, dev, gpu):
+    """triangulate_tracks on TRACKS tracks seen from TRACK_VIEWS poses 0.5 m
+    apart at 1226x370, made from a seed (points 4-40 m ahead, 0.5 px
+    noise, an observation where the point projects into the view): card
+    against CPU, points and RMSEs within 1e-4 (m, px) on the valid
+    tracks, validity equal; the card's time (CUDA events)."""
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.ops import reconstruction as rec
+
+    intr = cfg.rig.intr
+    rng = np.random.default_rng(5)
+    poses = synthetic.make_trajectory(TRACK_VIEWS, step_m=0.5,
+                                      yaw_rate=0.01).astype(np.float64)
+    z = rng.uniform(4.0, 40.0, TRACKS)
+    u = rng.uniform(0, intr.width, TRACKS)
+    v = rng.uniform(0, intr.height, TRACKS)
+    pts = np.stack([(u - intr.cx) / intr.fx * z, (v - intr.cy) / intr.fy * z,
+                    z], -1)
+    uv = np.zeros((TRACKS, TRACK_VIEWS, 2))
+    mask = np.zeros((TRACKS, TRACK_VIEWS), bool)
+    for k in range(TRACK_VIEWS):
+        Ti = np.linalg.inv(poses[k])
+        pc = pts @ Ti[:3, :3].T + Ti[:3, 3]
+        uk = pc[:, 0] / pc[:, 2] * intr.fx + intr.cx
+        vk = pc[:, 1] / pc[:, 2] * intr.fy + intr.cy
+        mask[:, k] = ((pc[:, 2] > 0.5) & (uk >= 0) & (uk < intr.width)
+                      & (vk >= 0) & (vk < intr.height))
+        uv[:, k] = np.stack([uk, vk], -1) + rng.normal(0, 0.5,
+                                                        (TRACKS, 2))
+    host = rec.Tracks(torch.tensor(uv, dtype=torch.float32),
+                      torch.tensor(mask),
+                      torch.tensor(poses, dtype=torch.float32))
+    card = rec.Tracks(*(t.to(dev) for t in host))
+    rg = rec.triangulate_tracks(card, intr)
+    rc = rec.triangulate_tracks(host, intr)
+    ms = cuda_ms(lambda: rec.triangulate_tracks(card, intr), 10)
+    valid = rc.valid
+    if not torch.equal(rg.valid.cpu(), valid):
+        raise AssertionError("track validity differs between card and CPU")
+    p_err = float((rg.points_w.cpu() - rc.points_w)[valid].abs().max())
+    r_err = float((rg.reproj_rmse.cpu() - rc.reproj_rmse)[valid].abs().max())
+    truth = np.linalg.norm(rc.points_w.numpy()[valid.numpy()]
+                           - pts[valid.numpy()], axis=-1)
+    emit(dict(phase="tracks", tracks=TRACKS, views=TRACK_VIEWS,
+              valid=int(valid.sum()), observations=int(mask.sum()),
+              card_cpu_max_abs_err_m=p_err, card_cpu_rmse_err_px=r_err,
+              truth_err_median_m=float(np.median(truth)), ms=ms, gpu=gpu))
+    if p_err > 1e-4 or r_err > 1e-4 or int(valid.sum()) < TRACKS // 2:
+        raise AssertionError(f"tracks: {p_err} m, {r_err} px, "
+                             f"{int(valid.sum())} valid")
 
 
 def profile_tick(cfg, dev, cap, out: str):
@@ -2575,16 +3185,26 @@ def main(argv=None) -> int:
     system = timed("system", run_system, scfg, dev, gpu)
     timed("system_cpu_reference", check_system_against_cpu, scfg,
           system["capture"])
+    timed("mesh", run_mesh, scfg, dev, system["system"], gpu)
     submaps = timed("submaps", run_submaps, scfg, dev, gpu, system["system"])
     timed("submaps_cpu_reference", check_submaps_against_cpu, scfg, dev,
           submaps)
     frame = timed("frame", run_frame, scfg, dev, gpu, args.profile)
     icp = timed("icp", run_icp, rcfg, dev, gpu)
+    mcfg = drive_config("mono")
+    mono = timed("mono", run_mono, mcfg, dev, gpu)
+    timed("mono_cpu_reference", check_mono_against_cpu, mcfg, dev)
+    mono_frame = timed("mono_frame", run_mono_frame, mcfg, dev, gpu)
+    orb = timed("orb", run_orb, scfg, dev, sfr, gpu)
+    bilinear = timed("bilinear", run_bilinear, cfg, dev, run)
+    timed("tracks", run_tracks, scfg, dev, gpu)
     paths = dict(slice=run["launches"], rgbd=rgbd["launches"],
                  stereo=stereo["launches"], system=system["launches"],
                  submaps=submaps["launches"],
                  frame=frame["launches"], frame_vo=frame["vo_launches"],
-                 icp=icp["launches"])
+                 icp=icp["launches"], mono=mono["launches"],
+                 mono_frame=mono_frame["launches"], orb=orb["launches"],
+                 bilinear=bilinear["launches"])
     for rec in recs:
         rec["launches_by_path"] = {k: v[rec["name"]] for k, v in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -1,13 +1,14 @@
 """The dense pipeline (port of part of denseslam_tpu/models/dense_slam.py):
 the fused-keyframe DB, depth post-processing, `fuse_keyframe` /
 `fuse_sequence`, the throughput paths `process_sequence` (stereo VO +
-keyframe-gated SGM + fusion) and `process_sequence_rgbd`, online
-correction (`online_correction`, `online_correction_delta`,
-`purge_culled`), the `SubmapManager` (submaps with estimated global poses,
-host swapping under a memory budget, deferred corrections) and the
-host-side `DenseSLAM`: the per-frame `process_frame` (stereo or RGB-D VO,
-or ICP against a render of the map), the renderers behind `raycast_view`
-and `raycast_composite`, and what the chunk path of models/system.py
+keyframe-gated SGM + fusion), `process_sequence_rgbd` and
+`process_sequence_mono`, online correction (`online_correction`,
+`online_correction_delta`, `purge_culled`), the `SubmapManager` (submaps
+with estimated global poses, host swapping under a memory budget,
+deferred corrections) and the host-side `DenseSLAM`: the per-frame
+`process_frame` (stereo, RGB-D or mono VO, or ICP against a render of
+the map), the renderers behind `raycast_view` and `raycast_composite`,
+the mesh export `save_mesh`, and what the chunk path of models/system.py
 uses.
 
 The JAX package donates map and DB to each step; here both are updated in
@@ -30,6 +31,7 @@ from ..device import resolve_device
 from ..ops import features as feat_ops
 from ..ops import hash as vhash
 from ..ops import icp as icp_ops
+from ..ops import meshing
 from ..ops import posegraph
 from ..ops import ransac
 from ..ops import raycast as rc_ops
@@ -193,14 +195,15 @@ def _virtual_right_features(feats_l: feat_ops.Features,
 
 def _sequence_draws(draws: Optional[torch.Tensor],
                     generator: Optional[torch.Generator], n: int,
-                    cfg: SystemConfig, dev) -> torch.Tensor:
-    """(n, K, 3) RANSAC draws on `dev`: `draws`, or drawn from
-    `generator`, all at once."""
+                    cfg: SystemConfig, dev, size: int = 3) -> torch.Tensor:
+    """(n, K, size) RANSAC draws on `dev` (size 8 for mono): `draws`, or
+    drawn from `generator`, all at once."""
     if draws is None:
         if generator is None:
             raise ValueError("a sequence needs `draws` or a torch.Generator")
         draws = torch.stack([ransac.draw_hypotheses(
-            cfg.frontend.ransac_iters, generator) for _ in range(n)])
+            cfg.frontend.ransac_iters, generator, size=size)
+            for _ in range(n)])
     return draws.to(dev)
 
 
@@ -285,6 +288,39 @@ def process_sequence_rgbd(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
         per_frame.append(_frame_stats(
             vo, is_kf, fe_state,
             _virtual_right_features(fe_state.feats_l, fe_state.disp_l)))
+    return fe_state, m, db, _stack_stats(per_frame)
+
+
+def process_sequence_mono(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
+                          db: FusionDB, grays: torch.Tensor,
+                          depths: torch.Tensor, frame_ids: torch.Tensor,
+                          cfg: SystemConfig,
+                          draws: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None):
+    """Monocular throughput path: per frame `mono_vo_step` (8-point RANSAC
+    and the ground-plane scale; the depth never feeds the estimator), then,
+    on keyframes where tracking holds, `fuse_keyframe` of the SUPPLIED
+    depth. The backend's stereo currency is a virtual disparity sampled
+    from that depth at the feature positions (feats_r). grays / depths
+    (N, H, W), frame_ids (N,) int32; draws (N, K, 8), or drawn from
+    `generator` as `process_sequence_rgbd` does.
+
+    Returns (fe_state, map, db, stats) as `process_sequence` does."""
+    draws = _sequence_draws(draws, generator, grays.shape[0], cfg,
+                            grays.device, size=8)
+    every = cfg.pipeline.keyframe_every
+    per_frame = []
+    for i in range(grays.shape[0]):
+        g, d, fid = grays[i], depths[i], frame_ids[i]
+        fe_state, vo = fe.mono_vo_step(fe_state, g, cfg, raw=draws[i])
+        is_kf = vo.tracking_ok & (torch.remainder(fid, every) == 0)
+        if bool(is_kf):                  # the frame's one host read
+            m, db = fuse_keyframe(m, db, d, g, vo.T_wc, fid, cfg)
+        f_l = fe_state.feats_l
+        per_frame.append(_frame_stats(vo, is_kf, fe_state,
+                                      _virtual_right_features(
+                                          f_l, fe.virtual_disparity(
+                                              f_l, d, cfg))))
     return fe_state, m, db, _stack_stats(per_frame)
 
 
@@ -412,13 +448,10 @@ def _composite_merge(best: rc_ops.Raycast, rc: rc_ops.Raycast,
     )
 
 
-def _check_supported(cfg: SystemConfig, mesh) -> None:
+def _check_supported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "a sharded map is not ported yet (ROADMAP.md Queue A, A10)")
-    if cfg.pipeline.sensor == "mono":
-        raise NotImplementedError(
-            "sensor='mono' is not ported yet (ROADMAP.md Queue A, A8)")
 
 
 def _map_leaves(m: tsdf_ops.MapState) -> List[torch.Tensor]:
@@ -1007,17 +1040,17 @@ class DenseSLAM:
     poses relaxed from their anchor keyframes); `raycast_view` renders the
     active map with the configured renderer (`pipeline.renderer`:
     "splat", the default, else the sphere-traced raycast) and
-    `raycast_composite` every submap under its alignment. On `device`
-    (None = the CUDA card; raises without one). The per-frame RANSAC draws
-    come from `generator`, seeded by `seed`, unless `process_frame` is
-    handed them.
+    `raycast_composite` every submap under its alignment; `save_mesh`
+    writes the active submap's mesh. On `device` (None = the CUDA card;
+    raises without one). The per-frame RANSAC draws come from `generator`,
+    seeded by `seed`, unless `process_frame` is handed them.
 
-    Not ported: a sharded map (ROADMAP.md Queue A, A10) and sensor="mono"
-    (A8); those options raise NotImplementedError."""
+    Not ported: a sharded map (ROADMAP.md Queue A, A10); that option
+    raises NotImplementedError."""
 
     def __init__(self, cfg: SystemConfig, mesh=None, device=None,
                  seed: int = 0):
-        _check_supported(cfg, mesh)
+        _check_supported(mesh)
         if cfg.correction.enabled and cfg.tsdf.storage_dtype == "bfloat16":
             warnings.warn(
                 "online correction replays de-integration against a "
@@ -1054,21 +1087,24 @@ class DenseSLAM:
                       timestamp: Optional[float] = None,
                       pose_override=None, budget_scale: float = 1.0,
                       draws: Optional[torch.Tensor] = None) -> dict:
-        """Process one stereo (or RGB-D) frame: odometry, then on keyframes
-        where tracking holds the depth (the given one, else SGM of the
-        pair), the cross-frame cull when `postprocess.enabled`, and
+        """Process one stereo (RGB-D, mono) frame: odometry, then on
+        keyframes where tracking holds the depth (the given one, else SGM
+        of the pair), the cross-frame cull when `postprocess.enabled`, and
         fusion. Images are (H, W) gray or (H, W, 3) colour tensors on the
         system's device. Returns the frame's telemetry.
 
-        Odometry: `pose_override` (a (4, 4) pose) replaces it; else RGB-D
-        VO (sensor="rgbd") or stereo VO with the PD controller's
-        `budget_scale`, both drawing their RANSAC hypotheses from `draws`
-        (K, 3) or the system's generator; with use_external_odometry=False
-        ICP of the depth against a render of the map at the last fused
-        pose. The JAX version runs SGM on every frame that has a right
-        image; here it runs only where the depth is used (ICP, or a
-        keyframe), which gives the same results. Two values are read back
-        per frame: the odometry's flags, then the pose and block count."""
+        Odometry: `pose_override` (a (4, 4) pose) replaces it; else mono
+        VO (sensor="mono": 8-point RANSAC and the ground-plane scale; a
+        frame given no depth only tracks, and fuses nothing), RGB-D VO
+        (sensor="rgbd") or stereo VO with the PD controller's
+        `budget_scale`, each drawing its RANSAC hypotheses from `draws`
+        ((K, 8) for mono, else (K, 3)) or the system's generator; with
+        use_external_odometry=False ICP of the depth against a render of
+        the map at the last fused pose. The JAX version runs SGM on every
+        frame that has a right image; here it runs only where the depth is
+        used (ICP, or a keyframe), which gives the same results. Two values
+        are read back per frame: the odometry's flags, then the pose and
+        block count."""
         cfg = self.cfg
         p = cfg.pipeline
         if left.dim() == 3:
@@ -1080,11 +1116,15 @@ class DenseSLAM:
             T_wc = _pose_tensor(pose_override, self.device)
             self.fe_state = self.fe_state._replace(T_wc=T_wc)
             tracking_ok, vo_stats = True, {}
-        elif p.use_external_odometry:
+        elif p.sensor == "mono" or p.use_external_odometry:
             if draws is None:
-                draws = ransac.draw_hypotheses(cfg.frontend.ransac_iters,
-                                               self.generator)
-            if p.sensor == "rgbd":
+                draws = ransac.draw_hypotheses(
+                    cfg.frontend.ransac_iters, self.generator,
+                    size=8 if p.sensor == "mono" else 3)
+            if p.sensor == "mono":
+                self.fe_state, vo = fe.mono_vo_step(self.fe_state, left, cfg,
+                                                    raw=draws)
+            elif p.sensor == "rgbd":
                 if depth is None:
                     raise ValueError("rgbd VO needs a depth image")
                 self.fe_state, vo = fe.rgbd_vo_step(self.fe_state, left,
@@ -1474,6 +1514,14 @@ class DenseSLAM:
             submaps=sm.num_local_maps,
             submaps_on_host=sum(1 for i in range(sm.num_local_maps)
                                 if sm.is_on_host(i)))
+
+    def save_mesh(self, path: str) -> int:
+        """Marching-tetrahedra OBJ export of the active submap (the
+        reference's SaveCurrSceneToMesh, ops/meshing.py). Returns the
+        triangle count."""
+        tris = meshing.extract_mesh(self.submaps.active, self.cfg.tsdf)
+        meshing.save_obj(path, tris)
+        return int(tris.shape[0])
 
     @property
     def current_pose(self) -> np.ndarray:

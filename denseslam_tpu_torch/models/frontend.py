@@ -1,7 +1,7 @@
 """Sparse VO frontend as a state machine (port of
 denseslam_tpu/models/frontend.py): the state, `init_frontend`, the stereo
-step `vo_step` and the RGB-D step `rgbd_vo_step`. The mono step is not
-ported (ROADMAP.md Queue A, A8).
+step `vo_step`, the RGB-D step `rgbd_vo_step` and the monocular step
+`mono_vo_step`.
 
 The JAX state carries a PRNG key for the RANSAC draws; here the draws are
 an argument of the step, or come from a `torch.Generator` the caller
@@ -18,9 +18,9 @@ import torch
 from ..config import SystemConfig
 from ..device import resolve_device
 from ..ops import features as feat_ops
-from ..ops import matching, ransac
+from ..ops import matching, mono, ransac
 from ..utils import lie
-from ..utils.numerics import true_div
+from ..utils.numerics import sqrt, true_div
 
 
 class FrontendState(NamedTuple):
@@ -84,12 +84,14 @@ def init_frontend(cfg: SystemConfig, T_init: Optional[torch.Tensor] = None,
     )
 
 
-def _advance(state: FrontendState, q: matching.QuadMatches,
+def _advance(state: FrontendState, uv_prev: torch.Tensor,
+             uv_curr: torch.Tensor, valid: torch.Tensor,
              res: ransac.VOResult, **new) -> Tuple[FrontendState, VOOutput]:
     """The steps' common tail: the RANSAC motion where it holds, else the
     constant-velocity fallback (identity on the first frame); the pose;
     the next state from `new` (feats_l, feats_r, disp_l, disp_r, img_l,
-    img_r, exposure) and the output."""
+    img_r, exposure) and the output, whose flow is the matches
+    uv_prev -> uv_curr where valid."""
     dev = state.T_wc.device
     use_est = state.initialized & res.ok
     T_delta = torch.where(use_est, res.T_delta, state.T_delta_prev)
@@ -104,11 +106,11 @@ def _advance(state: FrontendState, q: matching.QuadMatches,
         T_wc=T_wc,
         T_delta=T_delta,
         num_inliers=res.num_inliers,
-        num_quads=q.valid.to(torch.int32).sum().to(torch.int32),
+        num_quads=valid.to(torch.int32).sum().to(torch.int32),
         tracking_ok=use_est | ~state.initialized,
-        flow_uv_prev=q.uv_lp,
-        flow_uv_curr=q.uv_lc,
-        flow_valid=q.valid & state.initialized,
+        flow_uv_prev=uv_prev,
+        flow_uv_curr=uv_curr,
+        flow_valid=valid & state.initialized,
     )
     return new_state, out
 
@@ -168,9 +170,24 @@ def vo_step(state: FrontendState, left: torch.Tensor, right: torch.Tensor,
                                    q.valid & state.initialized)
         g = torch.clamp(g, 0.7, 1.4)
         exposure = torch.clamp(state.exposure / g, 0.25, 4.0)
-    return _advance(state, q, res, feats_l=f_lc, feats_r=f_rc,
-                    disp_l=disp_lc, disp_r=disp_rc, img_l=left, img_r=right,
-                    exposure=exposure)
+    return _advance(state, q.uv_lp, q.uv_lc, q.valid, res, feats_l=f_lc,
+                    feats_r=f_rc, disp_l=disp_lc, disp_r=disp_rc,
+                    img_l=left, img_r=right, exposure=exposure)
+
+
+def virtual_disparity(feats: feat_ops.Features, depth: torch.Tensor,
+                      cfg: SystemConfig) -> torch.Tensor:
+    """The disparity fx * B / Z each valid feature would have on the rig,
+    Z the depth image's at its nearest pixel; -1 where Z <= 0.1 m."""
+    intr = cfg.rig.intr
+    ui = torch.clamp(torch.round(feats.uv[:, 0]).to(torch.int32), 0,
+                     intr.width - 1)
+    vi = torch.clamp(torch.round(feats.uv[:, 1]).to(torch.int32), 0,
+                     intr.height - 1)
+    z = depth.reshape(-1)[(vi * intr.width + ui).long()]
+    return torch.where(feats.valid & (z > 0.1),
+                       true_div(intr.fx * cfg.rig.baseline_m,
+                                torch.clamp(z, min=0.1)), -1.0)
 
 
 def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
@@ -188,16 +205,7 @@ def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
     f_lc = feat_ops.detect(gray, fc)
     f_lc = feat_ops.bucket(f_lc, intr.width, intr.height, fc)
 
-    # virtual disparity of the current features from the depth image
-    ui = torch.clamp(torch.round(f_lc.uv[:, 0]).to(torch.int32), 0,
-                     intr.width - 1)
-    vi = torch.clamp(torch.round(f_lc.uv[:, 1]).to(torch.int32), 0,
-                     intr.height - 1)
-    z = depth.reshape(-1)[(vi * intr.width + ui).long()]
-    disp_lc = torch.where(f_lc.valid & (z > 0.1),
-                          true_div(intr.fx * cfg.rig.baseline_m,
-                                   torch.clamp(z, min=0.1)),
-                          -1.0)
+    disp_lc = virtual_disparity(f_lc, depth, cfg)
 
     if fc.use_motion_prior_gate:
         trusted = state.initialized & state.prior_ok
@@ -235,6 +243,59 @@ def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
     res = ransac.estimate_stereo_motion(q, cfg.rig, fc, raw=raw,
                                         T_init=state.T_delta_prev,
                                         generator=generator)
-    return _advance(state, q, res, feats_l=f_lc, feats_r=state.feats_r,
-                    disp_l=disp_lc, disp_r=state.disp_r, img_l=gray,
-                    img_r=state.img_r, exposure=state.exposure)
+    return _advance(state, q.uv_lp, q.uv_lc, q.valid, res, feats_l=f_lc,
+                    feats_r=state.feats_r, disp_l=disp_lc,
+                    disp_r=state.disp_r, img_l=gray, img_r=state.img_r,
+                    exposure=state.exposure)
+
+
+def mono_vo_step(state: FrontendState, left: torch.Tensor,
+                 cfg: SystemConfig, raw: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[FrontendState, VOOutput]:
+    """One frame of monocular VO: features of the image, temporal matching
+    against the previous frame's, subpixel refinement of the temporal leg,
+    flow consensus, 8-point RANSAC (`raw` (K, 8) / `generator`: its draws,
+    see ops/mono.py) and the ground-plane metric scale. Where the ground
+    gives no scale, the previous frame's speed is kept (1 on the first
+    motion). The right features and disparities stay as they are.
+
+    Inherited from the JAX package (denseslam_tpu/config.py
+    `refine_cap`): the refinement runs before consensus, on the first
+    refine_cap valid rows, a cap sized for the stereo quads; matches past
+    it keep their detector positions."""
+    fc = cfg.frontend
+    intr = cfg.rig.intr
+    f_lc = feat_ops.detect(left, fc)
+    f_lc = feat_ops.bucket(f_lc, intr.width, intr.height, fc)
+
+    m = matching.match_temporal(f_lc, state.feats_l, fc)      # curr -> prev
+    valid = (m >= 0) & f_lc.valid
+    uv_prev = state.feats_l.uv[torch.clamp(m, min=0).long()]
+    uv_curr = f_lc.uv
+    if fc.subpixel_refine:
+        uv_curr = matching.refine_temporal_subpix(
+            state.img_l, left, uv_prev, uv_curr, valid, fc)
+    if fc.outlier_removal:
+        valid = matching.flow_consensus(
+            uv_curr, uv_curr[:, 0] - uv_prev[:, 0],
+            uv_curr[:, 1] - uv_prev[:, 1], None, valid, k=fc.outlier_knn,
+            tol_flow=fc.outlier_flow_tol_px, tol_disp=fc.outlier_disp_tol_px,
+            min_support=fc.outlier_min_support)
+
+    res = mono.estimate_mono_motion(uv_prev, uv_curr, valid, intr, fc,
+                                    raw=raw, generator=generator)
+    sc = mono.estimate_scale_ground(res.T_delta, uv_prev, uv_curr,
+                                    res.inliers, intr, fc.camera_height_m,
+                                    fc.camera_pitch_rad)
+    t_prev = state.T_delta_prev[:3, 3]
+    prev_speed = sqrt((t_prev * t_prev).sum())
+    scale_fb = torch.where(state.initialized & (prev_speed > 1e-6),
+                           prev_speed, 1.0)
+    T_est = mono.apply_scale(res.T_delta,
+                             torch.where(sc.ok, sc.scale, scale_fb))
+    return _advance(state, uv_prev, uv_curr, valid,
+                    res._replace(T_delta=T_est), feats_l=f_lc,
+                    feats_r=state.feats_r, disp_l=state.disp_l,
+                    disp_r=state.disp_r, img_l=left, img_r=state.img_r,
+                    exposure=state.exposure)

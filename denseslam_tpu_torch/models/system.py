@@ -1,8 +1,9 @@
 """The whole SLAM system (port of denseslam_tpu/models/system.py): the
 dense pipeline, frame by frame (`process_frame`: one frame, and a backend
 tick on every fused keyframe) or a chunk at a time (`process_chunk`: the
-chunk scan, `process_sequence` or `process_sequence_rgbd` for
-sensor="rgbd", then keyframe registration and one backend tick per chunk);
+chunk scan, `process_sequence`, or `process_sequence_rgbd` /
+`process_sequence_mono` for sensor="rgbd" / "mono", then keyframe
+registration and one backend tick per chunk);
 the tick runs loop detection and pose-graph relaxation, local BA and
 keyframe culling, and its optimised poses flow back into the map through
 online correction. Also the PD controller on the RANSAC budget, which the
@@ -26,7 +27,8 @@ import torch
 
 from ..config import SystemConfig
 from .backend import Backend, _feature_row, upload
-from .dense_slam import DenseSLAM, process_sequence, process_sequence_rgbd
+from .dense_slam import (DenseSLAM, process_sequence, process_sequence_mono,
+                         process_sequence_rgbd)
 
 
 class PDController:
@@ -112,8 +114,11 @@ class SLAMSystem:
         t0 = time.perf_counter()
         n = lefts.shape[0]
         slam = self.slam
-        seq = (process_sequence_rgbd if self.cfg.pipeline.sensor == "rgbd"
-               else process_sequence)
+        # rgbd and mono take the depths in `rights`; mono's VO ignores
+        # them, fusion and the backend's currency consume them
+        seq = {"rgbd": process_sequence_rgbd,
+               "mono": process_sequence_mono}.get(self.cfg.pipeline.sensor,
+                                                   process_sequence)
         frame0 = int(slam.frame)
         fids = torch.arange(frame0, frame0 + n, dtype=torch.int32,
                             device=lefts.device)
@@ -136,12 +141,13 @@ class SLAMSystem:
         self._prefetched = self._dispatch_scan(lefts, rights, draws)
 
     def process_chunk(self, lefts, rights, draws=None) -> dict:
-        """Run a frame batch (lefts, rights (N, H, W); for sensor="rgbd",
-        grays and depths) through the chunk scan, register every fused
-        keyframe with the backend by relative chaining, relocalize after a
-        lost streak, run ONE backend tick for the chunk and re-anchor the
-        chunk's history and the frontend once. `draws` (N, K, 3) are the
-        scan's RANSAC draws (default: from the system's generator).
+        """Run a frame batch (lefts, rights (N, H, W); for sensor="rgbd" or
+        "mono", grays and depths) through the chunk scan, register every
+        fused keyframe with the backend by relative chaining, relocalize
+        after a lost streak, run ONE backend tick for the chunk and
+        re-anchor the chunk's history and the frontend once. `draws`
+        (N, K, 3), (N, K, 8) for mono, are the scan's RANSAC draws
+        (default: from the system's generator).
 
         Returns the last frame's telemetry and the chunk's tracking flags."""
         t0 = time.perf_counter()
@@ -360,7 +366,8 @@ class SLAMSystem:
         controller's RANSAC budget; relocalize after `reloc_after` lost
         frames; register a fused keyframe with the backend and run its
         tick, whose optimisation moves the frontend pose at once. `draws`
-        (K, 3): the frame's RANSAC draws (default: from the generator).
+        (K, 3), (K, 8) for mono: the frame's RANSAC draws (default: from
+        the generator).
         The frame's wall time feeds the PD controller."""
         if self._prefetched is not None:
             raise RuntimeError("a prefetched chunk is pending: call "

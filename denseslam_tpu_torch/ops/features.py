@@ -1,7 +1,7 @@
-"""Sparse feature extraction, the gradient stack (port of
-denseslam_tpu/ops/features.py): blob / corner filter responses, NMS,
-per-class top-k selection with parabolic subpixel refinement, 32-dim
-Sobel descriptors and bucketing.
+"""Sparse feature extraction (port of denseslam_tpu/ops/features.py): the
+gradient stack (blob / corner filter responses, NMS, per-class top-k
+selection with parabolic subpixel refinement, 32-dim Sobel descriptors),
+the ORB stack's adapter (ops/orb.py) and bucketing.
 
 Every response map is built from shifted copies accumulated in the JAX
 version's fixed order (not `conv2d`, whose summation order differs), so
@@ -139,11 +139,26 @@ def desc_dim(cfg: FrontendConfig) -> int:
 
 
 def detect(gray: torch.Tensor, cfg: FrontendConfig) -> Features:
-    """Detect up to cfg.max_features features with descriptors."""
+    """Detect up to cfg.max_features features with descriptors, with the
+    configured stack (cfg.feature_type: gradient | orb)."""
     if cfg.feature_type == "orb":
-        raise NotImplementedError(
-            "feature_type='orb' is not ported yet (ROADMAP.md Queue A, A8)")
+        return _detect_orb(gray, cfg)
     return _detect_gradient(gray, cfg)
+
+
+def _detect_orb(gray: torch.Tensor, cfg: FrontendConfig) -> Features:
+    """ORB pyramid detection in the common Features struct, padded with
+    invalid rows to cfg.max_features."""
+    from . import orb
+
+    f = orb.detect_pyramid(gray, cfg.max_features, levels=cfg.orb_levels,
+                           thresh=cfg.orb_thresh)
+    c = orb.to_common(f)
+    pad = cfg.max_features - c.uv.shape[0]
+    if pad > 0:
+        c = Features(*(F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad))
+                       for x in c))
+    return c
 
 
 def _stable_topk(x: torch.Tensor, k: int):

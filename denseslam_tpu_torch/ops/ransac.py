@@ -38,10 +38,12 @@ class VOResult(NamedTuple):
     ok: torch.Tensor           # bool () solution trustworthy
 
 
-def draw_hypotheses(k: int, generator: torch.Generator,
-                    device=None) -> torch.Tensor:
-    """(k, 3) int64 draws in [0, 2^31 - 1) from `generator`, on `device`."""
-    raw = torch.randint(0, _RAW_HIGH, (k, 3), generator=generator,
+def draw_hypotheses(k: int, generator: torch.Generator, device=None,
+                    size: int = 3) -> torch.Tensor:
+    """(k, size) int64 draws in [0, 2^31 - 1) from `generator`, on
+    `device`: `size` correspondences a hypothesis (3 for this solver, 8
+    for ops/mono.py's)."""
+    raw = torch.randint(0, _RAW_HIGH, (k, size), generator=generator,
                         device=generator.device)
     return raw.to(device) if device is not None else raw
 

@@ -70,5 +70,9 @@ def inv3x3(A: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 def solve3x3(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched 3x3 solve via the closed-form inverse. A: (..., 3, 3),
-    b: (..., 3)."""
-    return torch.einsum("...ij,...j->...i", inv3x3(A), b)
+    b: (..., 3). The product is written out, left to right, so that the
+    card and the CPU sum it alike (an einsum goes to cuBLAS or the CPU's
+    BLAS, which sum in other orders)."""
+    inv = inv3x3(A)
+    return (inv[..., 0] * b[..., 0, None] + inv[..., 1] * b[..., 1, None]
+            + inv[..., 2] * b[..., 2, None])

@@ -15,13 +15,13 @@ map first where the old state is still needed.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..config import TsdfConfig
 from ..device import resolve_device
-from ..utils import lie
+from ..utils import image, lie
 from ..utils.numerics import true_div
 from ..utils.camera import Intrinsics
 from . import hash as vhash
@@ -111,9 +111,6 @@ def num_allocated_blocks(m: MapState) -> torch.Tensor:
 
 
 def _check_supported(cfg: TsdfConfig) -> None:
-    if cfg.bilinear_fusion:
-        raise NotImplementedError(
-            "bilinear_fusion is not ported yet (ROADMAP.md Queue A, A8)")
     if cfg.sampler not in ("gather", "pallas"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
 
@@ -255,11 +252,63 @@ def rgb_images(depth: torch.Tensor, color_packed: torch.Tensor):
             torch.where(depth > 0, g8 | (b8 << 8), zero))
 
 
+def _bilinear_soA(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Bilinear sample of (H, W) img at SoA coords: (value, in bounds, the
+    (v0, u0) corner, the corners' min and max)."""
+    h, w = img.shape
+    u0 = torch.floor(u)
+    v0 = torch.floor(v)
+    du = u - u0
+    dv = v - v0
+    # clamped in float first, so that the cast is defined far outside
+    u0i = image._to_i32(u0, -1, w)
+    v0i = image._to_i32(v0, -1, h)
+    inb = (u0i >= 0) & (u0i < w - 1) & (v0i >= 0) & (v0i < h - 1)
+    flat = img.reshape(-1)
+    base = (torch.clamp(v0i, 0, h - 2) * w
+            + torch.clamp(u0i, 0, w - 2)).long()
+    p00 = flat[base]
+    p01 = flat[base + 1]
+    p10 = flat[base + w]
+    p11 = flat[base + w + 1]
+    val = (p00 * (1 - du) * (1 - dv) + p01 * du * (1 - dv)
+           + p10 * (1 - du) * dv + p11 * du * dv)
+    cmin = torch.minimum(torch.minimum(p00, p01), torch.minimum(p10, p11))
+    cmax = torch.maximum(torch.maximum(p00, p01), torch.maximum(p10, p11))
+    return val, inb, p00, cmin, cmax
+
+
+def _depth_sample_soA(depth: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                      max_gap_m: float):
+    """Edge-aware bilinear depth sample: the bilinear value where the four
+    corners are valid and within max_gap_m of each other, else the (v0, u0)
+    corner. Returns (depth, valid), 0 where invalid."""
+    val, inb, nn, cmin, cmax = _bilinear_soA(depth, u, v)
+    smooth = (cmin > 0) & ((cmax - cmin) < max_gap_m)
+    out = torch.where(smooth, val, nn)
+    ok = inb & (out > 0)
+    return torch.where(ok, out, torch.zeros_like(out)), ok
+
+
 def _sample(u, v, z, visible_mask, depth, color_packed, intr, cfg, m):
     """Per-voxel depth (m) and colour samples -> (d_samp, d_valid, colour,
     map). The colour is the luminance (V, 512), an (r, g, b) triple in
-    true-RGB mode (`gray_color_fusion=False`), or None without an image."""
+    true-RGB mode (`gray_color_fusion=False`) or with `bilinear_fusion`, or
+    None without an image."""
     rgb_mode = color_packed is not None and not cfg.gray_color_fusion
+    if cfg.bilinear_fusion:
+        # edge-aware bilinear depth, with either sampler (the tile sampler
+        # reads nearest pixels only, so it is bypassed); nearest-pixel
+        # colour from the packed image
+        d_samp, d_valid = _depth_sample_soA(depth, u, v,
+                                            max_gap_m=cfg.trunc_dist_m)
+        colour = None
+        if color_packed is not None:
+            flat = (sampling.round_i32(v).clamp(0, intr.height - 1)
+                    * intr.width
+                    + sampling.round_i32(u).clamp(0, intr.width - 1)).long()
+            colour = unpack_rgb(color_packed.reshape(-1)[flat])
+        return d_samp, d_valid, colour, m
     if cfg.sampler == "pallas":
         # kernel 1 (or B2 in true-RGB mode) with the JAX tile sampler's
         # post-fallback semantics; overflow blocks beyond the fallback cap

@@ -114,10 +114,13 @@ def bilateral_filter_depth(depth: torch.Tensor, radius: int = 2,
 
 
 def downsample2(img: torch.Tensor) -> torch.Tensor:
-    """2x box downsample of (H, W) or (H, W, C); H and W must be even."""
+    """2x box downsample of (H, W) or (H, W, C); H and W must be even. The
+    four pixels are summed in row-major order, as XLA reduces them, so the
+    means equal the JAX version's bit for bit."""
     h, w = img.shape[:2]
     r = img.reshape(h // 2, 2, w // 2, 2, *img.shape[2:])
-    return r.mean(dim=(1, 3))
+    return (((r[:, 0, :, 0] + r[:, 0, :, 1]) + r[:, 1, :, 0])
+            + r[:, 1, :, 1]) / 4.0
 
 
 def downsample2_depth(depth: torch.Tensor) -> torch.Tensor:

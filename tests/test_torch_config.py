@@ -21,7 +21,6 @@ from denseslam_tpu_torch import config as pcfg
 from denseslam_tpu_torch import kernels
 from denseslam_tpu_torch.io import convert
 from denseslam_tpu_torch.models import dense_slam as pds
-from denseslam_tpu_torch.ops import features as pfeat
 from denseslam_tpu_torch.ops import sampling as psm
 from denseslam_tpu_torch.ops import sgm as psg
 from denseslam_tpu_torch.ops import tsdf as pt
@@ -118,7 +117,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import denseslam_tpu_torch.models.dense_slam, "
         "denseslam_tpu_torch.ops.stereo, denseslam_tpu_torch.io.convert, "
         "denseslam_tpu_torch.io.synthetic, "
-        "denseslam_tpu_torch.eval.depth_metrics\n"
+        "denseslam_tpu_torch.eval.depth_metrics, "
+        "denseslam_tpu_torch.ops.mono, denseslam_tpu_torch.ops.orb, "
+        "denseslam_tpu_torch.ops.meshing, "
+        "denseslam_tpu_torch.ops.reconstruction\n"
         "bad = [m for m in sys.modules if m in ('jax', 'denseslam_tpu') "
         "or m.startswith(('jax.', 'denseslam_tpu.'))]\n"
         "assert not bad, bad\n"
@@ -139,22 +141,6 @@ def test_constructors_without_device_raise_when_cuda_is_absent(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pds.make_fusion_db(cfg)
     assert pt.make_map(cfg.tsdf, device="cpu").tsdf.device.type == "cpu"
-
-
-def test_unported_options_raise():
-    cfg = pcfg.tiny_test_config()
-    m = pt.make_map(cfg.tsdf, device="cpu")
-    db = pds.make_fusion_db(cfg, device="cpu")
-    depth = torch.zeros((cfg.rig.intr.height, cfg.rig.intr.width))
-    T = torch.eye(4)
-    c = dataclasses.replace(cfg, tsdf=dataclasses.replace(
-        cfg.tsdf, bilinear_fusion=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pds.fuse_keyframe(m, db, depth, depth, T, 0, c)
-    # true-RGB fusion (gray_color_fusion=False) is ported; ORB is not
-    fc = dataclasses.replace(cfg.frontend, feature_type="orb")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pfeat.detect(depth, fc)
 
 
 def _imported_modules(path):

@@ -90,10 +90,3 @@ def test_bucket_ranks_ties_like_lexsort():
                     100, 100, fc)
     np.testing.assert_array_equal(np.asarray(want.valid), got.valid.numpy())
     assert int(got.valid[:20].sum()) == fc.max_per_bucket
-
-
-def test_orb_is_not_ported_yet():
-    fc = pc.FrontendConfig(feature_type="orb")
-    assert pf.desc_dim(fc) == 256
-    with pytest.raises(NotImplementedError, match="A8"):
-        pf.detect(torch.zeros((40, 40)), fc)

@@ -1,0 +1,508 @@
+"""The monocular sensor mode of the port vs the JAX package, at 160x120:
+every function of ops/mono.py, `mono_vo_step` frame by frame,
+`process_sequence_mono` over 6 frames, and `DenseSLAM.process_frame` in
+mono mode.
+
+Frames: the synthetic street under the mono drive's sensor model of
+scripts/long_drive_eval.py (photometric noise 2.0, a gain ramp, 1%
+relative depth noise, 5% holes), drawn with numpy. The JAX side draws
+each frame's 8-point hypotheses from its key; the port is handed the same
+draws. Tolerances, and why:
+  * ops/mono.py on a synthetic two-view problem: normalisation, Sampson
+    distances, triangulated depths and the ground-plane scale equal bit
+    for bit (JAX run op by op); E of each 8-point hypothesis equal to
+    JAX's up to its sign within 1e-6 / s8, s8 the 8x9 system's smallest
+    singular value (the float32 nullspace moves by about eps / s8; 5.8e-8
+    / s8 observed), on the hypotheses with s8 > 1e-6 (a repeated draw
+    makes the nullspace 2-D, and either SVD may pick any vector of it);
+    the chosen motion within 1e-4 (its E carries the same eps / s8: 1.3e-5
+    observed on the unit translation), its inlier set and count equal.
+  * per frame and over the sequence: poses within 1e-4 m (translation)
+    and 1e-5 (rotation entries), tracking, keyframe decisions and inlier
+    counts equal, features exact (virtual right uv within 1e-4 px): the
+    float32 matmuls and reductions of matching sum in another order than
+    XLA:CPU, and LAPACK's SVDs differ in the last bits. Held on the
+    frames where both estimators pick the same non-degenerate hypothesis
+    (`_frame_held`), and over the sequence until the first frame where
+    they do not.
+  * the map: bit for bit JAX's fusion, op by op, of the frames the port
+    fused at the poses it estimated.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from denseslam_tpu.config import (SlideWindowParams, VoxelDecayParams,
+                                  tiny_test_config)
+from denseslam_tpu.io import synthetic as js
+from denseslam_tpu.models import dense_slam as jd
+from denseslam_tpu.models import frontend as jfe
+from denseslam_tpu.ops import features as jf
+from denseslam_tpu.ops import mono as jm
+from denseslam_tpu.ops import tsdf as jt
+from denseslam_tpu.utils import lie as jl
+from denseslam_tpu_torch.io import convert
+from denseslam_tpu_torch.models import dense_slam as pd
+from denseslam_tpu_torch.models import frontend as pfe
+from denseslam_tpu_torch.ops import mono as pm
+from denseslam_tpu_torch.ops import tsdf as pt
+
+N = 6
+K = 32
+MAP_LEAVES = ["keys", "tsdf", "weight", "color", "alloc_frame", "last_seen",
+              "frame", "decayed_blocks", "overflow"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's ops here are small: one thread each spares the other
+    test processes of a parallel run the oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _config(**frontend):
+    cfg = tiny_test_config(width=160, height=120, baseline_m=0.537)
+    fc = dict(max_features=512, ransac_iters=K, bucket_w=16, bucket_h=16,
+              ransac_thresh_px=0.5)
+    return dataclasses.replace(
+        cfg,
+        frontend=dataclasses.replace(cfg.frontend, **{**fc, **frontend}),
+        tsdf=dataclasses.replace(cfg.tsdf, sampler="gather",
+                                 alloc_subsample=2),
+        decay=VoxelDecayParams(enabled=True, min_decay_age=1,
+                               max_decay_weight=2),
+        slide_window=SlideWindowParams(enabled=True, max_age=2),
+        pipeline=dataclasses.replace(cfg.pipeline, fusion_db_capacity=4,
+                                     keyframe_every=2, sensor="mono"))
+
+
+def _port_config(cfg):
+    return convert.config_from_dict(dataclasses.asdict(cfg))
+
+
+def _frames(cfg, rng, n=N):
+    poses = js.make_trajectory(n, step_m=0.25, yaw_rate=0.003)
+    g, d = js.render_trajectory(poses, cfg.rig.intr, js.street_scene())
+    g, d = np.asarray(g), np.asarray(d)
+    gain = 1.0 + 0.15 * np.sin(2 * np.pi * np.arange(n) / 150.0)
+    g = np.clip(g * gain[:, None, None] + 2.0 * rng.normal(size=g.shape),
+                0, 255).astype(np.float32)
+    dn = d * (1.0 + 0.01 * rng.normal(size=d.shape))
+    holes = rng.random(d.shape) < 0.05
+    d = np.where(holes | (d <= 0) | (d > cfg.tsdf.max_depth_m), 0.0,
+                 dn).astype(np.float32)
+    return poses, g, d
+
+
+def _draws(key):
+    """The (K, 8) draws the JAX frontend makes from state key `key`."""
+    return np.asarray(jax.random.randint(
+        jax.random.split(key)[1], (K, 8), 0, jnp.iinfo(jnp.int32).max))
+
+
+def _assert_pose_close(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got[..., :3, 3], want[..., :3, 3], rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(got[..., :3, :3], want[..., :3, :3], rtol=0,
+                               atol=1e-5)
+
+
+def _leaves(st):
+    return [np.asarray(x) for x in jax.tree.leaves(st)]
+
+
+# -- ops/mono.py on a synthetic two-view problem ------------------------------
+
+def _two_views(seed, noise_px, outlier_frac, intr, ground=False):
+    """Random points seen from the identity and from T_gt (p_c = T_gt p_p),
+    with pixel noise and gross outliers; with `ground`, half of them on the
+    ground plane 1.2 m below the camera and the motion forward."""
+    rng = np.random.default_rng(seed)
+    n = 240
+    if ground:
+        pts = np.concatenate([
+            np.stack([rng.uniform(-3, 3, n // 2), np.full(n // 2, 1.2),
+                      rng.uniform(2.5, 9.0, n // 2)], -1),
+            rng.uniform([-3, -2, 2.5], [3, 0.5, 9.0], (n - n // 2, 3))])
+        T_gt = np.eye(4, dtype=np.float32)
+        T_gt[2, 3] = -0.3
+    else:
+        pts = rng.uniform([-3, -2, 2.0], [3, 2, 10.0], (n, 3))
+        T_gt = np.asarray(jl.se3_exp(jnp.asarray(
+            [0.15, 0.0, 0.25, 0.0, 0.02, 0.0], jnp.float32)))
+    pts = pts.astype(np.float32)
+
+    def proj(T):
+        pc = pts @ T[:3, :3].T + T[:3, 3]
+        uv = np.stack([pc[:, 0] / pc[:, 2] * intr.fx + intr.cx,
+                       pc[:, 1] / pc[:, 2] * intr.fy + intr.cy], -1)
+        return uv.astype(np.float32), pc[:, 2]
+
+    uv_p, zp = proj(np.eye(4, dtype=np.float32))
+    uv_c, zc = proj(T_gt)
+    uv_p += rng.normal(0, noise_px, uv_p.shape).astype(np.float32)
+    uv_c += rng.normal(0, noise_px, uv_c.shape).astype(np.float32)
+    n_out = int(outlier_frac * n)
+    if n_out:
+        idx = rng.choice(n, n_out, replace=False)
+        uv_c[idx] += rng.uniform(20, 80, (n_out, 2)).astype(np.float32)
+    return uv_p, uv_c, (zp > 0.1) & (zc > 0.1)
+
+
+CASES = {"clean": (0, 0.0, 0.0, False), "noisy": (1, 0.3, 0.15, False),
+         "ground": (2, 0.2, 0.0, True), "degenerate": (3, 0.0, 0.0, False)}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mono_functions_match_jax_with_its_draws(case):
+    seed, noise, outliers, ground = CASES[case]
+    cfg = _config(ransac_iters=128)
+    pcfg = _port_config(cfg)
+    intr, pintr = cfg.rig.intr, pcfg.rig.intr
+    uv_p, uv_c, ok = _two_views(seed, noise, outliers, intr, ground)
+    if case == "degenerate":
+        ok[:] = False
+    key = jax.random.PRNGKey(seed)
+    raw = np.asarray(jax.random.randint(key, (128, 8), 0,
+                                        jnp.iinfo(jnp.int32).max))
+    ju, jc, jok = jnp.asarray(uv_p), jnp.asarray(uv_c), jnp.asarray(ok)
+    tu, tc, tok = torch.tensor(uv_p), torch.tensor(uv_c), torch.tensor(ok)
+
+    want = jm.estimate_mono_motion(ju, jc, jok, intr, cfg.frontend, key)
+    got = pm.estimate_mono_motion(tu, tc, tok, pintr, pcfg.frontend,
+                                  raw=torch.tensor(raw))
+    assert bool(got.ok) == bool(want.ok) == (case != "degenerate")
+    assert int(got.num_inliers) == int(want.num_inliers)
+    np.testing.assert_array_equal(got.inliers.numpy(),
+                                  np.asarray(want.inliers))
+    np.testing.assert_allclose(got.T_delta.numpy(), np.asarray(want.T_delta),
+                               rtol=0, atol=1e-4)
+    if case == "degenerate":
+        np.testing.assert_array_equal(got.T_delta.numpy(), np.eye(4))
+        return
+
+    # the parts, op by op
+    xp, yp = jm._normalize(ju, intr)
+    xc, yc = jm._normalize(jc, intr)
+    pxp, pyp = pm._normalize(tu, pintr)
+    pxc, pyc = pm._normalize(tc, pintr)
+    for a, b in ((xp, pxp), (yp, pyp), (xc, pxc), (yc, pyc)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    sel = np.argsort(~ok, kind="stable")[raw % max(int(ok.sum()), 8)]
+    # the 8x9 systems' smallest singular values s8 (float64): the float32
+    # nullspace moves by about eps / s8, and a repeated draw makes s8 0
+    a = np.stack([np.asarray(v)[sel] for v in (xp, yp, xc, yc)], -1)
+    a = np.stack([a[..., 2] * a[..., 0], a[..., 2] * a[..., 1], a[..., 2],
+                  a[..., 3] * a[..., 0], a[..., 3] * a[..., 1], a[..., 3],
+                  a[..., 0], a[..., 1], np.ones_like(a[..., 0])], -1)
+    s8 = np.linalg.svd(a.astype(np.float64), compute_uv=False)[:, 7]
+    posed = s8 > 1e-6
+    assert posed.sum() > 64
+    s = sel[posed]
+    E_j = np.asarray(jax.vmap(jm._eight_point)(xp[s], yp[s], xc[s], yc[s]))
+    s = torch.tensor(s)
+    E_p = pm._eight_point(pxp[s], pyp[s], pxc[s], pyc[s]).numpy()
+    sign = np.sign((E_j * E_p).sum(axis=(1, 2)))[:, None, None]
+    err = np.abs(sign * E_p - E_j).max(axis=(1, 2))
+    assert (err * s8[posed]).max() <= 1e-6
+    d_j = np.asarray(jax.vmap(lambda E: jm._sampson(E, xp, yp, xc, yc))(
+        jnp.asarray(E_j)))
+    np.testing.assert_array_equal(
+        pm._sampson(torch.tensor(E_j), pxp, pyp, pxc, pyc).numpy(), d_j)
+    T = np.asarray(want.T_delta)
+    zj = jm._triangulate_depths(jnp.asarray(T[:3, :3]), jnp.asarray(T[:3, 3]),
+                                xp, yp, xc, yc)
+    zp = pm._triangulate_depths(torch.tensor(T[:3, :3]),
+                                torch.tensor(T[:3, 3]), pxp, pyp, pxc, pyc)
+    for a, b in zip(zj, zp):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+    for pitch in (0.05, 0.0):
+        sj = jm.estimate_scale_ground(want.T_delta, ju, jc, want.inliers,
+                                      intr, 1.2, pitch)
+        sp = pm.estimate_scale_ground(torch.tensor(T), tu, tc,
+                                      torch.tensor(np.asarray(want.inliers)),
+                                      pintr, 1.2, pitch)
+        assert float(sp.scale) == float(sj.scale)
+        assert int(sp.num_ground) == int(sj.num_ground)
+        assert bool(sp.ok) == bool(sj.ok)
+    if ground:      # the level camera's true scale, as tests/test_mono.py
+        assert bool(sp.ok) and abs(float(sp.scale) - 0.3) < 0.03
+    np.testing.assert_array_equal(
+        pm.apply_scale(torch.tensor(T), sp.scale).numpy(),
+        np.asarray(jm.apply_scale(want.T_delta, sj.scale)))
+
+
+# -- the drive: JAX's process_sequence_mono frame by frame ---------------------
+
+@pytest.fixture(scope="module")
+def ref():
+    """The JAX drive: process_sequence_mono jitted once for a 1-frame chunk
+    and called frame by frame, so the frontend state after every frame is
+    at hand; the draws are the ones its key gives each frame."""
+    cfg = _config()
+    poses, grays, depths = _frames(cfg, np.random.default_rng(0))
+    fids = np.arange(N, dtype=np.int32)
+    seq = jax.jit(lambda st, m, db, g, d, f: jd.process_sequence_mono(
+        st, m, db, g, d, f, cfg))
+    st, m, db = jax.tree.map(lambda x: x.astype(x.dtype), (
+        jfe.init_frontend(cfg, seed=0), jt.make_map(cfg.tsdf),
+        jd.make_fusion_db(cfg)))
+    states, stats, draws = [st], [], []
+    for i in range(N):
+        draws.append(_draws(st.key))
+        st, m, db, s = seq(st, m, db, *(jnp.asarray(a[i:i + 1])
+                                        for a in (grays, depths, fids)))
+        states.append(st)
+        stats.append(jax.tree.map(lambda x: np.asarray(x)[0], s))
+    return dict(cfg=cfg, pcfg=_port_config(cfg), poses=poses, grays=grays,
+                depths=depths, fids=fids, draws=np.stack(draws),
+                states=states,
+                stats=jax.tree.map(lambda *x: np.stack(x), *stats))
+
+
+def _winner(cfg, draws, uv_prev, uv_curr, valid, port):
+    """The hypothesis the estimator picks from this flow and whether it is
+    degenerate (a repeated draw: its 8x9 system's smallest singular value
+    s8 < 1e-6, so its nullspace is 2-D and E is whichever vector of it the
+    SVD returns), recomputed on the flow with the package's own functions
+    (JAX op by op, or the port)."""
+    fc, intr = cfg.frontend, cfg.rig.intr
+    sel = np.argsort(~valid, kind="stable")[draws % max(int(valid.sum()), 8)]
+    thresh = (fc.ransac_thresh_px / intr.fx) ** 2
+    if port:
+        t = [torch.tensor(a) for a in (uv_prev, uv_curr)]
+        xp, yp = pm._normalize(t[0], intr)
+        xc, yc = pm._normalize(t[1], intr)
+        s = torch.tensor(sel)
+        d = pm._sampson(pm._eight_point(xp[s], yp[s], xc[s], yc[s]),
+                        xp, yp, xc, yc).numpy()
+    else:
+        xp, yp = jm._normalize(jnp.asarray(uv_prev), intr)
+        xc, yc = jm._normalize(jnp.asarray(uv_curr), intr)
+        E = jax.vmap(jm._eight_point)(xp[sel], yp[sel], xc[sel], yc[sel])
+        d = np.asarray(jax.vmap(lambda e: jm._sampson(e, xp, yp, xc, yc))(E))
+    counts = ((d < thresh) & valid).sum(-1)
+    w = int(np.argmax(counts))
+    a = np.stack([np.asarray(v)[sel[w]].astype(np.float64)
+                  for v in (xp, yp, xc, yc)], -1)
+    a = np.stack([a[:, 2] * a[:, 0], a[:, 2] * a[:, 1], a[:, 2],
+                  a[:, 3] * a[:, 0], a[:, 3] * a[:, 1], a[:, 3], a[:, 0],
+                  a[:, 1], np.ones(8)], -1)
+    return w, counts, np.linalg.svd(a, compute_uv=False)[7] < 1e-6
+
+
+def _frame_held(cfg, draws, flow):
+    """Whether both packages' estimators pick the same, non-degenerate
+    hypothesis from this flow; where they do not, the divergence must be
+    one of the two the reference itself shows between its jitted and
+    op-by-op runs (ROADMAP.md Queue C): a degenerate winner, or a winner
+    whose lead is one borderline inlier."""
+    wj, cj, dj = _winner(cfg, draws, *flow, port=False)
+    wp, cp, dp = _winner(cfg, draws, *flow, port=True)
+    if wj == wp and not dj:
+        return True
+    assert dj or dp or abs(int(cj[wj]) - int(cj[wp])) <= 1, (wj, wp)
+    return False
+
+
+def test_mono_vo_step_per_frame_with_jax_draws(ref):
+    """Each frame starts from the JAX state, carried across by
+    io/convert.py: the features equal JAX's; where both packages'
+    estimators pick the same non-degenerate hypothesis from the step's
+    flow (all but at most 2 of the 6 frames), the motion, the inlier
+    count and the next state's pose do too (the flow itself is held to
+    JAX's in `test_refine_cap_applies_to_mono_before_consensus_inherited`)."""
+    pcfg, want = ref["pcfg"], ref["stats"]
+    held = 0
+    for i in range(N):
+        st = convert.frontend_state_from_numpy(_leaves(ref["states"][i]),
+                                               device="cpu")
+        new, out = pfe.mono_vo_step(st, torch.tensor(ref["grays"][i]), pcfg,
+                                    raw=torch.tensor(ref["draws"][i]))
+        nxt = ref["states"][i + 1]
+        for a, b in zip(nxt.feats_l, new.feats_l):
+            np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                       atol=1e-6)
+        flow = [x.numpy() for x in (out.flow_uv_prev, out.flow_uv_curr,
+                                    out.flow_valid)]
+        # mono keeps the right-view state as it was
+        assert torch.equal(new.disp_l, st.disp_l)
+        if i > 0 and not _frame_held(ref["cfg"], ref["draws"][i], flow):
+            continue
+        held += 1
+        _assert_pose_close(out.T_wc, want["T_wc"][i])
+        _assert_pose_close(new.T_delta_prev, nxt.T_delta_prev)
+        assert int(out.num_inliers) == int(want["num_inliers"][i])
+        assert bool(out.tracking_ok) == bool(want["tracking_ok"][i])
+        assert bool(new.prior_ok) == bool(nxt.prior_ok)
+    assert held >= N - 2
+
+
+@pytest.fixture(scope="module")
+def port_run(ref):
+    pcfg = ref["pcfg"]
+    st = pfe.init_frontend(pcfg, device="cpu")
+    m = pt.make_map(pcfg.tsdf, device="cpu")
+    db = pd.make_fusion_db(pcfg, device="cpu")
+    return pd.process_sequence_mono(
+        st, m, db, torch.tensor(ref["grays"]), torch.tensor(ref["depths"]),
+        torch.tensor(ref["fids"]), pcfg, draws=torch.tensor(ref["draws"]))
+
+
+def _held_prefix(ref, stats):
+    """The number of leading frames of the port's sequence whose poses are
+    within 1e-4 of JAX's, at least 3: a frame whose estimators diverge
+    (as `test_mono_vo_step_per_frame_with_jax_draws` explains each one)
+    moves every later pose."""
+    got, want = stats["T_wc"].numpy(), ref["stats"]["T_wc"]
+    close = [np.allclose(got[i], want[i], rtol=0, atol=1e-4)
+             for i in range(N)] + [False]
+    n = close.index(False)
+    assert n >= 3
+    return n
+
+
+def test_process_sequence_mono_matches_jax(ref, port_run):
+    """The sequence against JAX's: stats, features, virtual right features
+    and retrieval sketches of every frame while the trajectories agree
+    (`_held_prefix`: frames 0-2 of this drive; frame 3's winners part, as
+    the per-frame test explains). The map is held by
+    `test_process_sequence_mono_fusion_is_exact`."""
+    stats = port_run[3]
+    want = ref["stats"]
+    assert set(stats) == set(want)
+    n = _held_prefix(ref, stats)
+    _assert_pose_close(stats["T_wc"][:n], want["T_wc"][:n])
+    for name in ("tracking_ok", "num_inliers", "fused"):
+        np.testing.assert_array_equal(stats[name][:n].numpy(),
+                                      want[name][:n], name)
+    assert stats["fused"].sum() >= 2 and stats["tracking_ok"].all()
+    for key in ("feats_l", "feats_r"):
+        for name, a, b in zip(("uv", "cls", "desc", "score", "valid"),
+                              want[key], stats[key]):
+            tol = 1e-4 if (key, name) == ("feats_r", "uv") else 1e-6
+            np.testing.assert_allclose(b[:n].numpy(), a[:n], rtol=0,
+                                       atol=tol, err_msg=f"{key}.{name}")
+    np.testing.assert_allclose(stats["sig"][:n].numpy(), want["sig"][:n],
+                               atol=1e-6)
+
+
+def test_process_sequence_mono_fusion_is_exact(ref, port_run):
+    """The port's map equals the JAX fusion of the frames it fused, at the
+    poses it estimated, bit for bit (fuse_keyframe's steps with integrate
+    run op by op, as tests/test_torch_rgbd.py does); its virtual right
+    features equal JAX's disparity formula on its features and the
+    supplied depth."""
+    _, m, _, stats = port_run
+    cfg = ref["cfg"]
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    alloc = jax.jit(lambda m, d, T: jt.allocate_for_frame(m, d, T, intr, tc))
+    tail = jax.jit(lambda m: jt.advance_frame(jt.decay_and_slide(
+        m, cfg.decay.max_decay_weight, cfg.decay.min_decay_age,
+        cfg.slide_window.max_age)))
+    mj, db = jt.make_map(tc), jd.make_fusion_db(cfg)
+    for i in np.flatnonzero(stats["fused"].numpy()):
+        d = jd.db_quantize_depth(db, jnp.asarray(ref["depths"][i]))
+        T = jnp.asarray(stats["T_wc"][i].numpy())
+        col = jt.pack_gray(jnp.asarray(ref["grays"][i]))
+        mj, s, k = alloc(mj, d, T)
+        mj = tail(jt.integrate(mj, s, k, d, col, T, intr, tc))
+    for name, a, b in zip(MAP_LEAVES, jax.tree.leaves(mj),
+                          convert.map_state_to_numpy(m)):
+        np.testing.assert_array_equal(np.asarray(a), b, name)
+    for i in range(N):
+        fl = jf.Features(*(jnp.asarray(x[i].numpy())
+                           for x in stats["feats_l"]))
+        uv, valid = fl.uv, fl.valid
+        ui = jnp.clip(jnp.round(uv[:, 0]).astype(jnp.int32), 0,
+                      intr.width - 1)
+        vi = jnp.clip(jnp.round(uv[:, 1]).astype(jnp.int32), 0,
+                      intr.height - 1)
+        z = jnp.asarray(ref["depths"][i]).reshape(-1)[vi * intr.width + ui]
+        disp = jnp.where(valid & (z > 0.1), intr.fx * cfg.rig.baseline_m
+                         / jnp.maximum(z, 0.1), -1.0)
+        f = jd._virtual_right_features(fl, disp)
+        np.testing.assert_array_equal(stats["feats_r"].uv[i].numpy(),
+                                      np.asarray(f.uv))
+        np.testing.assert_array_equal(stats["feats_r"].valid[i].numpy(),
+                                      np.asarray(f.valid))
+
+
+def test_mono_tracks_the_street_with_ground_scale(ref, port_run):
+    """The metric scale comes from the ground plane: the final position is
+    within 25% of the distance travelled (tests/test_mono.py's bound)."""
+    T = port_run[3]["T_wc"][-1].numpy()
+    gt = ref["poses"][-1]
+    travelled = np.linalg.norm(gt[:3, 3])
+    assert np.linalg.norm(T[:3, 3] - gt[:3, 3]) < 0.25 * travelled
+
+
+def test_refine_cap_applies_to_mono_before_consensus_inherited():
+    """Inherited from the JAX package (denseslam_tpu/config.py refine_cap,
+    ROADMAP.md Queue C): mono_vo_step refines the temporal leg before flow
+    consensus, over the first refine_cap valid matches only; with a cap of
+    8 the matches past it keep their detector positions, on both
+    packages."""
+    cfg = _config(refine_cap=8, outlier_removal=False)
+    pcfg = _port_config(cfg)
+    _, grays, _ = _frames(cfg, np.random.default_rng(1), n=2)
+    step = jax.jit(lambda s, g: jfe.mono_vo_step(s, g, cfg))
+
+    def strong(tree):       # both calls hit the one compile
+        return jax.tree.map(lambda x: x.astype(x.dtype), tree)
+
+    st, _ = step(strong(jfe.init_frontend(cfg, seed=0)), jnp.asarray(grays[0]))
+    st = strong(st)
+    pst = convert.frontend_state_from_numpy(_leaves(st), device="cpu")
+    draws = _draws(st.key)
+    _, want = step(st, jnp.asarray(grays[1]))
+    new, got = pfe.mono_vo_step(pst, torch.tensor(grays[1]), pcfg,
+                                raw=torch.tensor(draws))
+    np.testing.assert_array_equal(got.flow_valid.numpy(),
+                                  np.asarray(want.flow_valid))
+    np.testing.assert_allclose(got.flow_uv_curr.numpy(),
+                               np.asarray(want.flow_uv_curr), rtol=0,
+                               atol=1e-4)
+    valid = got.flow_valid.numpy()
+    rows = np.flatnonzero(valid)
+    assert rows.size > 16
+    moved = (got.flow_uv_curr.numpy() != new.feats_l.uv.numpy()).any(-1)
+    assert moved[rows[:8]].any()
+    assert not moved[rows[8:]].any()
+
+
+def test_dense_slam_mono_process_frame():
+    """tests/test_mono.py `test_mono_pipeline_mode` on the port: frames
+    without depth only track, a frame with supplied depth fuses."""
+    cfg = dataclasses.replace(
+        tiny_test_config(width=320, height=240),
+        pipeline=dataclasses.replace(tiny_test_config().pipeline,
+                                     sensor="mono", fusion_db_capacity=4))
+    cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
+        cfg.frontend, camera_height_m=1.2, ransac_iters=K))
+    pcfg = _port_config(cfg)
+    poses = js.make_trajectory(4, step_m=0.2, yaw_rate=0.0)
+    grays, depths = (np.asarray(a) for a in js.render_trajectory(
+        poses, cfg.rig.intr))
+    slam = pd.DenseSLAM(pcfg, device="cpu", seed=0)
+    out0 = slam.process_frame(torch.tensor(grays[0]))
+    assert not out0["fused"] and out0["num_blocks"] == 0
+    out1 = slam.process_frame(torch.tensor(grays[1]))
+    assert not out1["fused"] and out1["tracking_ok"]
+    out2 = slam.process_frame(torch.tensor(grays[2]),
+                              depth=torch.tensor(depths[2]))
+    assert out2["fused"] and out2["num_blocks"] > 0
+    assert out2["num_inliers"] >= 12
+    with pytest.raises(ValueError, match="raw draws"):
+        slam.process_frame(torch.tensor(grays[3]),
+                           draws=torch.zeros((K, 3), dtype=torch.int64))

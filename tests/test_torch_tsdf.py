@@ -1,6 +1,7 @@
 """ops/tsdf.py port vs the JAX fusion tail on rendered frames:
 allocate_for_frame -> integrate -> decay_and_slide -> advance_frame, for
-both samplers and both storage dtypes, and integrate/deintegrate.
+both samplers and both storage dtypes, true-RGB and bilinear fusion,
+and integrate/deintegrate.
 
 The JAX functions run eagerly (op by op), as tests/test_sampling.py runs
 them, so no XLA fusion contracts their multiply-adds; the port then
@@ -109,6 +110,47 @@ def test_true_rgb_fusion_matches_jax_bit_for_bit(frames, sampler):
     mp = pt.deintegrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
     _assert_maps_equal(jt.deintegrate(m, s, k, d, col, T, intr, tc), mp)
     assert (mp.weight < w0).any()
+
+
+@pytest.mark.parametrize("gray", [True, False])
+@pytest.mark.parametrize("sampler", ["gather", "pallas"])
+def test_bilinear_fusion_matches_jax_bit_for_bit(frames, sampler, gray,
+                                                  monkeypatch):
+    """bilinear_fusion=True: the edge-aware bilinear depth sample and a
+    nearest-pixel colour gather, under either sampler (the tile sampler
+    B1 / B2 is bypassed, as in the JAX version, so it must not be called),
+    with luminance or true-RGB colour, on 2 frames and a de-integration:
+    every leaf of the map equals the op-by-op JAX fusion."""
+    cfg, poses, grays, depths = frames
+    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, sampler=sampler, bilinear_fusion=True,
+        gray_color_fusion=gray))
+    pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    intr, tc = cfg.rig.intr, cfg.tsdf
+
+    def refuse(*a, **k):
+        raise AssertionError("bilinear fusion called the tile sampler")
+
+    monkeypatch.setattr(pt.sampling, "tile_sample", refuse)
+    monkeypatch.setattr(pt.sampling, "tile_sample_rgb", refuse)
+    rgb = np.random.default_rng(3).integers(0, 256, (3,) + grays.shape[1:])
+    m = jt.make_map(tc)
+    mp = pt.make_map(pcfg.tsdf, device="cpu")
+    for f in range(2):
+        T, d = jnp.asarray(poses[f + 1]), jnp.asarray(depths[f])
+        col = (jt.pack_gray(jnp.asarray(grays[f])) if gray else
+               jt.pack_rgb(*(jnp.asarray(c, jnp.float32) for c in rgb)))
+        m, s, k = jt.allocate_for_frame(m, d, T, intr, tc)
+        m = jt.integrate(m, s, k, d, col, T, intr, tc)
+        Tp, dp = torch.tensor(poses[f + 1]), torch.tensor(depths[f])
+        colp = torch.tensor(np.asarray(col))
+        mp, sp, kp = pt.allocate_for_frame(mp, dp, Tp, pcfg.rig.intr,
+                                           pcfg.tsdf)
+        mp = pt.integrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
+        _assert_maps_equal(m, mp)
+    assert (mp.weight > 0).sum() > 1000
+    mp = pt.deintegrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
+    _assert_maps_equal(jt.deintegrate(m, s, k, d, col, T, intr, tc), mp)
 
 
 @pytest.mark.parametrize("sampler", ["gather", "pallas"])
