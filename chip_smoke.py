@@ -125,9 +125,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    95% of frames, overflow 0, ATE bounds (FRAME_VO_ATE_M,
                    FRAME_ATE_M); then 20 more frames of the drive with the
                    PD controller live, the last 16 profiled (device ms,
-                   launches, busy share, host syncs a frame); frames/s,
-                   the live budget's range and the first local BA's moves
-                   printed.
+                   launches, busy share, host syncs a frame); then the
+                   next frame (a keyframe) at the last live budget, from
+                   one state, profiled with process_frame's timers and
+                   without them: the same host syncs (the timers add
+                   none); frames/s, the live budget's range and the first
+                   local BA's moves printed.
  15. icp           internal odometry (use_external_odometry=False) on the
                    JAX package's own internal-ICP drive (default scene,
                    0.04 m a frame, rendered depth), 16 frames at 1226x370
@@ -186,7 +189,38 @@ Phases, one JSON line each; any failure raises and exits non-zero:
  22. tracks        triangulate_tracks on 4096 tracks x 8 views made from a
                    seed at 1226x370: card against CPU within 1e-4, the
                    card's ms.
- 23. throughput    frames/s of stereo + fusion, of the fusion tail alone
+ 23. cli           the command line (denseslam_tpu_torch.main.main, in
+                   process) on the first 64 frames of the flagship loop
+                   drive, written by io/make_dataset.py into build/cli/ in
+                   KITTI layout (8-bit PNGs under the drive's gain ramp and
+                   noise): per frame through SLAMSystem.process_frame at
+                   the drive's map flags with --sampler pallas
+                   --compute_depth --enable_backend --voxel_decay
+                   --slide_window --online_correction and every output;
+                   launch identity (B1 = fused + 2 x re-fused + purged, B3 =
+                   3 x fused, the tail = fused), tracking >= 95%, ATE <=
+                   FRAME_ATE_M, overflow 0, trajectories and memory log of
+                   64 lines, a mesh of >= 1e4 triangles, one raycast PNG per
+                   fused keyframe reading back to its render, the JAX
+                   summary's keys; frames/s, mean_fusion_ms and the TIMERS
+                   report printed.
+ 24. cli_chunk     the same sequence with --chunk 64: the launch identity,
+                   tracking >= 95%, poses equal bit for bit to
+                   SLAMSystem.process_chunk called directly on the decoded
+                   frames.
+ 25. cli_resume    the sequence per frame without the backend, whole and as
+                   frames 0-31, a checkpoint, and 32-63 resumed from it:
+                   poses and final state equal bit for bit, the checkpoint's
+                   keys the JAX layout's plus the generator's.
+ 26. cli_rgbd      48 frames in TUM layout (640x480, the rgbd phase's sensor
+                   model) with --sensor rgbd --sampler pallas --use_color:
+                   the RGB-D VO branch of DenseSLAM.process_frame; tracking
+                   >= 95%, B1 once per fused keyframe, the final position
+                   within 3% of the distance travelled.
+ 27. cli_cpu_reference  the cli command's first 5 frames on the card and
+                   with --device cpu (and --profile_dir): poses within 1 mm
+                   / 1e-4 rad.
+ 28. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
@@ -247,6 +281,10 @@ FRAME_WARMUP = 16        # frames/s counts the frames after these
 # detections, the drive's rates)
 FRAME_WINDOW_WARM = 4
 FRAME_WINDOW = 16
+# the timers' A/B after it: the next frame, a keyframe (frontend, stereo
+# depth and fusion timed, a backend tick), profiled twice; each profiled
+# frame costs the script about 12 s of the profiler's own processing
+FRAME_TIMER_AB = 1
 ICP_FRAMES = 16
 # the frame phase's RANSAC budget (the first ceil(K * scale) hypotheses
 # may win), pinned so that its ATE does not move with the host's speed:
@@ -2147,6 +2185,49 @@ def live_window(run, lefts, rights, out=None):
     return rec, scales
 
 
+def timer_syncs(run, lefts, rights, out=None):
+    """The timers' own host syncs: the next FRAME_TIMER_AB frames of the
+    drive (`lefts`, `rights`; the first is a keyframe) through the live
+    window's system, its RANSAC budget pinned at
+    the last live value, each run from the same state (io/convert.py's
+    snapshot and the generator's state) under profile_part, once with
+    utils/timing.py's TIMERS as they are and once with tic and toc doing
+    nothing. Returns both records."""
+    from denseslam_tpu_torch.io import convert
+    from denseslam_tpu_torch.utils.timing import TIMERS, Lap
+
+    system = run["system"]
+    system.pd.lo = system.pd.hi = system.pd.scale
+    key = np.zeros(2, np.uint32)
+    snap = convert.system_state_to_numpy(system, key)
+    gen = system.generator.get_state()
+
+    def setup():
+        convert.system_state_from_numpy(snap, system)
+        system.generator.set_state(gen)
+        return 0
+
+    def frames(i):
+        for j in range(lefts.shape[0]):
+            system.process_frame(lefts[j], rights[j])
+        return i
+
+    recs = {}
+    off = dict(tic=lambda name: None, toc=lambda name=None, sync=None: None,
+               last_lap=lambda name: Lap(ms=0.0))
+    for mode in ("timers_on", "timers_off"):
+        if mode == "timers_off":
+            for k, fn in off.items():
+                setattr(TIMERS, k, fn)
+        try:
+            recs[mode] = profile_part(f"frame_{mode}", lefts.shape[0], frames,
+                                      0, out, setup=setup)[1]
+        finally:
+            for k in off:
+                TIMERS.__dict__.pop(k, None)
+    return recs
+
+
 def run_frame(cfg, dev, gpu, out=None):
     """The per-frame path: the flagship drive's first 64 frames (its
     first chunk, the same frames and noise) one at a time through
@@ -2169,6 +2250,11 @@ def run_frame(cfg, dev, gpu, out=None):
     end = FRAME_FRAMES + FRAME_WINDOW_WARM + FRAME_WINDOW
     lefts, rights = system_chunk(cfg, gt, scene, FRAME_FRAMES, end, gen, dev)
     prof, scales = live_window(run, lefts, rights, out)
+    lefts, rights = system_chunk(cfg, gt, scene, end, end + FRAME_TIMER_AB,
+                                 gen, dev)
+    ab = timer_syncs(run, lefts, rights, out)
+    on, off = (ab[k]["per_frame"]["host_syncs"]
+               for k in ("timers_on", "timers_off"))
     emit(dict(phase="frame", frames=FRAME_FRAMES, budget_scale=FRAME_PD_SCALE,
               **full, vo_only=vo,
               live=dict(frames=[FRAME_FRAMES, end],
@@ -2178,12 +2264,17 @@ def run_frame(cfg, dev, gpu, out=None):
                         **prof["per_frame"],
                         device_busy_share=prof["device_busy_share"],
                         wall_ms_per_frame=prof["wall_ms"] / FRAME_WINDOW),
+              timers=dict(frames=[end, end + FRAME_TIMER_AB],
+                          host_syncs_on=on, host_syncs_off=off,
+                          wall_ms_on=ab["timers_on"]["wall_ms"],
+                          wall_ms_off=ab["timers_off"]["wall_ms"]),
               gpu=gpu))
     gates = dict(tracking=min(full["tracking_ok_share"],
                               vo["tracking_ok_share"]) >= 0.95,
                  overflow=full["overflow"] == vo["overflow"] == 0,
                  ate_vo=vo["ate_rmse_m"] <= FRAME_VO_ATE_M,
-                 ate=full["ate_rmse_m"] <= FRAME_ATE_M)
+                 ate=full["ate_rmse_m"] <= FRAME_ATE_M,
+                 timer_syncs=on == off)
     if not all(gates.values()):
         raise AssertionError(f"frame gates failed: {gates}")
     return dict(launches=full["launches"], vo_launches=vo["launches"])
@@ -2801,6 +2892,422 @@ def run_tracks(cfg, dev, gpu):
                              f"{int(valid.sum())} valid")
 
 
+# -- the command line (denseslam_tpu_torch.main) -----------------------------
+
+CLI_DIR = os.path.join(ROOT, "build", "cli")
+# the KITTI-layout sequence: the flagship loop drive's first frames
+CLI_FRAMES = 64
+CLI_RESUME_AT = 32
+CLI_RGBD_FRAMES = 48
+CLI_CPU_FRAMES = 5
+# the keys of the JAX package's summary (denseslam_tpu/main.py:428-439)
+SUMMARY_KEYS = ("frames", "fps", "mean_fusion_ms", "final_blocks",
+                "final_memory_mb", "num_submaps", "num_device_submaps",
+                "device_memory_mb", "submap_evictions", "submap_restores")
+
+
+def read_text(path: str) -> str:
+    with open(path) as fh:
+        return fh.read()
+
+
+def cli_datasets():
+    """The CLI phases' sequences, written into build/cli/ by
+    io/make_dataset.py (rendered on the card): the first CLI_FRAMES frames
+    of the flagship loop drive (loop_scene, 1226x370, fx 707.09, baseline
+    0.537 m) in KITTI layout under the drive's gain ramp (0.15) and
+    photometric noise (2.0); and CLI_RGBD_FRAMES frames of the default
+    scene in TUM layout (freiburg1's 640x480, 10 cm a frame backing away
+    from the spheres, 0.003 rad of yaw a frame; the back wall stays within
+    the 13.1 m that TUM's 16-bit depth holds) under the rgbd phase's sensor
+    model: gain 0.15, noise 2.0, 1% depth noise, 5% holes. The RGB-D VO
+    drifts about 3 mm a frame on this scene at any step, in the JAX package
+    as in the port (ROADMAP.md Queue C), so the steps are long enough for
+    the 3% gate."""
+    import shutil
+
+    from denseslam_tpu_torch.io.make_dataset import make_dataset
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    kitti = make_dataset([
+        os.path.join(CLI_DIR, "kitti"), "--frames", str(CLI_FRAMES),
+        "--width", "1226", "--height", "370", "--scene", "loop",
+        "--fx", "707.09", "--baseline", "0.537", "--gain", "0.15",
+        "--noise", "2.0", "--seed", "3"])
+    tum = make_dataset([
+        os.path.join(CLI_DIR, "tum"), "--frames", str(CLI_RGBD_FRAMES),
+        "--layout", "tum", "--scene", "default", "--step_m", "-0.1",
+        "--yaw_rate", "0.003", "--gain", "0.15", "--noise", "2.0",
+        "--depth_noise", "0.01", "--holes", "0.05", "--seed", "4"])
+    return kitti, tum
+
+
+def cli_map_flags():
+    """drive_config's map in the command line's flags, where it has one: 6
+    cm voxels, 40 m, 2^17 slots, 2^13 visible blocks, decay 30 / 2, window
+    60, a keyframe every 4 frames, corrections 5 from the 4th."""
+    return ["--voxel_size", "0.06", "--max_depth", "40",
+            "--table_slots_log2", "17", "--max_visible_log2", "13",
+            "--voxel_decay", "--min_decay_age", "30", "--max_decay_weight",
+            "2", "--slide_window", "--slide_window_max_age", "60",
+            "--keyframe_every", "4", "--correction_num", "5",
+            "--start_correction_num", "4", "--quiet"]
+
+
+class CliCapture:
+    """Instruments in-process runs of the command line: records the
+    DenseSLAM and SLAMSystem objects they build, each frame's telemetry
+    (DenseSLAM.process_frame) and each chunk's tracking flags, counts the
+    DB entries purge_keyframes drops, and keeps, before each raycast depth
+    dump, depth_to_png16 of the same render, which the PNG must read back
+    to."""
+
+    def __enter__(self):
+        from denseslam_tpu_torch.models import dense_slam as ds
+        from denseslam_tpu_torch.models import system as sy
+        from denseslam_tpu_torch.ops import raycast as rc
+
+        self.slams, self.systems, self.outs, self.chunk_ok = [], [], [], []
+        self.purged, self.expected = 0, {}
+        cap = self
+        orig = self._orig = {
+            (cls, name): getattr(cls, name)
+            for cls, name in ((ds.DenseSLAM, "__init__"),
+                              (ds.DenseSLAM, "process_frame"),
+                              (ds.DenseSLAM, "purge_keyframes"),
+                              (ds.DenseSLAM, "save_raycast_depth"),
+                              (sy.SLAMSystem, "__init__"),
+                              (sy.SLAMSystem, "process_chunk"))}
+
+        def slam_init(s, *a, **kw):
+            orig[ds.DenseSLAM, "__init__"](s, *a, **kw)
+            cap.slams.append(s)
+
+        def process_frame(s, *a, **kw):
+            out = orig[ds.DenseSLAM, "process_frame"](s, *a, **kw)
+            cap.outs.append(out)
+            return out
+
+        def purge(s, ids):
+            before = int(s.db.valid.sum())
+            orig[ds.DenseSLAM, "purge_keyframes"](s, ids)
+            cap.purged += before - int(s.db.valid.sum())
+
+        def save_depth(s, path, T_wc=None):
+            cap.expected[path] = rc.depth_to_png16(
+                s.raycast_view(T_wc).depth).cpu().numpy()
+            orig[ds.DenseSLAM, "save_raycast_depth"](s, path, T_wc)
+
+        def system_init(s, *a, **kw):
+            orig[sy.SLAMSystem, "__init__"](s, *a, **kw)
+            cap.systems.append(s)
+
+        def chunk(s, *a, **kw):
+            out = orig[sy.SLAMSystem, "process_chunk"](s, *a, **kw)
+            cap.chunk_ok.append(np.asarray(out["tracking_ok_frames"]))
+            return out
+
+        for (cls, name), fn in zip(orig, (slam_init, process_frame, purge,
+                                          save_depth, system_init, chunk)):
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (cls, name), fn in self._orig.items():
+            setattr(cls, name, fn)
+
+
+def cli_run(argv):
+    """One in-process run of denseslam_tpu_torch.main.main(argv) under a
+    CliCapture, with the launch counts set to 0 just before and read just
+    after. Returns the capture, the launches and the run's seconds."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.main import main as cli_main
+
+    with CliCapture() as cap:
+        torch.cuda.synchronize()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        if cli_main(argv) != 0:
+            raise AssertionError(f"the command line returned non-zero: {argv}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = dict(kernels.launch_counts)
+    return cap, launches, seconds
+
+
+def cli_launch_check(cap, launches, fused):
+    """The launch identity of a stereo CLI run: per fused keyframe 3 of B3
+    and 1 of the tail; B1 once per fused keyframe, twice per re-fused and
+    once per purged DB entry; never B2."""
+    refused = sum(s.num_corrections for s in cap.systems)
+    want = dict(tile_sample=fused + 2 * refused + cap.purged,
+                tile_sample_rgb=0, sgm_path=3 * fused, sgm_final=fused)
+    if fused == 0 or launches != want:
+        raise AssertionError(f"launches {launches}, want {want} ({fused} "
+                             f"fused, {refused} re-fused, {cap.purged} "
+                             "purged)")
+    return refused
+
+
+def jax_checkpoint_keys(n_submaps: int = 1) -> set:
+    """The keys of the JAX package's checkpoint (denseslam_tpu/io/
+    checkpoint.py) of a float32 map with no deferred corrections: 9 map
+    and 6 DB leaves a submap, 21 frontend leaves (its PRNG key the 17th)."""
+    keys = {"meta/num_submaps", "meta/global_poses", "meta/spawn_poses",
+            "meta/anchor_frames", "meta/frame", "meta/keyframes",
+            "meta/pose_frames", "meta/pose_mats"}
+    for s in range(n_submaps):
+        sfx = "" if s == 0 else str(s)
+        keys |= {f"map{sfx}/{i}" for i in range(9)}
+        keys |= {f"db{sfx}/{i}" for i in range(6)}
+    return keys | {f"fe/{i}" for i in range(21)}
+
+
+def run_cli(dev, gpu, kitti):
+    """The command line on the KITTI-layout loop drive: CLI_FRAMES frames
+    one at a time through SLAMSystem.process_frame (the drive's map flags,
+    --sampler pallas --compute_depth --enable_backend --voxel_decay
+    --slide_window --online_correction, the PD controller live) with every
+    output. Gates: the launch identity, tracking >= 95%, ATE <= FRAME_ATE_M
+    against the drive's poses, overflow 0, the TUM and KITTI trajectories
+    and the memory log of CLI_FRAMES lines, a mesh of >= 1e4 triangles, one
+    raycast PNG per fused keyframe reading back (io/png.py) to its render,
+    and every key of the JAX summary."""
+    from denseslam_tpu_torch.eval import traj_metrics
+    from denseslam_tpu_torch.io import png, trajectory
+    from denseslam_tpu_torch.utils.timing import TIMERS
+
+    out = os.path.join(CLI_DIR, "out_cli")
+    rdir = os.path.join(out, "raycast")
+    argv = (["--dataset_root", kitti, "--frame_limit", str(CLI_FRAMES)]
+            + cli_map_flags()
+            + ["--sampler", "pallas", "--compute_depth", "--enable_backend",
+               "--online_correction",
+               "--save_trajectory", os.path.join(out, "traj.txt"),
+               "--save_kitti_trajectory", os.path.join(out, "kitti.txt"),
+               "--save_mesh", os.path.join(out, "mesh.obj"),
+               "--save_composite", os.path.join(out, "composite.png"),
+               "--save_raycast_depth_dir", rdir,
+               "--save_raycast_rgb_dir", os.path.join(out, "raycast_rgb"),
+               "--save_memory_log", os.path.join(out, "memory.txt"),
+               "--checkpoint_out", os.path.join(out, "ckpt.npz"),
+               "--metrics_json", os.path.join(out, "metrics.json")])
+    os.makedirs(out, exist_ok=True)
+    TIMERS.reset()
+    cap, launches, seconds = cli_run(argv)
+    timers = TIMERS.report().splitlines()
+    outs = cap.outs
+    fused_ids = [o["frame"] for o in outs if o["fused"]]
+    fused = len(fused_ids)
+    refused = cli_launch_check(cap, launches, fused)
+    system = cap.systems[0]
+    if system.backend.num_keyframes + system.num_culled != fused:
+        raise AssertionError("a fused keyframe did not reach the backend")
+
+    gt = trajectory.load_kitti(os.path.join(kitti, "poses.txt"))
+    tum = trajectory.load_tum(os.path.join(out, "traj.txt"))
+    est = trajectory.load_kitti(os.path.join(out, "kitti.txt"))
+    mem = read_text(os.path.join(out, "memory.txt")).splitlines()
+    ate = traj_metrics.ate_rmse(est, gt)
+    track = float(np.mean([o["tracking_ok"] for o in outs[1:]]))
+    overflow = int(system.slam.submaps.active.overflow)
+    with open(os.path.join(out, "mesh.obj")) as fh:
+        tris = sum(1 for ln in fh if ln.startswith("f "))
+    names = sorted(os.listdir(rdir))
+    png_ok = (names == [f"{f:06d}.png" for f in fused_ids] and all(
+        np.array_equal(png.read_png(os.path.join(rdir, n)).astype(np.int64),
+                       cap.expected[os.path.join(rdir, n)])
+        for n in names))
+    composite = png.read_png(os.path.join(out, "composite.png"))
+    summary = json.loads(read_text(os.path.join(out, "metrics.json")))
+    emit(dict(phase="cli", frames=len(outs), fused=fused, refused=refused,
+              purged=cap.purged, launches=launches, tracking_ok_share=track,
+              ate_rmse_m=ate, end_error_m=float(np.linalg.norm(
+                  est[-1][:3, 3] - gt[len(est) - 1][:3, 3])),
+              loops=system.num_loops, overflow=overflow, triangles=tris,
+              raycast_pngs=len(names),
+              composite_valid_share=float((composite > 0).mean()),
+              fps=summary["fps"], mean_fusion_ms=summary["mean_fusion_ms"],
+              seconds=seconds, summary=summary, timers=timers, gpu=gpu))
+    gates = dict(tracking=track >= 0.95, ate=ate <= FRAME_ATE_M,
+                 overflow=overflow == 0,
+                 trajectories=len(tum) == len(est) == CLI_FRAMES,
+                 memory_log=len(mem) == CLI_FRAMES,
+                 mesh=tris >= 10_000, raycast_pngs=png_ok,
+                 summary=set(SUMMARY_KEYS) <= set(summary)
+                 and summary["frames"] == CLI_FRAMES)
+    if not all(gates.values()):
+        raise AssertionError(f"cli gates failed: {gates}")
+    return dict(launches=launches)
+
+
+def run_cli_chunk(dev, gpu, kitti):
+    """The same sequence through the command line's chunk path (--chunk 64
+    --compute_depth --sampler pallas: one SLAMSystem.process_chunk); the
+    launch identity of `cli`, tracking >= 95%, and the poses equal bit for
+    bit to SLAMSystem.process_chunk called directly, with the same seed,
+    on the frames the dataset reader decodes."""
+    from denseslam_tpu_torch import main as cli
+    from denseslam_tpu_torch.io import datasets
+    from denseslam_tpu_torch.models.system import SLAMSystem
+
+    argv = (["--dataset_root", kitti, "--frame_limit", str(CLI_FRAMES)]
+            + cli_map_flags()
+            + ["--chunk", str(CLI_FRAMES), "--compute_depth", "--sampler",
+               "pallas", "--online_correction"])
+    cap, launches, seconds = cli_run(argv)
+    system = cap.systems[0]
+    fused = system.backend.num_keyframes + system.num_culled
+    refused = cli_launch_check(cap, launches, fused)
+    ok = np.concatenate(cap.chunk_ok)
+    track = float(ok[1:].mean())
+    via_cli = np.stack([T for _, T in system.trajectory()])
+
+    inp = datasets.Input(kitti, datasets.kitti_odometry_config(),
+                         frame_limit=CLI_FRAMES)
+    cfg = cli.build_config(cli.build_parser().parse_args(argv), inp.rig)
+    frames = list(inp)
+    lefts = torch.stack([torch.as_tensor(f["left"]) for f in frames]).to(dev)
+    rights = torch.stack([torch.as_tensor(f["right"])
+                          for f in frames]).to(dev)
+    direct = SLAMSystem(cfg, device=dev)
+    direct.process_chunk(lefts, rights)
+    direct_T = np.stack([T for _, T in direct.trajectory()])
+    equal = via_cli.shape == direct_T.shape and np.array_equal(via_cli,
+                                                               direct_T)
+    emit(dict(phase="cli_chunk", frames=len(via_cli), fused=fused,
+              refused=refused, purged=cap.purged, launches=launches,
+              tracking_ok_share=track, poses_equal_process_chunk=equal,
+              max_pose_diff=float(np.abs(via_cli - direct_T).max())
+              if via_cli.shape == direct_T.shape else None,
+              seconds=seconds, gpu=gpu))
+    if track < 0.95 or not equal:
+        raise AssertionError(f"cli_chunk: tracking {track}, poses equal "
+                             f"{equal}")
+    return dict(launches=launches)
+
+
+def run_cli_resume(dev, gpu, kitti):
+    """The sequence per frame without the backend (--sampler pallas
+    --compute_depth, no --voxel_decay): uninterrupted, and as frames 0-31 with
+    --checkpoint_out, then 32-63 resumed with --checkpoint_in
+    --frame_offset 32. Gates: the launch identity of the uninterrupted run
+    (no re-fused or purged keyframes), its poses and final checkpoint (map,
+    DB, frontend, history, generator) equal to the resumed run's bit for
+    bit, and the checkpoint's keys those of the JAX layout plus the port's
+    generator key."""
+    out = os.path.join(CLI_DIR, "out_resume")
+    os.makedirs(out, exist_ok=True)
+    # without --voxel_decay: the command line runs the sequence-end decay
+    # catch-up before it writes --checkpoint_out (as the JAX one does), so
+    # a checkpoint written at a sequence's end holds a caught-up map that
+    # an uninterrupted run never has
+    base = (["--dataset_root", kitti]
+            + [f for f in cli_map_flags() if f != "--voxel_decay"]
+            + ["--sampler", "pallas", "--compute_depth"])
+    path = lambda n: os.path.join(out, n)  # noqa: E731
+    cap, launches, seconds = cli_run(
+        base + ["--frame_limit", str(CLI_FRAMES), "--checkpoint_out",
+                path("whole.npz"), "--save_kitti_trajectory",
+                path("whole.txt")])
+    fused = sum(o["fused"] for o in cap.outs)
+    cli_launch_check(cap, launches, fused)
+    track = float(np.mean([o["tracking_ok"] for o in cap.outs[1:]]))
+    cli_run(base + ["--frame_limit", str(CLI_RESUME_AT), "--checkpoint_out",
+                    path("first.npz")])
+    cli_run(base + ["--frame_offset", str(CLI_RESUME_AT), "--checkpoint_in",
+                    path("first.npz"), "--checkpoint_out", path("resumed.npz"),
+                    "--save_kitti_trajectory", path("resumed.txt")])
+    with np.load(path("whole.npz")) as za, np.load(path("resumed.npz")) as zb:
+        a, b = dict(za), dict(zb)
+    differ = sorted(k for k in a if k not in b or not (
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])))
+    want_keys = jax_checkpoint_keys() | {"meta/torch_generator"}
+    poses_equal = read_text(path("whole.txt")) == read_text(path("resumed.txt"))
+    emit(dict(phase="cli_resume", frames=CLI_FRAMES,
+              resumed_at=CLI_RESUME_AT, fused=fused, launches=launches,
+              tracking_ok_share=track, poses_equal=poses_equal,
+              checkpoint_keys=len(a), differing_keys=differ,
+              seconds=seconds, gpu=gpu))
+    gates = dict(poses=poses_equal, state=not differ and set(a) == set(b),
+                 keys=set(a) == want_keys,
+                 tracking=track >= 0.95)
+    if not all(gates.values()):
+        raise AssertionError(f"cli_resume gates failed: {gates}")
+    return dict(launches=launches)
+
+
+def run_cli_rgbd(dev, gpu, tum):
+    """The TUM-layout sequence through the command line's RGB-D path
+    (--dataset_type tum --sensor rgbd --sampler pallas --use_color):
+    DenseSLAM.process_frame's RGB-D VO branch with the dataset's depth.
+    Gates: tracking >= 95%, B1 once per fused keyframe and no other kernel,
+    the final position within 3% of the distance travelled."""
+    from denseslam_tpu_torch.io import trajectory
+
+    out = os.path.join(CLI_DIR, "out_rgbd")
+    os.makedirs(out, exist_ok=True)
+    argv = ["--dataset_root", tum, "--dataset_type", "tum", "--sensor",
+            "rgbd", "--sampler", "pallas", "--use_color", "--max_depth",
+            "10", "--max_visible_log2", "13", "--quiet",
+            "--save_trajectory", os.path.join(out, "traj.txt")]
+    cap, launches, seconds = cli_run(argv)
+    fused = sum(o["fused"] for o in cap.outs)
+    want = dict(tile_sample=fused, tile_sample_rgb=0, sgm_path=0, sgm_final=0)
+    if fused == 0 or launches != want:
+        raise AssertionError(f"cli_rgbd launches {launches}, want {want}")
+    track = float(np.mean([o["tracking_ok"] for o in cap.outs[1:]]))
+    gt = np.stack(trajectory.load_kitti(os.path.join(tum, "poses.txt")))
+    est = torch.tensor(np.stack([T for _, T in trajectory.load_tum(
+        os.path.join(out, "traj.txt"))]))
+    traj = trajectory_gates(est, gt)
+    emit(dict(phase="cli_rgbd", frames=len(cap.outs), fused=fused,
+              launches=launches, tracking_ok_share=track, **traj,
+              seconds=seconds, gpu=gpu))
+    if track < 0.95:
+        raise AssertionError(f"cli_rgbd tracking held on {track:.3f}")
+    return dict(launches=launches)
+
+
+def run_cli_cpu_reference(dev, gpu, kitti):
+    """The `cli` command's first CLI_CPU_FRAMES frames on the card and with
+    --device cpu (the CPU run with --profile_dir): poses within 1 mm /
+    1e-4 rad. Both runs draw their RANSAC and verification hypotheses from
+    one CPU generator seeded 0 (a card generator and a CPU one seeded alike
+    draw different numbers) and hold the PD controller's budget at 1 (it
+    reads wall time)."""
+    from denseslam_tpu_torch.models.system import PDController
+    from denseslam_tpu_torch.ops import ransac
+
+    argv = (["--dataset_root", kitti, "--frame_limit", str(CLI_CPU_FRAMES)]
+            + cli_map_flags()
+            + ["--sampler", "pallas", "--compute_depth", "--enable_backend",
+               "--online_correction"])
+    draw, update = ransac.draw_hypotheses, PDController.update
+    poses, seconds = {}, {}
+    try:
+        PDController.update = lambda self, ms: self.scale
+        for where in ("cuda", "cpu"):
+            gen = torch.Generator().manual_seed(0)
+            ransac.draw_hypotheses = (
+                lambda k, g, device=None, size=3, gen=gen: torch.randint(
+                    0, ransac._RAW_HIGH, (k, size), generator=gen).to(
+                    device if device is not None else g.device))
+            extra = (["--device", "cpu", "--profile_dir",
+                      os.path.join(CLI_DIR, "profile_cpu")]
+                     if where == "cpu" else [])
+            cap, _, seconds[where] = cli_run(argv + extra)
+            poses[where] = torch.tensor(np.stack(
+                [T for _, T in cap.slams[0].trajectory()]))
+    finally:
+        ransac.draw_hypotheses, PDController.update = draw, update
+    t_err, r_err = pose_errors(poses["cuda"], poses["cpu"], "CLI")
+    trace = os.path.join(CLI_DIR, "profile_cpu", "trace.json")
+    emit(dict(phase="cli_cpu_reference", frames=CLI_CPU_FRAMES,
+              pose_err_m=t_err, pose_err_rad=r_err,
+              trace_bytes=os.path.getsize(trace), seconds=seconds, gpu=gpu))
+
+
 def profile_tick(cfg, dev, cap, out: str):
     """torch.profiler over the captured tick's four parts on the card,
     each run from the card's state before the tick: local_ba,
@@ -3198,13 +3705,22 @@ def main(argv=None) -> int:
     orb = timed("orb", run_orb, scfg, dev, sfr, gpu)
     bilinear = timed("bilinear", run_bilinear, cfg, dev, run)
     timed("tracks", run_tracks, scfg, dev, gpu)
+    kitti, tum = timed("cli_datasets", cli_datasets)
+    cli = timed("cli", run_cli, dev, gpu, kitti)
+    cli_chunk = timed("cli_chunk", run_cli_chunk, dev, gpu, kitti)
+    cli_resume = timed("cli_resume", run_cli_resume, dev, gpu, kitti)
+    cli_rgbd = timed("cli_rgbd", run_cli_rgbd, dev, gpu, tum)
+    timed("cli_cpu_reference", run_cli_cpu_reference, dev, gpu, kitti)
     paths = dict(slice=run["launches"], rgbd=rgbd["launches"],
                  stereo=stereo["launches"], system=system["launches"],
                  submaps=submaps["launches"],
                  frame=frame["launches"], frame_vo=frame["vo_launches"],
                  icp=icp["launches"], mono=mono["launches"],
                  mono_frame=mono_frame["launches"], orb=orb["launches"],
-                 bilinear=bilinear["launches"])
+                 bilinear=bilinear["launches"], cli=cli["launches"],
+                 cli_chunk=cli_chunk["launches"],
+                 cli_resume=cli_resume["launches"],
+                 cli_rgbd=cli_rgbd["launches"])
     for rec in recs:
         rec["launches_by_path"] = {k: v[rec["name"]] for k, v in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

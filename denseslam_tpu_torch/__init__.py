@@ -22,8 +22,13 @@ Layer map (the ported slices):
                       online correction, DenseSLAM (one submap)
   models/backend.py — keyframes, local BA, culling, loop closure
   models/system.py  — SLAMSystem: the chunk scan + one backend tick a chunk
-  io/synthetic.py   — analytic street scene renderer (test and smoke input)
+  main.py           — the command line (python -m denseslam_tpu_torch.main)
+  io/datasets.py    — dataset reader; io/png.py, pfm.py, native.py codecs
+  io/trajectory.py, checkpoint.py — trajectories; the JAX checkpoint layout
+  io/synthetic.py   — analytic street scene renderer (test and smoke input);
+                      io/make_dataset.py writes it as a KITTI / TUM sequence
   io/convert.py     — JAX-package state (as numpy) <-> port state
+  utils/timing.py   — Tic/Toc timers on CUDA events
   eval/             — depth-vs-GT and trajectory metrics (numpy)
   kernels.py        — nvcc build of csrc/ at first use, ctypes bindings
 

@@ -8,8 +8,8 @@ with estimated global poses, host swapping under a memory budget,
 deferred corrections) and the host-side `DenseSLAM`: the per-frame
 `process_frame` (stereo, RGB-D or mono VO, or ICP against a render of
 the map), the renderers behind `raycast_view` and `raycast_composite`,
-the mesh export `save_mesh`, and what the chunk path of models/system.py
-uses.
+the mesh export `save_mesh`, the raycast dumps `save_raycast_depth` /
+`save_raycast_rgb`, and what the chunk path of models/system.py uses.
 
 The JAX package donates map and DB to each step; here both are updated in
 place and returned. Where the JAX version branches on a device value
@@ -28,6 +28,7 @@ import torch
 
 from ..config import SystemConfig
 from ..device import resolve_device
+from ..io import png
 from ..ops import features as feat_ops
 from ..ops import hash as vhash
 from ..ops import icp as icp_ops
@@ -42,6 +43,7 @@ from ..utils import lie
 from ..utils.camera import backproject, project
 from ..utils.image import (bilateral_filter_depth, depth_bilinear_sample,
                            rgb_to_gray)
+from ..utils.timing import TIMERS
 from . import frontend as fe
 from .backend import _stack_features, signature_device, upload
 
@@ -1044,6 +1046,11 @@ class DenseSLAM:
     writes the active submap's mesh. On `device` (None = the CUDA card;
     raises without one). The per-frame RANSAC draws come from `generator`,
     seeded by `seed`, unless `process_frame` is handed them.
+    `process_frame` times its stages on utils/timing.py's TIMERS
+    (`frontend`, `stereo_depth`, `fusion`); `fusion_ms` holds each fused
+    keyframe's fusion time. `prng_key` is the JAX frontend's RANSAC key
+    that a checkpoint carried (io/checkpoint.py writes it back; the port
+    draws from `generator`).
 
     Not ported: a sharded map (ROADMAP.md Queue A, A10); that option
     raises NotImplementedError."""
@@ -1068,6 +1075,8 @@ class DenseSLAM:
         self.pose_history: List[Tuple[int, np.ndarray]] = []
         self.last_fused_depth: Optional[torch.Tensor] = None
         self.last_fused_T: Optional[torch.Tensor] = None
+        self._fusion_laps = []
+        self.prng_key: Optional[np.ndarray] = None
         self._splat_cfg = splat_ops.SplatConfig(
             **dataclasses.asdict(cfg.splat))
 
@@ -1112,6 +1121,7 @@ class DenseSLAM:
         if right is not None and right.dim() == 3:
             right = rgb_to_gray(right)
 
+        TIMERS.tic("frontend")
         if pose_override is not None:
             T_wc = _pose_tensor(pose_override, self.device)
             self.fe_state = self.fe_state._replace(T_wc=T_wc)
@@ -1162,19 +1172,25 @@ class DenseSLAM:
                                  res.rmse]).cpu().numpy()
                 tracking_ok = bool(s[0])
                 vo_stats = dict(icp_rmse=float(s[1]))
+        TIMERS.toc("frontend", sync=T_wc)
 
         fused = False
         if ((depth is not None or right is not None) and tracking_ok
                 and self.frame % p.keyframe_every == 0):
             if depth is None:
+                TIMERS.tic("stereo_depth")
                 depth, _ = stereo_ops.compute_depth(left, right, cfg.rig,
                                                     cfg.stereo)
+                TIMERS.toc("stereo_depth", sync=depth)
             if cfg.postprocess.enabled and self.last_fused_depth is not None:
                 depth = depth_postprocess(depth, T_wc, self.last_fused_depth,
                                           self.last_fused_T, cfg)
+            TIMERS.tic("fusion")
             m, self.db = fuse_keyframe(self.submaps.active, self.db, depth,
                                        left, T_wc, self.frame, cfg)
             self.submaps.active = m
+            TIMERS.toc("fusion", sync=m.tsdf)
+            self._fusion_laps.append(TIMERS.last_lap("fusion"))
             self.last_fused_depth = depth
             self.last_fused_T = T_wc
             self.current_keyframes += 1
@@ -1522,6 +1538,33 @@ class DenseSLAM:
         tris = meshing.extract_mesh(self.submaps.active, self.cfg.tsdf)
         meshing.save_obj(path, tris)
         return int(tris.shape[0])
+
+    def save_raycast_depth(self, path: str, T_wc=None) -> None:
+        """16-bit PNG of the render at T_wc (default the current pose),
+        depth * 256 (reference: DenseSlam.cpp:573-603)."""
+        rc = self.raycast_view(T_wc)
+        png.write_png(path, rc_ops.depth_to_png16(rc.depth).cpu().numpy()
+                      .astype(np.uint16))
+
+    def save_raycast_rgb(self, path: str, T_wc=None) -> None:
+        """The render's colour preview, or its shaded gray preview when no
+        colour was fused (reference: DenseSlam.cpp:605-636). Its channels
+        go to the file as the JAX version's cv2.imwrite puts them: as BGR."""
+        rc = self.raycast_view(T_wc)
+        img = rc_ops.render_preview(rc, rc_ops.PREVIEW_COLOR).cpu().numpy()
+        if img.max() == 0:
+            img = rc_ops.render_preview(rc, rc_ops.PREVIEW_GRAY).cpu().numpy()
+        png.write_png(path, img)
+
+    @property
+    def fusion_ms(self) -> List[float]:
+        """Each fused keyframe's fusion time in `process_frame` (read from
+        the `fusion` timer's events)."""
+        return [lap.ms() for lap in self._fusion_laps]
+
+    def mean_fusion_ms(self) -> float:
+        ms = self.fusion_ms
+        return float(np.mean(ms)) if ms else 0.0
 
     @property
     def current_pose(self) -> np.ndarray:

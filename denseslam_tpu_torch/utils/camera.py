@@ -19,6 +19,19 @@ class Intrinsics(NamedTuple):
     width: int   # static python int — defines array shapes
     height: int  # static python int
 
+    def k_matrix(self, device=None) -> torch.Tensor:
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=device)
+
+    def scaled(self, s: float) -> "Intrinsics":
+        """Intrinsics for an image resized by factor s (the dataset
+        reader's input_scale); the size truncates, as int() does."""
+        return Intrinsics(
+            self.fx * s, self.fy * s, self.cx * s, self.cy * s,
+            int(self.width * s), int(self.height * s),
+        )
+
 
 class StereoRig(NamedTuple):
     """Rectified stereo rig: intrinsics + baseline in meters."""
@@ -61,3 +74,13 @@ def disparity_to_depth(disp: torch.Tensor, rig: StereoRig,
     depth = torch.where(valid, true_div(fb, torch.clamp(disp, min=1e-3)), zero)
     keep = valid & (depth >= min_depth_m) & (depth <= max_depth_m)
     return torch.where(keep, depth, zero)
+
+
+def depth_m_to_mm_i16(depth_m: torch.Tensor) -> torch.Tensor:
+    """Float meters -> int16 millimeters, saturating."""
+    mm = torch.round(depth_m * 1000.0)
+    return torch.clamp(mm, 0, 32767).to(torch.int16)
+
+
+def depth_mm_i16_to_m(depth_mm: torch.Tensor) -> torch.Tensor:
+    return depth_mm.to(torch.float32) * 1e-3

@@ -155,14 +155,39 @@ def _imported_modules(path):
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """Every import statement of the package and of chip_smoke.py, also
-    the ones inside functions that the subprocess check never runs."""
+    the ones inside functions that the subprocess check never runs: no
+    jax, no denseslam_tpu, and no cv2 or PIL (the port runs where
+    neither is installed; io/png.py stands in for them)."""
     paths = glob.glob(os.path.join(ROOT, "denseslam_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
     assert len(paths) > 10
     for path in paths:
         for name in _imported_modules(path):
-            assert name.split(".")[0] not in ("jax", "denseslam_tpu"), (
-                path, name)
+            assert name.split(".")[0] not in ("jax", "denseslam_tpu", "cv2",
+                                              "PIL"), (path, name)
+
+
+def test_command_line_and_io_modules_import_no_jax_cv2_or_pil():
+    """The command line and its IO modules exist, and importing them (and
+    the command line's parser) loads none of jax, denseslam_tpu, cv2 or
+    PIL."""
+    mods = ["main", "io.datasets", "io.pfm", "io.png", "io.native",
+            "io.trajectory", "io.checkpoint", "io.make_dataset",
+            "utils.timing"]
+    for m in mods:
+        assert os.path.exists(os.path.join(
+            ROOT, "denseslam_tpu_torch", *m.split(".")) + ".py"), m
+    code = (
+        "import sys\n"
+        + "".join(f"import denseslam_tpu_torch.{m}\n" for m in mods)
+        + "denseslam_tpu_torch.main.build_parser()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'denseslam_tpu', 'cv2', 'PIL')]\n"
+        "assert not bad, bad\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
 
 
 def test_kernel_wrappers_raise_off_the_cpu_and_never_fall_back():
