@@ -124,13 +124,15 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    identities as in `system` in both runs, tracking on >=
                    95% of frames, overflow 0, ATE bounds (FRAME_VO_ATE_M,
                    FRAME_ATE_M); then 20 more frames of the drive with the
-                   PD controller live, the last 16 profiled (device ms,
-                   launches, busy share, host syncs a frame); then the
-                   next frame (a keyframe) at the last live budget, from
-                   one state, profiled with process_frame's timers and
+                   PD controller live, the last 16 timed with their host
+                   syncs counted by torch.cuda.set_sync_debug_mode (with
+                   --profile: profiled, device ms, launches, busy share);
+                   then the next frame (a keyframe) at the last live
+                   budget, from one state, with process_frame's timers and
                    without them: the same host syncs (the timers add
-                   none); frames/s, the live budget's range and the first
-                   local BA's moves printed.
+                   none), and that count equal to the profiler's for the
+                   same frame, profiled once; frames/s, the live budget's
+                   range and the first local BA's moves printed.
  15. icp           internal odometry (use_external_odometry=False) on the
                    JAX package's own internal-ICP drive (default scene,
                    0.04 m a frame, rendered depth), 16 frames at 1226x370
@@ -220,7 +222,30 @@ Phases, one JSON line each; any failure raises and exits non-zero:
  27. cli_cpu_reference  the cli command's first 5 frames on the card and
                    with --device cpu (and --profile_dir): poses within 1 mm
                    / 1e-4 rad.
- 28. throughput    frames/s of stereo + fusion, of the fusion tail alone
+ 28. viewer        the cli command's first 16 frames with --live_viewer on
+                   a free port and --viewer_every 4, a client thread
+                   polling /state, fetching and decoding every pane
+                   (io/png.py), moving the free camera and recording its
+                   pane: the launch identity, tracking >= 95%, the panes
+                   input_rgb, scene_flow, raycast, raycast_depth and
+                   freeview at 370x1226 and not all zero, a recording of
+                   >= 2 frames whose .avi holds as many `idx1` entries and
+                   `00dc` JPEG chunks (FFD8 ... FFD9); the viewer's added
+                   seconds a frame (the same frames run without it just
+                   before) printed.
+ 29. tools         tools/scale_sequence.py --scale 0.5 on the cli sequence:
+                   calib.txt's P rows halved, images and disparities at
+                   half size (the disparities halved); the command line on
+                   the copy's first 8 frames: the launch identity,
+                   tracking on every frame.
+ 30. vo_drift      A4's drift golden (tests/test_vo_numerics.py:185) at
+                   its size and on its data: 96 frames of the loop at
+                   1226x370 under its noise, with the JAX frontend's RANSAC
+                   draws (both made on the card by utils/threefry.py),
+                   through open-loop vo_step: KITTI t_err < 0.6% and end
+                   error < 0.8% of the path; every estimate_gain call of
+                   the drive recomputed on the CPU equal bit for bit.
+ 31. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
@@ -407,34 +432,14 @@ def slice_config():
 
 def drive_config(sensor: str):
     """The drive of scripts/long_drive_eval.py:137-166 (1226x370, default
-    flags, online correction on) for `sensor` in the port's config
-    classes; the stereo drive as it is, the RGB-D drive with
-    tsdf.gray_color_fusion=False: its fusion samples true RGB through
-    kernel B2."""
-    from denseslam_tpu_torch.config import (OnlineCorrectionParams,
-                                            PipelineConfig, SlideWindowParams,
-                                            StereoConfig, SystemConfig,
-                                            TsdfConfig, VoxelDecayParams)
-    from denseslam_tpu_torch.utils.camera import Intrinsics, StereoRig
-    w, h = 1226, 370
-    intr = Intrinsics(fx=707.09, fy=707.09, cx=(w - 1) / 2.0,
-                      cy=(h - 1) / 2.0, width=w, height=h)
-    tsdf = TsdfConfig(
-        voxel_size_m=0.06, trunc_dist_m=0.24, table_slots=1 << 17,
-        max_visible_blocks=1 << 13, max_alloc_per_frame=1 << 13,
-        max_depth_m=40.0, sampler="pallas", alloc_subsample=2,
-        gray_color_fusion=sensor != "rgbd")
-    return SystemConfig(
-        rig=StereoRig(intr=intr, baseline_m=0.537), tsdf=tsdf,
-        stereo=StereoConfig(cost_dtype="bfloat16"),
-        decay=VoxelDecayParams(enabled=True, min_decay_age=30,
-                               max_decay_weight=2),
-        slide_window=SlideWindowParams(enabled=True, max_age=60),
-        correction=OnlineCorrectionParams(enabled=True, correction_num=5,
-                                          start_correction_num=4,
-                                          min_error=0.01),
-        pipeline=PipelineConfig(keyframe_every=4, fusion_db_capacity=64,
-                                sensor=sensor))
+    flags, online correction on; the port's tools/long_drive_eval.py
+    drive_config) for `sensor`: the stereo and mono drives as they are,
+    the RGB-D drive with tsdf.gray_color_fusion=False: its fusion samples
+    true RGB through kernel B2."""
+    from denseslam_tpu_torch.tools.long_drive_eval import drive_config as dc
+    cfg = dc(sensor)
+    return dataclasses.replace(cfg, tsdf=dataclasses.replace(
+        cfg.tsdf, gray_color_fusion=sensor != "rgbd"))
 
 
 def rgbd_frames(cfg, dev, seed: int = 0):
@@ -1339,33 +1344,6 @@ def verify_draws(k: int):
     return draws
 
 
-def system_setup(cfg):
-    """The flagship drive's ground truth (make_loop_trajectory(500,
-    radius_m=18, closure_frames=76)) and scene (loop_scene), as
-    scripts/long_drive_eval.py:187-189 makes them."""
-    from denseslam_tpu_torch.io import synthetic
-    gt = synthetic.make_loop_trajectory(
-        SYSTEM_LOOP_FRAMES, radius_m=18.0,
-        closure_frames=SYSTEM_FRAMES - SYSTEM_LOOP_FRAMES)
-    return gt, synthetic.loop_scene(gt)
-
-
-def system_chunk(cfg, gt, scene, lo: int, hi: int, gen, dev):
-    """Frames [lo, hi) of the drive as rectified pairs rendered on the
-    card, under the nuisance of scripts/long_drive_eval.py:229-238 (gain
-    1 + 0.15 sin(2 pi t / 150), photometric noise 2.0 on each image), the
-    noise drawn from the card's generator `gen`."""
-    from denseslam_tpu_torch.io import synthetic
-    lefts, rights, _ = synthetic.render_stereo_trajectory(
-        gt[lo:hi], cfg.rig, scene, device=dev)
-    t = torch.arange(lo, hi, dtype=torch.float32, device=dev)
-    gain = (1.0 + 0.15 * torch.sin(2 * math.pi * t / 150.0))[:, None, None]
-    nl = torch.randn(lefts.shape, generator=gen, device=dev)
-    nr = torch.randn(rights.shape, generator=gen, device=dev)
-    return (torch.clamp(lefts * gain + 2.0 * nl, 0, 255),
-            torch.clamp(rights * gain + 2.0 * nr, 0, 255))
-
-
 class TickCapture:
     """Records, for the first backend tick of a SLAMSystem that runs local
     BA without a reject and re-fuses keyframes, the state it read (the
@@ -1428,129 +1406,6 @@ class TickCapture:
             self.pre, self.apply, self.post = pre, a, self._snapshot(False)
 
 
-def eval_floor_m(cfg) -> float:
-    """The depth metrics' near limit, as scripts/long_drive_eval.py:270-275
-    sets it: the rig's resolvable depth for stereo, 0.5 m for a supplied
-    depth (rgbd, mono)."""
-    if cfg.pipeline.sensor in ("rgbd", "mono"):
-        return 0.5
-    return max(0.5, cfg.rig.intr.fx * cfg.rig.baseline_m
-               / (cfg.stereo.max_disparity - 1))
-
-
-def gt_depth(cfg, T, scene, dev) -> np.ndarray:
-    """The scene's depth seen from pose T (a (4, 4) tensor or array), 0
-    beyond the map's range."""
-    from denseslam_tpu_torch.io import synthetic
-    _, d = synthetic.render_view(T, cfg.rig.intr, scene, device=dev)
-    d = d.cpu().numpy()
-    d[d > cfg.tsdf.max_depth_m] = 0.0
-    return d
-
-
-def eval_renders(cfg, system, frames, base, lefts, rights, gt, scene, dev,
-                 render):
-    """scripts/long_drive_eval.py:421-490 on one chunk: for each eval
-    frame t, the map rendered by `render` (a pose -> Raycast) at t's
-    estimated pose, scored against the ground-truth depth at that pose
-    (`depth`) and at the true pose (`depth_gtpose`), and the frame's input
-    depth against the latter (`depth_input`: the SGM depth of the pair, or
-    for rgbd and mono the supplied depth, which `rights` then holds).
-    Returns the metrics of each frame."""
-    from denseslam_tpu_torch.eval import depth_metrics
-    from denseslam_tpu_torch.ops import stereo
-
-    lo, hi = eval_floor_m(cfg), cfg.tsdf.max_depth_m
-    out = []
-    for t in frames:
-        T_est = next(T for f, T in reversed(system.slam.pose_history)
-                     if f == t)
-        rc = render(T_est).depth.cpu().numpy()
-        gtd = gt_depth(cfg, gt[t], scene, dev)
-        if cfg.pipeline.sensor in ("rgbd", "mono"):
-            d_in = rights[t - base].cpu().numpy()
-        else:
-            d_in, v_in = stereo.compute_depth(
-                lefts[t - base], rights[t - base], cfg.rig, cfg.stereo,
-                max_depth_m=hi)
-            d_in = torch.where(v_in, d_in, 0.0).cpu().numpy()
-        out.append(dict(
-            depth=depth_metrics.depth_metrics(
-                rc, gt_depth(cfg, T_est, scene, dev), min_depth=lo,
-                max_depth=hi),
-            depth_gtpose=depth_metrics.depth_metrics(rc, gtd, min_depth=lo,
-                                                     max_depth=hi),
-            depth_input=depth_metrics.depth_metrics(d_in, gtd, min_depth=lo,
-                                                    max_depth=hi)))
-    return out
-
-
-def mean_metrics(per_frame, key):
-    """The nanmean of each metric over the eval frames, as
-    scripts/long_drive_eval.py:511-516 averages them."""
-    rows = [f[key] for f in per_frame]
-    return {k: float(np.nanmean([r[k] for r in rows])) for k in rows[0]}
-
-
-def drive_system(cfg, dev, system, gt, scene, render, cap=None,
-                 after_eval=None, frames: int = SYSTEM_FRAMES,
-                 eval_every: int = EVAL_EVERY, make_chunk=None):
-    """A loop drive through `system`: `frames` frames (the flagship
-    drive's 576 by default) in chunks of 64, each made on the card by
-    `make_chunk` (system_chunk by default; noise from a card generator
-    seeded 2) and run through SLAMSystem.process_chunk, the drive's depth
-    evaluation every `eval_every`-th fused keyframe through `render`
-    (eval_renders), then `after_eval()` after each chunk that had eval
-    frames, and finish(). Frames/s counts process_chunk's time from chunk
-    2 on, as scripts/long_drive_eval.py:296-298 does, less the copies of
-    a tick capture `cap`. Returns the tracking flags, the eval metrics and
-    frames, and the seconds."""
-    make_chunk = make_chunk or system_chunk
-    gen = torch.Generator(device=dev).manual_seed(2)
-    ok_frames, proc_s, proc_frames, synth_s = [], 0.0, 0, 0.0
-    evals, eval_ids, eval_s, kf_seen = [], [], 0.0, 0
-    every = cfg.pipeline.keyframe_every
-    t_all = time.perf_counter()
-    for base in range(0, frames, SYSTEM_CHUNK):
-        t0 = time.perf_counter()
-        lefts, rights = make_chunk(cfg, gt, scene, base,
-                                   base + SYSTEM_CHUNK, gen, dev)
-        torch.cuda.synchronize()
-        synth_s += time.perf_counter() - t0
-        cap_s = cap.seconds if cap is not None else 0.0
-        t0 = time.perf_counter()
-        out = system.process_chunk(lefts, rights)
-        dt = time.perf_counter() - t0
-        if cap is not None:
-            dt -= cap.seconds - cap_s
-        if base >= 2 * SYSTEM_CHUNK:
-            proc_s += dt
-            proc_frames += SYSTEM_CHUNK
-        okf = out["tracking_ok_frames"]
-        ok_frames.append(okf)
-        # every eval_every-th keyframe-slot frame that tracked, as
-        # scripts/long_drive_eval.py:373-378 picks them
-        picked = []
-        for i in range(SYSTEM_CHUNK):
-            if (base + i) % every == 0 and okf[i]:
-                if kf_seen % eval_every == 0:
-                    picked.append(base + i)
-                kf_seen += 1
-        t0 = time.perf_counter()
-        evals += eval_renders(cfg, system, picked, base, lefts, rights, gt,
-                              scene, dev, render)
-        if picked and after_eval is not None:
-            after_eval()
-        eval_ids += picked
-        eval_s += time.perf_counter() - t0
-    system.finish()
-    torch.cuda.synchronize()
-    return dict(ok_frames=ok_frames, evals=evals, eval_ids=eval_ids,
-                proc_s=proc_s, proc_frames=proc_frames,
-                wall_s=time.perf_counter() - t_all, synth_s=synth_s,
-                eval_s=eval_s)
-
-
 def count_purges(system):
     """Wrap the system's purge_keyframes to count the DB entries it drops;
     returns the one-element list that holds the count."""
@@ -1574,11 +1429,14 @@ def run_system(cfg, dev, gpu):
     Frames/s counts process_chunk's time from chunk 2 on, as
     scripts/long_drive_eval.py:296-298 does (less the tick capture's
     copies); the eval renders stay out of it, as there."""
+    from denseslam_tpu_torch.tools.long_drive_eval import (drive_system,
+                                                           mean_metrics,
+                                                           system_setup)
     from denseslam_tpu_torch import kernels
     from denseslam_tpu_torch.eval import traj_metrics
     from denseslam_tpu_torch.models.system import SLAMSystem
 
-    gt, scene = system_setup(cfg)
+    gt, scene = system_setup(SYSTEM_LOOP_FRAMES)
     k_verify = max(64, cfg.frontend.ransac_iters // 2)
     system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
                         verify_draws=verify_draws(k_verify))
@@ -1586,7 +1444,7 @@ def run_system(cfg, dev, gpu):
     purged = count_purges(system)
     kernels.reset_counts()
     d = drive_system(cfg, dev, system, gt, scene, system.slam.raycast_view,
-                     cap=cap)
+                     cap=cap, frames=SYSTEM_FRAMES, eval_every=EVAL_EVERY)
     launches = dict(kernels.launch_counts)
     ok_frames, evals, eval_ids = d["ok_frames"], d["evals"], d["eval_ids"]
     proc_s, proc_frames = d["proc_s"], d["proc_frames"]
@@ -1791,12 +1649,15 @@ def run_submaps(cfg, dev, gpu, ref):
     `ref` is the `system` phase's SLAMSystem: every pose must be within
     1e-4 m of its pose for the same frame (the submaps leave the
     trajectory alone). Then check_memory_freed on a spilled submap."""
+    from denseslam_tpu_torch.tools.long_drive_eval import (drive_system,
+                                                           mean_metrics,
+                                                           system_setup)
     from denseslam_tpu_torch import kernels
     from denseslam_tpu_torch.eval import traj_metrics
     from denseslam_tpu_torch.models.system import SLAMSystem
 
     scfg = submaps_config(cfg)
-    gt, scene = system_setup(scfg)
+    gt, scene = system_setup(SYSTEM_LOOP_FRAMES)
     k_verify = max(64, scfg.frontend.ransac_iters // 2)
     system = SLAMSystem(scfg, ba_every=4, loop_every=2, device=dev,
                         verify_draws=verify_draws(k_verify))
@@ -1835,7 +1696,8 @@ def run_submaps(cfg, dev, gpu, ref):
     sm.finalize_spills = checked_finalize
     kernels.reset_counts()
     d = drive_system(scfg, dev, system, gt, scene, render,
-                     after_eval=after_eval)
+                     after_eval=after_eval, frames=SYSTEM_FRAMES,
+                     eval_every=EVAL_EVERY)
     launches = dict(kernels.launch_counts)
 
     be = system.backend
@@ -2019,6 +1881,8 @@ def run_render(cfg, dev, fr, stereo, gpu, out=None):
     busy share, host syncs); then the splat z-buffer of the same map
     cloned to the CPU, whose keys must equal the card's on >= 99.9% of
     pixels."""
+    from denseslam_tpu_torch.tools.long_drive_eval import (eval_floor_m,
+                                                           gt_depth)
     from denseslam_tpu_torch import kernels
     from denseslam_tpu_torch.eval import depth_metrics
     from denseslam_tpu_torch.io import synthetic
@@ -2163,12 +2027,32 @@ def frame_stats(run, gt) -> dict:
                   for f, (a, b) in sorted(run["first_ba"].items())])
 
 
+def sync_count(fn):
+    """Run fn() under torch.cuda.set_sync_debug_mode("warn"): its result
+    and the host syncs it made (cudaStreamSynchronize /
+    cudaDeviceSynchronize behind a read-back, a blocking copy or a
+    synchronize), counted from the warnings."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return res, sum("synchroniz" in str(w.message) for w in caught)
+
+
 def live_window(run, lefts, rights, out=None):
     """The PD controller of drive_frames run `run` live again, in its own
     range, on the frames after the drive: the first FRAME_WINDOW_WARM of
-    `lefts`/`rights` warm up, the next FRAME_WINDOW run under profile_part
-    (device ms, launches, busy share, host syncs a frame). Returns the
-    profile record and the budget scales the window visited."""
+    `lefts`/`rights` warm up, the next FRAME_WINDOW run timed on the host
+    clock with their host syncs counted (sync_count); with `out`
+    (--profile) under profile_part instead (device ms, launches, busy
+    share, host syncs a frame, and the table). Returns the record and the
+    budget scales the window visited."""
     system = run["system"]
     system.pd.lo, system.pd.hi = run["pd_range"]
     spans = ((0, FRAME_WINDOW_WARM),
@@ -2181,18 +2065,28 @@ def live_window(run, lefts, rights, out=None):
                                                rights[j])["budget_scale"])
         return i + 1
 
-    _, rec = profile_part("frame", FRAME_WINDOW, frames, 0, out)
-    return rec, scales
+    if out:
+        _, rec = profile_part("frame", FRAME_WINDOW, frames, 0, out)
+        return rec, scales
+    frames(0)
+    t0 = time.perf_counter()
+    _, syncs = sync_count(lambda: frames(1))
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return dict(wall_ms=wall_ms, device_busy_share=None,
+                per_frame=dict(device_ms=None, launches=None,
+                               host_syncs=syncs / FRAME_WINDOW)), scales
 
 
 def timer_syncs(run, lefts, rights, out=None):
     """The timers' own host syncs: the next FRAME_TIMER_AB frames of the
     drive (`lefts`, `rights`; the first is a keyframe) through the live
-    window's system, its RANSAC budget pinned at
-    the last live value, each run from the same state (io/convert.py's
-    snapshot and the generator's state) under profile_part, once with
-    utils/timing.py's TIMERS as they are and once with tic and toc doing
-    nothing. Returns both records."""
+    window's system, its RANSAC budget pinned at the last live value, each
+    run from the same state (io/convert.py's snapshot and the generator's
+    state) after a warm-up run from it, once with utils/timing.py's TIMERS
+    as they are and once with tic and toc doing nothing, their host syncs
+    counted by sync_count; then the timed run once more under
+    profile_part, whose count of the runtime's sync calls checks that
+    reading. Returns the syncs a frame of each mode and the profiler's."""
     from denseslam_tpu_torch.io import convert
     from denseslam_tpu_torch.utils.timing import TIMERS, Lap
 
@@ -2201,6 +2095,7 @@ def timer_syncs(run, lefts, rights, out=None):
     key = np.zeros(2, np.uint32)
     snap = convert.system_state_to_numpy(system, key)
     gen = system.generator.get_state()
+    n = lefts.shape[0]
 
     def setup():
         convert.system_state_from_numpy(snap, system)
@@ -2208,7 +2103,7 @@ def timer_syncs(run, lefts, rights, out=None):
         return 0
 
     def frames(i):
-        for j in range(lefts.shape[0]):
+        for j in range(n):
             system.process_frame(lefts[j], rights[j])
         return i
 
@@ -2220,11 +2115,17 @@ def timer_syncs(run, lefts, rights, out=None):
             for k, fn in off.items():
                 setattr(TIMERS, k, fn)
         try:
-            recs[mode] = profile_part(f"frame_{mode}", lefts.shape[0], frames,
-                                      0, out, setup=setup)[1]
+            frames(setup())
+            setup()
+            t0 = time.perf_counter()
+            _, syncs = sync_count(lambda: frames(0))
+            recs[mode] = dict(host_syncs=syncs / n,
+                              wall_ms=(time.perf_counter() - t0) * 1e3)
         finally:
             for k in off:
                 TIMERS.__dict__.pop(k, None)
+    prof = profile_part("frame_timers_on", n, frames, 0, out, setup=setup)[1]
+    recs["profiler"] = prof["per_frame"]["host_syncs"]
     return recs
 
 
@@ -2235,11 +2136,15 @@ def run_frame(cfg, dev, gpu, out=None):
     RANSAC budget pinned at FRAME_PD_SCALE; then the same frames with the
     backend off (ba_every=0, loop_every=0): the VO and fusion alone; then,
     on the backend run, the next FRAME_WINDOW_WARM + FRAME_WINDOW frames of
-    the drive with the PD controller live (live_window). Gates: tracking
-    on >= 95% of frames, overflow 0 and the launch identity in both runs;
-    ATE <= FRAME_VO_ATE_M for the VO alone and <= FRAME_ATE_M with the
-    backend. Frames/s counts the frames after the first 16."""
-    gt, scene = system_setup(cfg)
+    the drive with the PD controller live (live_window), then the timers'
+    A/B (timer_syncs). Gates: tracking on >= 95% of frames, overflow 0 and
+    the launch identity in both runs; ATE <= FRAME_VO_ATE_M for the VO
+    alone and <= FRAME_ATE_M with the backend; the timers add no host sync,
+    and the sync count of the timed frame equals the profiler's. Frames/s
+    counts the frames after the first 16."""
+    from denseslam_tpu_torch.tools.long_drive_eval import (system_chunk,
+                                                           system_setup)
+    gt, scene = system_setup(SYSTEM_LOOP_FRAMES)
     gen = torch.Generator(device=dev).manual_seed(2)
     chunks = [system_chunk(cfg, gt, scene, base,
                            min(base + SYSTEM_CHUNK, FRAME_FRAMES), gen, dev)
@@ -2253,8 +2158,7 @@ def run_frame(cfg, dev, gpu, out=None):
     lefts, rights = system_chunk(cfg, gt, scene, end, end + FRAME_TIMER_AB,
                                  gen, dev)
     ab = timer_syncs(run, lefts, rights, out)
-    on, off = (ab[k]["per_frame"]["host_syncs"]
-               for k in ("timers_on", "timers_off"))
+    on, off = (ab[k]["host_syncs"] for k in ("timers_on", "timers_off"))
     emit(dict(phase="frame", frames=FRAME_FRAMES, budget_scale=FRAME_PD_SCALE,
               **full, vo_only=vo,
               live=dict(frames=[FRAME_FRAMES, end],
@@ -2266,6 +2170,7 @@ def run_frame(cfg, dev, gpu, out=None):
                         wall_ms_per_frame=prof["wall_ms"] / FRAME_WINDOW),
               timers=dict(frames=[end, end + FRAME_TIMER_AB],
                           host_syncs_on=on, host_syncs_off=off,
+                          host_syncs_profiler=ab["profiler"],
                           wall_ms_on=ab["timers_on"]["wall_ms"],
                           wall_ms_off=ab["timers_off"]["wall_ms"]),
               gpu=gpu))
@@ -2274,7 +2179,8 @@ def run_frame(cfg, dev, gpu, out=None):
                  overflow=full["overflow"] == vo["overflow"] == 0,
                  ate_vo=vo["ate_rmse_m"] <= FRAME_VO_ATE_M,
                  ate=full["ate_rmse_m"] <= FRAME_ATE_M,
-                 timer_syncs=on == off)
+                 timer_syncs=on == off,
+                 sync_reading=on == ab["profiler"])
     if not all(gates.values()):
         raise AssertionError(f"frame gates failed: {gates}")
     return dict(launches=full["launches"], vo_launches=vo["launches"])
@@ -2367,44 +2273,16 @@ def run_icp(cfg, dev, gpu):
     return dict(launches=launches)
 
 
-def mono_setup():
-    """The mono drive's ground truth (make_loop_trajectory(300,
-    radius_m=18, closure_frames=84)) and scene (loop_scene), as
-    scripts/long_drive_eval.py:187-189 makes them for --frames 300."""
-    from denseslam_tpu_torch.io import synthetic
-    gt = synthetic.make_loop_trajectory(
-        MONO_LOOP_FRAMES, radius_m=18.0,
-        closure_frames=MONO_FRAMES - MONO_LOOP_FRAMES)
-    return gt, synthetic.loop_scene(gt)
-
-
-def mono_chunk(cfg, gt, scene, lo: int, hi: int, gen, dev):
-    """Frames [lo, hi) of the mono drive as (grays, supplied depths)
-    rendered on the card, under the depth-sensor model of
-    scripts/long_drive_eval.py:240-254 (gain 1 + 0.15 sin(2 pi t / 150),
-    photometric noise 2.0, 1% relative depth noise, 5% holes, no depth
-    past max_depth_m), the noise drawn from the card's generator `gen`."""
-    from denseslam_tpu_torch.io import synthetic
-    grays, depths = synthetic.render_trajectory(gt[lo:hi], cfg.rig.intr,
-                                                scene, device=dev)
-    t = torch.arange(lo, hi, dtype=torch.float32, device=dev)
-    gain = (1.0 + 0.15 * torch.sin(2 * math.pi * t / 150.0))[:, None, None]
-    photo = torch.randn(grays.shape, generator=gen, device=dev)
-    rel = torch.randn(depths.shape, generator=gen, device=dev)
-    holes = torch.rand(depths.shape, generator=gen, device=dev) < 0.05
-    drop = holes | (depths <= 0) | (depths > cfg.tsdf.max_depth_m)
-    return (torch.clamp(grays * gain + 2.0 * photo, 0, 255),
-            torch.where(drop, 0.0, depths * (1.0 + 0.01 * rel)))
-
-
 def mono_frames(cfg, dev, n: int, seed: int):
     """The mono drive's first n frames, as its first chunk made them (the
     same generator), the ground truth, and n frames of 8-point draws from
     a CPU generator seeded `seed`, on the card."""
+    from denseslam_tpu_torch.tools.long_drive_eval import (depth_chunk,
+                                                           system_setup)
     from denseslam_tpu_torch.ops import ransac
-    gt, scene = mono_setup()
+    gt, scene = system_setup(MONO_LOOP_FRAMES)
     gen = torch.Generator(device=dev).manual_seed(2)
-    grays, depths = mono_chunk(cfg, gt, scene, 0, SYSTEM_CHUNK, gen, dev)
+    grays, depths = depth_chunk(cfg, gt, scene, 0, SYSTEM_CHUNK, gen, dev)
     cpu_gen = torch.Generator().manual_seed(seed)
     draws = torch.stack([ransac.draw_hypotheses(cfg.frontend.ransac_iters,
                                                 cpu_gen, size=8)
@@ -2466,12 +2344,16 @@ def run_mono(cfg, dev, gpu):
     failures apart, none other allowed. The ATE gate holds the median of
     this drive's and MONO_ATE_DRAWS - 1 more drives' (other 8-point
     draws, no eval). Frames/s from chunk 2 on, the eval kept out of it."""
+    from denseslam_tpu_torch.tools.long_drive_eval import (depth_chunk,
+                                                           drive_system,
+                                                           mean_metrics,
+                                                           system_setup)
     from denseslam_tpu_torch import kernels
     from denseslam_tpu_torch.eval import traj_metrics
     from denseslam_tpu_torch.models.system import SLAMSystem
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
 
-    gt, scene = mono_setup()
+    gt, scene = system_setup(MONO_LOOP_FRAMES)
     system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
                         verify_draws=verify_draws(
                             max(64, cfg.frontend.ransac_iters // 2)))
@@ -2481,7 +2363,7 @@ def run_mono(cfg, dev, gpu):
     try:
         d = drive_system(cfg, dev, system, gt, scene,
                          system.slam.raycast_view, frames=MONO_FRAMES,
-                         eval_every=MONO_EVAL_EVERY, make_chunk=mono_chunk)
+                         eval_every=MONO_EVAL_EVERY, make_chunk=depth_chunk)
     finally:
         unwrap()
     launches = dict(kernels.launch_counts)
@@ -2555,6 +2437,7 @@ def run_mono(cfg, dev, gpu):
 def mono_ate(cfg, dev, gt, scene, seed: int) -> float:
     """The mono drive again (the same frames and noise, no eval) with the
     8-point draws of the system's generator seeded `seed`: its ATE."""
+    from denseslam_tpu_torch.tools.long_drive_eval import depth_chunk
     from denseslam_tpu_torch.eval import traj_metrics
     from denseslam_tpu_torch.models.system import SLAMSystem
 
@@ -2563,7 +2446,7 @@ def mono_ate(cfg, dev, gt, scene, seed: int) -> float:
                             max(64, cfg.frontend.ransac_iters // 2)))
     gen = torch.Generator(device=dev).manual_seed(2)
     for base in range(0, MONO_FRAMES, SYSTEM_CHUNK):
-        system.process_chunk(*mono_chunk(cfg, gt, scene, base,
+        system.process_chunk(*depth_chunk(cfg, gt, scene, base,
                                          base + SYSTEM_CHUNK, gen, dev))
     system.finish()
     est = [T for _, T in system.trajectory()]
@@ -2752,6 +2635,7 @@ def run_mesh(cfg, dev, system, gpu):
     poses); the same map meshed on the CPU: the same triangles within
     1e-5 m. Also the card's extraction time at 512 blocks a chunk (the
     JAX version's) and 4096."""
+    from denseslam_tpu_torch.tools.long_drive_eval import system_setup
     from denseslam_tpu_torch.models.dense_slam import copy_map
     from denseslam_tpu_torch.ops import meshing
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
@@ -2780,7 +2664,7 @@ def run_mesh(cfg, dev, system, gpu):
     cpu_err = float(np.abs(tris - tris_c).max()) if n else 0.0
     vsz = cfg.tsdf.voxel_size_m
     edge = float(np.linalg.norm(tris[:, [1, 2, 0]] - tris, axis=-1).max())
-    _, scene = system_setup(cfg)
+    _, scene = system_setup(SYSTEM_LOOP_FRAMES)
     d = surface_distances(torch.as_tensor(tris.reshape(-1, 3), device=dev),
                           scene)
     d = d.cpu().numpy()
@@ -3138,7 +3022,7 @@ def run_cli(dev, gpu, kitti):
                  and summary["frames"] == CLI_FRAMES)
     if not all(gates.values()):
         raise AssertionError(f"cli gates failed: {gates}")
-    return dict(launches=launches)
+    return dict(launches=launches, seconds=seconds)
 
 
 def run_cli_chunk(dev, gpu, kitti):
@@ -3306,6 +3190,352 @@ def run_cli_cpu_reference(dev, gpu, kitti):
     emit(dict(phase="cli_cpu_reference", frames=CLI_CPU_FRAMES,
               pose_err_m=t_err, pose_err_rad=r_err,
               trace_bytes=os.path.getsize(trace), seconds=seconds, gpu=gpu))
+
+
+VIEWER_FRAMES = 16
+VIEWER_EVERY = 4
+# the panes the per-frame path serves with --compute_depth (no input depth)
+VIEWER_PANES = ("input_rgb", "scene_flow", "raycast", "raycast_depth",
+                "freeview")
+TOOLS_FRAMES = 8
+# A4's drift golden (tests/test_vo_numerics.py:185-238) at its own size
+DRIFT_FRAMES = 96
+DRIFT_T_ERR_PCT = 0.6
+DRIFT_END_PCT = 0.8
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def avi_chunks(path: str):
+    """The `00dc` chunks of a RIFF AVI (its LISTs walked) and the entries
+    of its `idx1`, read here without the writer's code."""
+    import struct
+
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise AssertionError(f"{path} is not a RIFF AVI")
+    chunks, index = [], []
+
+    def walk(pos, end):
+        while pos + 8 <= end:
+            fourcc = data[pos:pos + 4]
+            size = struct.unpack("<I", data[pos + 4:pos + 8])[0]
+            body = pos + 8
+            if fourcc == b"LIST":
+                walk(body + 4, body + size)
+            elif fourcc == b"00dc":
+                chunks.append(data[body:body + size])
+            elif fourcc == b"idx1":
+                index.extend(data[body + k:body + k + 4]
+                             for k in range(0, size, 16))
+            pos = body + size + (size & 1)
+
+    walk(12, len(data))
+    return chunks, index
+
+
+class ViewerClient:
+    """A dashboard client in a thread of its own while the command line
+    runs: polls the live viewer's /state every 50 ms, fetches every pane it
+    lists and decodes it (io/png.py), sends one /freeview/nav once panes
+    appear, starts a /record of the freeview pane once that pane appears
+    and stops it after two recorded frames. Connection errors end it once
+    the viewer has answered (the run closed it); any other error is kept
+    in `error`."""
+
+    def __init__(self, port: int):
+        import threading
+        self.port = port
+        self.done = threading.Event()
+        self.panes, self.states, self.last = {}, 0, None
+        self.nav = self.record = self.stopped = self.error = None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _get(self, path: str) -> bytes:
+        import urllib.request
+        with urllib.request.urlopen(f"http://127.0.0.1:{self.port}{path}",
+                                    timeout=10) as r:
+            return r.read()
+
+    def _poll(self) -> None:
+        from denseslam_tpu_torch.io import png
+        st = json.loads(self._get("/state"))
+        self.states += 1
+        self.last = st
+        for name in st["panes"]:
+            img = png.decode_png(self._get(f"/pane/{name}"))
+            self.panes[name] = dict(shape=list(img.shape),
+                                    nonzero=float((img > 0).mean()))
+        if st["panes"] and self.nav is None:
+            self.nav = json.loads(self._get("/freeview/nav?daz=0.4&del=0.1"))
+        if "freeview" in st["panes"] and self.record is None:
+            self.record = json.loads(self._get(
+                "/record?action=start&pane=freeview"))
+        if (self.record is not None and self.stopped is None
+                and st["recorded_frames"] >= 2):
+            self.stopped = json.loads(self._get("/record?action=stop"))
+
+    def _run(self) -> None:
+        import urllib.error
+        while not self.done.is_set():
+            try:
+                self._poll()
+            except (urllib.error.URLError, ConnectionError):
+                if self.states:
+                    return
+                time.sleep(0.05)
+                continue
+            except Exception as e:             # kept, and failed on below
+                self.error = repr(e)
+                return
+            time.sleep(0.05)
+
+    def close(self) -> None:
+        self.done.set()
+        self.thread.join(timeout=30)
+
+
+def run_viewer(dev, gpu, kitti, cli_rec):
+    """The command line with the live viewer: the first VIEWER_FRAMES
+    frames of the `cli` sequence with its flags and --live_viewer on a free
+    port, --viewer_every VIEWER_EVERY, a ViewerClient polling it; the
+    launch counts set to 0 just before and read just after. Gates: the
+    launch identity of `cli`, tracking >= 95%, every pane of VIEWER_PANES
+    fetched, decoded at the sequence's size and not all zero, the free
+    camera moved
+    and its pane served, a recording of >= 2 frames started and stopped,
+    its .avi's `idx1` entries as many as the recorded frames and its `00dc`
+    chunks, each a JPEG (FFD8 ... FFD9). Prints the viewer's added wall
+    seconds a frame (against the same frames run without it just before)
+    and `cli`'s seconds a frame."""
+    out = os.path.join(CLI_DIR, "out_viewer")
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    argv = (["--dataset_root", kitti, "--frame_limit", str(VIEWER_FRAMES)]
+            + cli_map_flags()
+            + ["--sampler", "pallas", "--compute_depth", "--enable_backend",
+               "--online_correction", "--live_viewer", str(port),
+               "--viewer_every", str(VIEWER_EVERY)])
+    # the same frames without the viewer first: its added seconds a frame
+    plain_s = cli_run(argv[:argv.index("--live_viewer")])[2]
+    cwd = os.getcwd()
+    os.chdir(out)                     # recordings land in the working dir
+    client = ViewerClient(port)
+    try:
+        cap, launches, seconds = cli_run(argv)
+    finally:
+        client.close()
+        os.chdir(cwd)
+    outs = cap.outs
+    fused = sum(o["fused"] for o in outs)
+    refused = cli_launch_check(cap, launches, fused)
+    track = float(np.mean([o["tracking_ok"] for o in outs[1:]]))
+    rec_path = (os.path.normpath(os.path.join(out, client.record["path"]))
+                if client.record and client.record.get("path") else None)
+    chunks, index = avi_chunks(rec_path) if rec_path else ([], [])
+    recorded = client.stopped["frames"] if client.stopped else 0
+    cli_s_frame = cli_rec["seconds"] / CLI_FRAMES
+    emit(dict(phase="viewer", frames=len(outs), fused=fused, refused=refused,
+              launches=launches, tracking_ok_share=track, states=client.states,
+              panes=client.panes, recording=rec_path, recorded_frames=recorded,
+              avi_chunks=len(chunks), avi_index=len(index),
+              avi_bytes=(os.path.getsize(rec_path) if rec_path else 0),
+              seconds=seconds, s_per_frame=seconds / len(outs),
+              plain_s_per_frame=plain_s / len(outs),
+              viewer_added_s_per_frame=(seconds - plain_s) / len(outs),
+              cli_s_per_frame=cli_s_frame, cli_fps=1.0 / cli_s_frame,
+              client_error=client.error, gpu=gpu))
+    from denseslam_tpu_torch.io import png
+    hw = list(png.read_png(os.path.join(kitti, "image_0",
+                                        "000000.png")).shape[:2])
+    shapes_ok = all(
+        name in client.panes and client.panes[name]["shape"][:2] == hw
+        and client.panes[name]["nonzero"] > 0 for name in VIEWER_PANES)
+    gates = dict(
+        client=(client.error is None and client.states >= 1
+                and not client.thread.is_alive()),
+        tracking=track >= 0.95, frames=len(outs) == VIEWER_FRAMES,
+        panes=shapes_ok, nav=client.nav is not None,
+        record=(recorded >= 2 and client.record is not None
+                and client.record["recording"] == "freeview"),
+        avi=(len(index) == len(chunks) == recorded
+             and all(c[:2] == b"\xff\xd8" and c[-2:] == b"\xff\xd9"
+                     for c in chunks)))
+    if not all(gates.values()):
+        raise AssertionError(f"viewer gates failed: {gates}")
+    return dict(launches=launches)
+
+
+def run_tools(dev, gpu, kitti):
+    """tools/scale_sequence.py --scale 0.5 on the `cli` sequence into
+    build/cli/kitti_half, read back: calib.txt's P rows scaled by 0.5
+    (the baseline kept), every image and disparity PFM at half size, the
+    disparities halved; then the command line on its first TOOLS_FRAMES
+    frames (the `cli` map flags, --sampler pallas --compute_depth, no
+    backend), the launch counts set to 0 just before and read just after:
+    the launch identity, tracking on every frame."""
+    import shutil
+
+    from denseslam_tpu_torch.eval import traj_metrics
+    from denseslam_tpu_torch.io import datasets, pfm, png, trajectory
+    from denseslam_tpu_torch.tools import scale_sequence
+
+    half = os.path.join(CLI_DIR, "kitti_half")
+    shutil.rmtree(half, ignore_errors=True)
+    t0 = time.perf_counter()
+    if scale_sequence.main([kitti, half, "--scale", "0.5"]) != 0:
+        raise AssertionError("scale_sequence returned non-zero")
+    scale_s = time.perf_counter() - t0
+    (fi, fb), (hi, hb) = (datasets.read_kitti_calib(os.path.join(
+        d, "calib.txt")) for d in (kitti, half))
+    calib_ok = (all(abs(2 * getattr(hi, k) - getattr(fi, k)) <= 1e-9
+                    * abs(getattr(fi, k)) for k in ("fx", "fy", "cx", "cy"))
+                and abs(hb - fb) <= 1e-9 * fb)
+    fh, fw = png.read_png(os.path.join(kitti, "image_0",
+                                       "000000.png")).shape[:2]
+    size = (round(fw * 0.5), round(fh * 0.5))
+    shapes, disp_ok = set(), True
+    for folder in ("image_0", "image_1", "precomputed-depth"):
+        names = sorted(os.listdir(os.path.join(kitti, folder)))
+        if sorted(os.listdir(os.path.join(half, folder))) != names:
+            raise AssertionError(f"{folder}: the copy lacks files")
+        for name in names[:2] + names[-1:]:
+            a, b = (os.path.join(d, folder, name) for d in (kitti, half))
+            if name.endswith(".pfm"):
+                full, small = pfm.read_pfm(a), pfm.read_pfm(b)
+                disp_ok &= bool(np.array_equal(
+                    small, png.resize_nearest(full, size)
+                    * np.float32(0.5)))
+            else:
+                small = png.read_png(b)
+            shapes.add(small.shape)
+    cap, launches, seconds = cli_run(
+        ["--dataset_root", half, "--frame_limit", str(TOOLS_FRAMES)]
+        + cli_map_flags() + ["--sampler", "pallas", "--compute_depth"])
+    outs = cap.outs
+    fused = sum(o["fused"] for o in outs)
+    cli_launch_check(cap, launches, fused)
+    # the tool copies no poses.txt (scripts/scale_sequence.py's list)
+    gt = trajectory.load_kitti(os.path.join(kitti, "poses.txt"))
+    est = [o["T_wc"] for o in outs]
+    emit(dict(phase="tools", scale_s=scale_s, calib=dict(
+                  fx=[fi.fx, hi.fx], cx=[fi.cx, hi.cx], baseline=[fb, hb]),
+              shapes=sorted(list(x) for x in shapes), frames=len(outs),
+              fused=fused, launches=launches,
+              tracking=[bool(o["tracking_ok"]) for o in outs],
+              ate_rmse_m=traj_metrics.ate_rmse(est, gt[:len(est)]),
+              seconds=seconds, gpu=gpu))
+    gates = dict(calib=calib_ok, shapes=shapes == {size[::-1]},
+                 disparities=disp_ok, frames=len(outs) == TOOLS_FRAMES,
+                 tracking=all(o["tracking_ok"] for o in outs[1:]))
+    if not all(gates.values()):
+        raise AssertionError(f"tools gates failed: {gates}")
+    return dict(launches=launches)
+
+
+def run_vo_drift(dev, gpu):
+    """A4's drift golden (tests/test_vo_numerics.py:185-238) on the port
+    at its own size and with its own data: the flagship loop's first
+    DRIFT_FRAMES frames (make_loop_trajectory(500, 18 m, 44 closure
+    frames), loop_scene, 1226x370, fx 707.09, baseline 0.537 m) under its
+    nuisance (gain 1 + 0.15 sin(2 pi t / 150), Gaussian noise of sigma 2.0
+    from the key fold_in(PRNGKey(0), t) split in two, one per image),
+    through open-loop frontend.vo_step with the default frontend and the
+    RANSAC draws of the JAX frontend's key (PRNGKey(0), split once a
+    frame); the JAX draws are made on the card by utils/threefry.py (the
+    noise within a few float32 ulps of JAX's, the draws equal). Gates:
+    the KITTI translation error over 10 and 15 m segments <
+    DRIFT_T_ERR_PCT and the end-point error < DRIFT_END_PCT of the path;
+    and every estimate_gain call of the drive (the exposure, in every
+    stereo VO step) recomputed on the CPU from the same inputs gives the
+    card's float32, bit for bit."""
+    from denseslam_tpu_torch.config import (StereoConfig, TsdfConfig,
+                                            tiny_test_config)
+    from denseslam_tpu_torch.eval import traj_metrics
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.models import frontend
+    from denseslam_tpu_torch.ops import matching
+    from denseslam_tpu_torch.utils import threefry
+    from denseslam_tpu_torch.utils.camera import Intrinsics, StereoRig
+
+    w, h = 1226, 370
+    intr = Intrinsics(fx=707.09, fy=707.09, cx=(w - 1) / 2.0,
+                      cy=(h - 1) / 2.0, width=w, height=h)
+    cfg = dataclasses.replace(
+        tiny_test_config(), rig=StereoRig(intr=intr, baseline_m=0.537),
+        tsdf=TsdfConfig(table_slots=1 << 10),
+        stereo=StereoConfig(max_disparity=64))
+    gt_full = synthetic.make_loop_trajectory(500, radius_m=18.0,
+                                             closure_frames=44)
+    scene = synthetic.loop_scene(gt_full)
+    gt = gt_full[:DRIFT_FRAMES]
+    k = cfg.frontend.ransac_iters
+    noise_key = threefry.prng_key(0, dev)
+    vo_key = threefry.prng_key(0, dev)
+    gain_fn, calls = matching.estimate_gain, []
+
+    def recorded(*a, **kw):
+        g = gain_fn(*a, **kw)
+        calls.append(([x.clone() if torch.is_tensor(x) else x for x in a],
+                      kw, g.clone()))
+        return g
+
+    matching.estimate_gain = recorded
+    state = frontend.init_frontend(cfg, device=dev)
+    est, t0 = [], time.perf_counter()
+    try:
+        for base in range(0, DRIFT_FRAMES, 16):
+            hi = min(base + 16, DRIFT_FRAMES)
+            lg, rg, _ = synthetic.render_stereo_trajectory(
+                gt[base:hi], cfg.rig, scene, device=dev)
+            for i in range(hi - base):
+                t = base + i
+                fi = torch.tensor(float(t), dtype=torch.float32, device=dev)
+                g = 1.0 + 0.15 * torch.sin(2 * math.pi * fi / 150.0)
+                kl, kr = threefry.split(threefry.fold_in(noise_key, t))
+                left = torch.clamp(lg[i] * g + 2.0 * threefry.normal(
+                    kl, (h, w)), 0, 255)
+                right = torch.clamp(rg[i] * g + 2.0 * threefry.normal(
+                    kr, (h, w)), 0, 255)
+                vo_key, sub = threefry.split(vo_key)
+                draws = threefry.randint(sub, (k, 3), 0, 2 ** 31 - 1)
+                state, out = frontend.vo_step(state, left, right, cfg,
+                                              raw=draws)
+                est.append(out.T_wc.cpu().numpy().astype(np.float64))
+    finally:
+        matching.estimate_gain = gain_fn
+    seconds = time.perf_counter() - t0
+    gtl = [gt[i] for i in range(DRIFT_FRAMES)]
+    kitti = traj_metrics.kitti_sequence_errors(est, gtl, lengths=(10, 15))
+    path_m = float(np.sum(np.linalg.norm(np.diff(
+        np.stack([T[:3, 3] for T in gtl]), axis=0), axis=1)))
+    end_pct = float(np.linalg.norm(est[-1][:3, 3] - gtl[-1][:3, 3])) \
+        / path_m * 100.0
+    card = np.array([float(c[2]) for c in calls], np.float32)
+    cpu = np.array([float(gain_fn(*[x.cpu() if torch.is_tensor(x) else x
+                                     for x in a], **kw))
+                    for a, kw, _ in calls], np.float32)
+    emit(dict(phase="vo_drift", frames=DRIFT_FRAMES, path_m=path_m,
+              t_err_pct=kitti["kitti_t_err_pct"],
+              r_err_deg_per_m=kitti["kitti_r_err_deg_per_m"],
+              end_pct=end_pct, seconds=seconds,
+              exposure_calls=len(calls),
+              exposure_equal=int((card == cpu).sum()),
+              exposure_range=[float(card.min()), float(card.max())],
+              gpu=gpu))
+    gates = dict(t_err=kitti["kitti_t_err_pct"] < DRIFT_T_ERR_PCT,
+                 end=end_pct < DRIFT_END_PCT,
+                 exposure=len(calls) >= DRIFT_FRAMES - 1
+                 and np.array_equal(card.view(np.int32), cpu.view(np.int32)))
+    if not all(gates.values()):
+        raise AssertionError(f"vo_drift gates failed: {gates}")
 
 
 def profile_tick(cfg, dev, cap, out: str):
@@ -3711,6 +3941,9 @@ def main(argv=None) -> int:
     cli_resume = timed("cli_resume", run_cli_resume, dev, gpu, kitti)
     cli_rgbd = timed("cli_rgbd", run_cli_rgbd, dev, gpu, tum)
     timed("cli_cpu_reference", run_cli_cpu_reference, dev, gpu, kitti)
+    viewer = timed("viewer", run_viewer, dev, gpu, kitti, cli)
+    tools = timed("tools", run_tools, dev, gpu, kitti)
+    timed("vo_drift", run_vo_drift, dev, gpu)
     paths = dict(slice=run["launches"], rgbd=rgbd["launches"],
                  stereo=stereo["launches"], system=system["launches"],
                  submaps=submaps["launches"],
@@ -3720,7 +3953,8 @@ def main(argv=None) -> int:
                  bilinear=bilinear["launches"], cli=cli["launches"],
                  cli_chunk=cli_chunk["launches"],
                  cli_resume=cli_resume["launches"],
-                 cli_rgbd=cli_rgbd["launches"])
+                 cli_rgbd=cli_rgbd["launches"], viewer=viewer["launches"],
+                 tools=tools["launches"])
     for rec in recs:
         rec["launches_by_path"] = {k: v[rec["name"]] for k, v in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -2,20 +2,23 @@
 standard library's zlib: the port's stand-in for what cv2 does for the JAX
 package (denseslam_tpu/io/datasets.py, DenseSLAM.save_raycast_*).
 
-  read_png        what cv2.imread(path, cv2.IMREAD_UNCHANGED) returns:
+  read_png        what cv2.imread(path, cv2.IMREAD_UNCHANGED) returns
+                  (`decode_png` of a file's bytes):
                   (H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA, uint8 or
                   uint16 (PNG's big-endian samples in host order); 8- and
                   16-bit, every row filter (None, Sub, Up, Average, Paeth);
                   no palette, no gray + alpha, no interlace.
   write_png       the same arrays (colour in BGR order, as cv2.imwrite
-                  takes it), every row with filter 0.
+                  takes it), every row with filter 0; `encode_png` gives
+                  the file's bytes (cv2.imencode(".png", ...)).
   bgr_to_gray     cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) bit for bit on
                   uint8 and uint16: the fixed-point weights 9798, 19235,
                   3735 (R, G, B) over 2^15, rounded.
   resize_area     cv2.resize(..., interpolation=cv2.INTER_AREA), shrinking
                   only: at whole-number factors the box mean, summed in
                   cv2's order (bit for bit); else cv2's table of partial-
-                  pixel weights, summed in its order in float32.
+                  pixel weights, summed in its order in float32; uint8
+                  images as cv2 rounds them.
   resize_nearest  cv2.resize(..., interpolation=cv2.INTER_NEAREST).
 """
 
@@ -72,7 +75,12 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
 def read_png(path: str) -> np.ndarray:
     """Decode a PNG as cv2.imread(path, cv2.IMREAD_UNCHANGED) does."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """Decode a PNG file's bytes as cv2.imdecode(data,
+    cv2.IMREAD_UNCHANGED) does."""
     if data[:8] != _SIGNATURE:
         raise IOError(f"not a PNG file: {path!r}")
     pos, idat, hdr = 8, [], None
@@ -110,16 +118,17 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: str, img: np.ndarray) -> None:
-    """Encode (H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA uint8 or uint16
-    as cv2.imwrite does (its pixels; the rows filtered by filter 0)."""
+def encode_png(img: np.ndarray) -> bytes:
+    """The PNG file of (H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA uint8
+    or uint16 as bytes, as cv2.imencode(".png", img) gives its pixels (the
+    rows filtered by filter 0)."""
     img = np.asarray(img)
     if img.dtype == np.uint8:
         depth = 8
     elif img.dtype == np.uint16:
         depth = 16
     else:
-        raise ValueError(f"write_png takes uint8 or uint16, not {img.dtype}")
+        raise ValueError(f"a PNG takes uint8 or uint16, not {img.dtype}")
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
     if img.ndim == 2:
@@ -134,10 +143,17 @@ def write_png(path: str, img: np.ndarray) -> None:
     rows = px.view(np.uint8).reshape(h, -1)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
+    return (_SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 3))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    """Encode (H, W) gray, (H, W, 3) BGR or (H, W, 4) BGRA uint8 or uint16
+    as cv2.imwrite does (its pixels; the rows filtered by filter 0)."""
+    data = encode_png(img)
     with open(path, "wb") as f:
-        f.write(_SIGNATURE + _chunk(b"IHDR", ihdr)
-                + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 3))
-                + _chunk(b"IEND", b""))
+        f.write(data)
 
 
 def bgr_to_gray(img: np.ndarray) -> np.ndarray:
@@ -231,12 +247,37 @@ def _resize_area_fast(img: np.ndarray, ix: int, iy: int, dw: int,
     return out
 
 
+def _resize_area_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2's INTER_AREA of a uint8 image: at whole-number factors the box
+    sum in integers, (s + 2) >> 2 at 2 x 2 (its vector path) and else
+    rounded from s * float32(1 / area) half to even; at other factors the
+    float32 weights of resize_area, rounded half to even."""
+    sh, sw = img.shape[:2]
+    dw, dh = size
+    fx, fy = _inv_scales((sh, sw), size)
+    ix, iy = int(round(fx)), int(round(fy))
+    eps = np.finfo(np.float64).eps
+    if abs(fx - ix) < eps and abs(fy - iy) < eps and (dw, dh) != (sw, sh):
+        box = img[:dh * iy, :dw * ix].astype(np.int64).reshape(
+            (dh, iy, dw, ix) + img.shape[2:])
+        total = box.sum(axis=(1, 3))
+        if (ix, iy) == (2, 2):
+            return ((total + 2) >> 2).astype(np.uint8)
+        out = total.astype(np.float32) * np.float32(1.0 / (ix * iy))
+    else:
+        out = resize_area(img.astype(np.float32), size)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
 def resize_area(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """cv2.resize(img, size, interpolation=cv2.INTER_AREA) of a float32
-    (H, W) or (H, W, C) image to `size` = (width, height) no larger."""
+    """cv2.resize(img, size, interpolation=cv2.INTER_AREA) of a float32 or
+    uint8 (H, W) or (H, W, C) image to `size` = (width, height) no
+    larger."""
     img = np.asarray(img)
+    if img.dtype == np.uint8:
+        return _resize_area_u8(img, size)
     if img.dtype != np.float32:
-        raise ValueError("resize_area takes float32 images")
+        raise ValueError("resize_area takes float32 or uint8 images")
     sh, sw = img.shape[:2]
     dw, dh = size
     if (dw, dh) == (sw, sh):

@@ -239,6 +239,15 @@ def right_poses(poses: torch.Tensor, baseline_m: float) -> torch.Tensor:
     return out
 
 
+def render_stereo(T_wc, rig: StereoRig, scene: Scene | None = None,
+                  device=None):
+    """Render a rectified stereo pair + left depth from the left camera's
+    pose: (left gray, right gray, left depth)."""
+    lg, rg, ld = render_stereo_trajectory(_poses(T_wc, device)[None], rig,
+                                          scene)
+    return lg[0], rg[0], ld[0]
+
+
 def render_stereo_trajectory(poses, rig: StereoRig, scene: Scene | None = None,
                              device=None):
     """Batched stereo render: (N, 4, 4) -> (lefts, rights, left_depths)."""

@@ -6,10 +6,10 @@ Flags mirror the reference's gflags + param.yaml surface
 selection, frame offset/limit, voxel decay, sliding window, online
 correction, depth weighting, raycast dumps, trajectory saving, low-res
 input. Runs the headless loop (SystemEntry.cpp:342-372); there is no GUI —
-previews are dumped as images instead. The flags are the JAX command
-line's, plus --device: the run goes on the CUDA card unless it says
-otherwise (`--device cpu` runs the plain PyTorch versions of the kernels).
-The live viewer (--live_viewer) is not ported yet (ROADMAP.md A9b).
+previews are dumped as images, or served to a browser by the live viewer
+(--live_viewer PORT, io/viewer.py). The flags are the JAX command line's,
+plus --device: the run goes on the CUDA card unless it says otherwise
+(`--device cpu` runs the plain PyTorch versions of the kernels).
 
 Usage:
   python -m denseslam_tpu_torch.main --dataset_root /data/kitti/odometry/07 \\
@@ -138,8 +138,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quiet", action="store_true")
     # live viewer (Pangolin-GUI equivalent)
     p.add_argument("--live_viewer", type=int, default=0, metavar="PORT",
-                   help="serve a live HTTP dashboard on PORT (0 = off; not "
-                        "ported yet, ROADMAP.md A9b)")
+                   help="serve a live HTTP dashboard on PORT (0 = off)")
     p.add_argument("--viewer_every", type=int, default=5,
                    help="render viewer raycast panes every N frames")
     p.add_argument("--device", default=None,
@@ -199,10 +198,6 @@ def build_config(args, rig):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.live_viewer:
-        raise NotImplementedError(
-            "--live_viewer: the live viewer (io/viewer.py) is not ported "
-            "yet (ROADMAP.md A9b)")
 
     import numpy as np
     import torch
@@ -243,6 +238,28 @@ def main(argv=None) -> int:
     def on_dev(a):
         return torch.as_tensor(np.asarray(a), device=dev)
 
+    viewer = None
+    if args.live_viewer:
+        from .io.viewer import LiveViewer
+        viewer = LiveViewer(port=args.live_viewer)
+        if not args.quiet:
+            print(f"live viewer: http://127.0.0.1:{viewer.port}/")
+
+    def host(t):
+        return t.cpu().numpy()
+
+    def preview(rc):
+        return host(rc_ops.render_preview(rc, rc_ops.PREVIEW_GRAY))
+
+    def freeview_pane(panes):
+        # the free camera moved and someone watches: render the
+        # multi-submap composite from it (DSHandler3D free-cam role)
+        fv_T = viewer.freeview_pose()
+        if fv_T is not None:
+            fv = slam.raycast_composite(
+                torch.as_tensor(fv_T, dtype=torch.float32, device=dev))
+            panes["freeview"] = preview(fv)
+
     def save_raycasts(fid):
         if args.save_raycast_depth_dir:
             slam.save_raycast_depth(os.path.join(
@@ -273,6 +290,24 @@ def main(argv=None) -> int:
             a = on_dev(img).to(torch.float32)
             return rgb_to_gray(a) if a.dim() == 3 else a
 
+        def chunk_panes(out):
+            from .io.viewer import colorize_depth
+            rc = slam.raycast_view()
+            panes = dict(raycast=preview(rc),
+                         raycast_depth=colorize_depth(
+                             host(rc.depth), cfg.tsdf.max_depth_m))
+            freeview_pane(panes)
+            viewer.update(
+                panes=panes,
+                stats=dict(frame=n,
+                           fps=n / max(time.time() - t_start, 1e-6),
+                           blocks=slam.submaps.local_map_size(
+                               slam.submaps.active_idx),
+                           memory_mb=slam.memory_bytes() / 1e6,
+                           tracking_ok=bool(out["tracking_ok"]),
+                           keyframes=system.backend.num_keyframes),
+                pose=np.asarray(out["T_wc"]))
+
         batch_l, batch_r = [], []
         out = None
         for frame in inp:
@@ -289,6 +324,8 @@ def main(argv=None) -> int:
                     mb = slam.memory_bytes() / 100e6
                     mem_log.write(f"{mb:.6f}\n" * args.chunk)
                 save_raycasts(slam.frame - 1)
+                if viewer is not None:
+                    chunk_panes(out)
                 if not args.quiet:
                     fps = n / (time.time() - t_start)
                     print(f"frame {n}: {fps:.2f} FPS (chunked), "
@@ -299,6 +336,42 @@ def main(argv=None) -> int:
             if mem_log:
                 mem_log.write(f"{out['memory_bytes'] / 100e6:.6f}\n")
         inp = ()                                 # skip the per-frame loop
+
+    def frame_panes(out, left, depth):
+        from .io.viewer import colorize_depth, draw_features, draw_flow
+        panes = {}
+        if n % max(args.viewer_every, 1) == 0:
+            fs = slam.fe_state
+            if fs.feats_l is not None:
+                panes["input_rgb"] = draw_features(
+                    host(left), host(fs.feats_l.uv), host(fs.feats_l.valid))
+            else:
+                panes["input_rgb"] = host(left).astype(np.uint8)
+            if slam.last_flow is not None:
+                # sparse scene-flow pane (reference GUI's matched-flow
+                # overlay, DenseSLAMGUI.cpp:216-220)
+                panes["scene_flow"] = draw_flow(
+                    host(left), *(host(t) for t in slam.last_flow))
+            if depth is not None:
+                panes["input_depth"] = colorize_depth(
+                    host(depth), cfg.tsdf.max_depth_m)
+            rc = slam.raycast_view()
+            panes["raycast"] = preview(rc)
+            panes["raycast_depth"] = colorize_depth(
+                host(rc.depth), cfg.tsdf.max_depth_m)
+        freeview_pane(panes)
+        viewer.update(
+            panes=panes,
+            stats=dict(
+                frame=n, fps=n / max(time.time() - t_start, 1e-6),
+                blocks=out["num_blocks"],
+                memory_mb=out["memory_bytes"] / 1e6,
+                tracking_ok=bool(out["tracking_ok"]),
+                keyframes=(system.backend.num_keyframes
+                           if system is not None else None),
+            ),
+            pose=np.asarray(out["T_wc"]),
+        )
 
     for frame in inp:
         left = on_dev(frame["left"])
@@ -314,6 +387,8 @@ def main(argv=None) -> int:
             # memory.txt convention: one line per frame, units of 100 MB
             # (reference: DenseSLAMGUI.cpp:589-595, memoryDraw.py:40-41)
             mem_log.write(f"{out['memory_bytes'] / 100e6:.6f}\n")
+        if viewer is not None:
+            frame_panes(out, left, depth)
         if not args.quiet and n % 10 == 0:
             fps = n / (time.time() - t_start)
             print(f"frame {n}: {fps:.2f} FPS, blocks={out['num_blocks']}, "
@@ -331,6 +406,8 @@ def main(argv=None) -> int:
     # sequence end: decay catch-up (reference: DecayCatchup at shutdown)
     slam.decay_catchup()
 
+    if viewer is not None:
+        viewer.close()
     if mem_log:
         mem_log.close()
     if args.save_trajectory:

@@ -1076,6 +1076,12 @@ class DenseSLAM:
         self.last_fused_depth: Optional[torch.Tensor] = None
         self.last_fused_T: Optional[torch.Tensor] = None
         self._fusion_laps = []
+        # (uv_prev, uv_curr, valid) of the last VO step's matches, tensors
+        # on the device, for the viewer's scene-flow pane (moved to the
+        # host only when a viewer draws it); reference:
+        # VisoSparseSFProvider::GetFlow
+        self.last_flow: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]] = None
         self.prng_key: Optional[np.ndarray] = None
         self._splat_cfg = splat_ops.SplatConfig(
             **dataclasses.asdict(cfg.splat))
@@ -1146,6 +1152,8 @@ class DenseSLAM:
                                                cfg, raw=draws,
                                                budget_scale=budget_scale)
             T_wc = vo.T_wc
+            self.last_flow = (vo.flow_uv_prev, vo.flow_uv_curr,
+                              vo.flow_valid)
             s = torch.stack([vo.tracking_ok.to(torch.float32),
                              vo.num_inliers.to(torch.float32),
                              vo.num_quads.to(torch.float32)]).cpu().numpy()
@@ -1412,8 +1420,8 @@ class DenseSLAM:
             return
         w = self.cfg.decay.max_decay_weight
         for _ in range(self.cfg.decay.min_decay_age):
-            self.submaps.active = tsdf_ops.decay(self.submaps.active, w, 0,
-                                                 force_all=True)
+            self.submaps.active = tsdf_ops.decay_catchup(self.submaps.active,
+                                                         w)
 
     def _inview_slots(self, idx: int, T_wc) -> np.ndarray:
         """The allocated slots of submap `idx` whose block centres, moved by

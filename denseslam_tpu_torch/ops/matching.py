@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import FrontendConfig
 from ..utils.numerics import true_div
@@ -73,13 +74,34 @@ class QuadMatches(NamedTuple):
     valid: torch.Tensor   # bool (M,)
 
 
+def xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of a 1-D tensor as jitted XLA:CPU adds it (its tree
+    reduction rewrite): windows of 32, the input zero-padded evenly at
+    both ends to whole windows, each summed left to right; the window sums
+    reduced so again while more than 32 remain; the rest left to right.
+    Each add is its own elementwise op, so the card and the CPU round
+    alike; a float32 sum in torch's order parts from XLA's by an ulp."""
+    while x.numel() > 32:
+        pad = -x.numel() % 32
+        x = F.pad(x, (pad // 2, pad - pad // 2)).reshape(-1, 32)
+        acc = x[:, 0]
+        for j in range(1, 32):
+            acc = acc + x[:, j]
+        x = acc
+    acc = x[0]
+    for j in range(1, x.numel()):
+        acc = acc + x[j]
+    return acc
+
+
 def estimate_gain(img_a: torch.Tensor, img_b: torch.Tensor,
                   uv_a: torch.Tensor, uv_b: torch.Tensor,
                   valid: torch.Tensor, radius: int = 2) -> torch.Tensor:
     """Photometric gain of b relative to a over matched patches: the ratio
     of the (2r+1)^2 patch sums over the valid matches, 1 where a's sum is
     0. Positions truncate toward zero, then clip to the interior; the
-    patch taps are summed in the JAX loop order."""
+    patch taps are summed in the JAX loop order, and the two sums over
+    the matches in XLA's order (`xla_sum`), the same on every device."""
     h, w = img_a.shape
 
     def patch_sum(img, uv):
@@ -93,8 +115,8 @@ def estimate_gain(img_a: torch.Tensor, img_b: torch.Tensor,
         return acc
 
     vf = valid.to(torch.float32)
-    num = (vf * patch_sum(img_b, uv_b)).sum()
-    den = (vf * patch_sum(img_a, uv_a)).sum()
+    num = xla_sum(vf * patch_sum(img_b, uv_b))
+    den = xla_sum(vf * patch_sum(img_a, uv_a))
     return torch.where(den > 1e-6, num / torch.clamp(den, min=1e-6), 1.0)
 
 

@@ -110,6 +110,17 @@ def num_allocated_blocks(m: MapState) -> torch.Tensor:
     return m.table.valid.to(torch.int32).sum()
 
 
+def used_memory_bytes(m: MapState, voxel_bytes: int = 16) -> torch.Tensor:
+    """ITMVoxel-equivalent accounting (InfiniTamDriver.h:333-352): the
+    allocated blocks times a block's voxels times `voxel_bytes`."""
+    return num_allocated_blocks(m) * (voxel_bytes * BLOCK_VOL)
+
+
+def reset(m: MapState, cfg: TsdfConfig) -> MapState:
+    """ITMDenseMapper::ResetScene equivalent: a fresh map on m's device."""
+    return make_map(cfg, m.tsdf.device)
+
+
 def _check_supported(cfg: TsdfConfig) -> None:
     if cfg.sampler not in ("gather", "pallas"):
         raise ValueError(f"unknown sampler {cfg.sampler!r}")
@@ -443,6 +454,11 @@ def decay(m: MapState, max_decay_weight: float, min_decay_age: int,
     m.weight.masked_fill_(kill, 0.0)
     empty = eligible & (m.weight <= 0.0).all(dim=-1)
     return _free_blocks(m, empty, kill, empty.to(torch.int32).sum())
+
+
+def decay_catchup(m: MapState, max_decay_weight: float) -> MapState:
+    """Run decay once ignoring age — sequence-end catch-up. In place."""
+    return decay(m, max_decay_weight, 0, force_all=True)
 
 
 def slide_window(m: MapState, max_age: int,

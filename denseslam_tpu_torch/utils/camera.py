@@ -64,6 +64,14 @@ def project(pts: torch.Tensor, intr: Intrinsics) -> Tuple[torch.Tensor, torch.Te
     return torch.stack([u, v], dim=-1), z
 
 
+def in_bounds(uv: torch.Tensor, intr: Intrinsics,
+              margin: float = 0.0) -> torch.Tensor:
+    """Mask of pixel coords inside the image."""
+    u, v = uv[..., 0], uv[..., 1]
+    return ((u >= margin) & (u <= intr.width - 1 - margin)
+            & (v >= margin) & (v <= intr.height - 1 - margin))
+
+
 def disparity_to_depth(disp: torch.Tensor, rig: StereoRig,
                        min_depth_m: float = 0.05,
                        max_depth_m: float = 50.0) -> torch.Tensor:

@@ -6,28 +6,26 @@ module fixture runs each command line once with the flags of
 is handed the JAX frontend's RANSAC draws (its key splits once a frame).
 
 Tolerances, and why:
-  * poses within 1e-4 m on frames 0-3 (observed 3.1e-7). On frame 4 the
-    two VOs part by one quad (43 against 42): the running exposure that
-    scales frame 4 is a sum over 2048 matched patches, which XLA and torch
-    add in another order, one ulp apart; the scaled image moves one
-    feature's rank in its bucket. From there the poses agree within 2e-3 m
-    (observed 9.8e-4 m);
+  * poses within 1e-4 m on every frame. The running exposure that scales
+    each frame is a ratio of two sums over 2048 matched patches; the port
+    adds them in XLA:CPU's order (ops/matching.py `xla_sum`), so it gives
+    the jitted JAX function's float32 result (a float32 sum in torch's
+    order was one ulp off on frame 4, moved one feature's rank in its
+    bucket and parted the poses by 2.7e-4 m there);
   * the memory log equal line for line; the summary's counts and map
     sizes equal; `device_memory_mb` larger in the port by the fusion DB's
     depth plane, int32 where JAX holds uint16 (2 bytes a pixel of each of
     its 64 slots);
   * the mesh's triangle count within 0.1%;
-  * the raycast depth PNGs: equal on >= 99.5% of pixels on frames 0-3;
-    on frames 4-5 the renders are from poses 2.7e-4 and 9.8e-4 m apart:
-    within 4 units (1.6 cm) on >= 97% of pixels there (observed 99.5% and
-    98.6%; equal on 93.4% and 87.3%, the rest at depth edges);
+  * the raycast depth PNGs: equal on >= 99.5% of pixels on every frame;
   * checkpoints: each package's checkpoint loads into the other, leaves
     equal.
 The port-only cases (no JAX program): a resumed run equals an
 uninterrupted one bit for bit; `--chunk 4` equals SLAMSystem.process_chunk
 and a two-frame per-frame tail called directly; the entry point raises
-without a card unless `--device cpu`, and `--live_viewer` raises
-NotImplementedError.
+without a card unless `--device cpu`; `--live_viewer` on a free port
+starts the viewer and closes it; the flags are the JAX command line's
+and --device.
 """
 
 import json
@@ -45,7 +43,7 @@ from denseslam_tpu_torch.io.trajectory import load_kitti, load_tum, save_kitti
 from denseslam_tpu_torch.ops import ransac as pransac
 
 N = 6
-PARITY_FRAMES = 4        # frames before the exposure's last bit parts
+PARITY_FRAMES = N        # frames held to 1e-4 m: all of them
 FLAGS = ["--table_slots_log2", "13", "--max_visible_log2", "11",
          "--voxel_size", "0.05", "--max_depth", "10", "--quiet"]
 
@@ -321,10 +319,35 @@ def test_cli_without_a_card_raises(runs, monkeypatch):
         main(["--dataset_root", runs["root"]] + FLAGS)
 
 
-def test_cli_live_viewer_is_not_ported():
+def test_cli_live_viewer_starts_and_closes(runs, monkeypatch):
+    """--live_viewer on a free port serves the dashboard for the run and
+    closes it at the end (its server no longer answers)."""
+    import socket
+    import urllib.request
+
+    from denseslam_tpu_torch.io import viewer
     from denseslam_tpu_torch.main import build_parser, main
-    with pytest.raises(NotImplementedError, match="A9b"):
-        main(["--dataset_root", "unused", "--live_viewer", "8080"])
+    made = []
+
+    class Recorded(viewer.LiveViewer):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.port}/", timeout=10) as r:
+                self.page = r.read()
+
+    monkeypatch.setattr(viewer, "LiveViewer", Recorded)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert main(["--dataset_root", runs["root"], "--frame_limit", "2",
+                 "--live_viewer", str(port), "--device", "cpu"]
+                + FLAGS) == 0
+    assert len(made) == 1 and made[0].port == port
+    assert b"live pipeline" in made[0].page
+    with pytest.raises(OSError):
+        urllib.request.urlopen(f"http://127.0.0.1:{port}/state", timeout=2)
     # every flag of the JAX command line, and --device
     from denseslam_tpu.main import build_parser as jax_parser
     jax_flags = {a.dest: (a.default, a.choices)

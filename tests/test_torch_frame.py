@@ -174,6 +174,7 @@ def drive():
     for s in (jsystem, psystem):
         s.pd.lo = s.pd.hi = s.pd.scale = 0.5
     jo, po, jstates = [], [], []
+    flows = [(jsystem.slam.last_flow, psystem.slam.last_flow)]
     for i in range(n):
         jstates.append(jsystem.slam.fe_state)
         jo.append(jsystem.process_frame(jnp.asarray(lefts[i]),
@@ -183,9 +184,27 @@ def drive():
                                         torch.tensor(rights[i]),
                                         depth=torch.tensor(depths[i]),
                                         draws=torch.tensor(draws[i])))
+        if i < 2:
+            flows.append(tuple([np.asarray(a) for a in s.slam.last_flow]
+                               for s in (jsystem, psystem)))
     return dict(jo=jo, po=po, jsystem=jsystem, psystem=psystem, poses=poses,
                 pcfg=pcfg, lefts=lefts, rights=rights, draws=draws,
-                jstates=jstates)
+                jstates=jstates, flows=flows)
+
+
+def test_dense_slam_last_flow_matches_jax(drive):
+    """DenseSLAM.last_flow (the viewer's scene-flow pane): None on a fresh
+    system; after frame 1, the stereo path's first frame with a previous
+    one, JAX's (flow_uv_prev, flow_uv_curr, flow_valid): the flags equal,
+    the positions within 1e-3 px (the subpixel refinement's tolerance in
+    tests/test_torch_vo.py)."""
+    assert drive["flows"][0] == (None, None)
+    (juv_p, juv_c, jval), (puv_p, puv_c, pval) = drive["flows"][2]
+    assert not drive["flows"][1][1][2].any()      # frame 0: nothing to flow
+    np.testing.assert_array_equal(pval, jval)
+    assert pval.sum() >= 16
+    for got, want in ((puv_p, juv_p), (puv_c, juv_c)):
+        np.testing.assert_allclose(got[pval], want[jval], rtol=0, atol=1e-3)
 
 
 def test_process_frame_flags_match_jax(drive):

@@ -184,6 +184,22 @@ def test_resize_equals_cv2(shape, scale):
         cv2.resize(img, size, interpolation=cv2.INTER_NEAREST))
 
 
+@pytest.mark.parametrize("scale", [0.5, 0.25, 1 / 3, 0.7])
+@pytest.mark.parametrize("shape", [(120, 160), (121, 161, 3), (480, 640, 3)])
+def test_resize_area_uint8_equals_cv2(shape, scale):
+    """INTER_AREA of uint8 images (tools/scale_sequence.py shrinks the
+    8-bit image folders so): at 2 x 2 cv2's (s + 2) >> 2, at other
+    whole-number factors and at fractional ones its float32 result
+    rounded half to even, bit for bit."""
+    cv2 = pytest.importorskip("cv2")
+    img = RNG.integers(0, 256, shape).astype(np.uint8)
+    size = (max(1, round(shape[1] * scale)), max(1, round(shape[0] * scale)))
+    got = png.resize_area(img, size)
+    assert got.dtype == np.uint8
+    assert np.array_equal(got, cv2.resize(img, size,
+                                          interpolation=cv2.INTER_AREA))
+
+
 # -- native codecs -------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -495,6 +511,47 @@ def test_camera_helpers_equal_jax():
     np.testing.assert_array_equal(pcam.depth_mm_i16_to_m(mm).numpy(),
                                   np.asarray(jcam.depth_mm_i16_to_m(
                                       np.asarray(mm.numpy()))))
+
+
+def test_in_bounds_equals_jax():
+    j = jcam.Intrinsics(707.09, 700.5, 601.89, 183.11, 1226, 370)
+    p = pcam.Intrinsics(*j)
+    uv = np.concatenate([RNG.uniform(-20, 1250, (200, 2)),
+                         [[0.0, 0.0], [1225.0, 369.0], [1225.5, 3.0],
+                          [2.0, 2.0], [1223.0, 367.0]]]).astype(np.float32)
+    for margin in (0.0, 2.0):
+        got = pcam.in_bounds(torch.tensor(uv), p, margin).numpy()
+        want = np.asarray(jcam.in_bounds(uv, j, margin))
+        np.testing.assert_array_equal(got, want)
+    assert got.any() and not got.all()
+
+
+def test_render_stereo_equals_jax():
+    """io/synthetic.py render_stereo: one pose's left and right images and
+    left depth, equal to the port's batched render of that pose bit for
+    bit, and to JAX's render_stereo within the renderer's tolerance of
+    tests/test_torch_slice.py (depth within 1e-4 relative on >= 99.9% of
+    the pixels that see something; intensities within 0.1 on >= 99.5%,
+    within 5 on >= 99.9%: XLA contracts FMAs in the hit point)."""
+    from denseslam_tpu.config import tiny_test_config
+    from denseslam_tpu.io import synthetic as js
+    from denseslam_tpu_torch.io import synthetic as ps
+    cfg = tiny_test_config(width=96, height=72)
+    T = js.make_trajectory(3, step_m=0.1, yaw_rate=0.02)[2]
+    prig = pcam.StereoRig(pcam.Intrinsics(*cfg.rig.intr), cfg.rig.baseline_m)
+    want = [np.asarray(a) for a in js.render_stereo(T, cfg.rig)]
+    got = [a.numpy() for a in ps.render_stereo(T, prig, device="cpu")]
+    batched = ps.render_stereo_trajectory(T[None], prig, device="cpu")
+    for g, b in zip(got, batched):
+        np.testing.assert_array_equal(g, b[0].numpy())
+    for g, w in zip(got[:2], want[:2]):
+        assert g.shape == w.shape == (72, 96)
+        err = np.abs(g - w)
+        assert (err <= 0.1).mean() >= 0.995 and (err <= 5.0).mean() >= 0.999
+    seen = want[2] > 0
+    assert seen.mean() > 0.5
+    assert (np.abs(got[2] - want[2])[seen]
+            <= 1e-4 * want[2][seen]).mean() >= 0.999
 
 
 def test_timer_stack_semantics_on_the_cpu():

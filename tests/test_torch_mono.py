@@ -447,27 +447,38 @@ def test_mono_tracks_the_street_with_ground_scale(ref, port_run):
     assert np.linalg.norm(T[:3, 3] - gt[:3, 3]) < 0.25 * travelled
 
 
-def test_refine_cap_applies_to_mono_before_consensus_inherited():
-    """Inherited from the JAX package (denseslam_tpu/config.py refine_cap,
-    ROADMAP.md Queue C): mono_vo_step refines the temporal leg before flow
-    consensus, over the first refine_cap valid matches only; with a cap of
-    8 the matches past it keep their detector positions, on both
-    packages."""
+@pytest.fixture(scope="module")
+def cap_step():
+    """mono_vo_step jitted at refine_cap=8 without flow consensus, over
+    two street frames from a fresh state: the states, JAX's step output
+    on frame 1 and that frame's draws."""
     cfg = _config(refine_cap=8, outlier_removal=False)
-    pcfg = _port_config(cfg)
-    _, grays, _ = _frames(cfg, np.random.default_rng(1), n=2)
+    _, grays, depths = _frames(cfg, np.random.default_rng(1), n=2)
     step = jax.jit(lambda s, g: jfe.mono_vo_step(s, g, cfg))
 
     def strong(tree):       # both calls hit the one compile
         return jax.tree.map(lambda x: x.astype(x.dtype), tree)
 
-    st, _ = step(strong(jfe.init_frontend(cfg, seed=0)), jnp.asarray(grays[0]))
+    st0 = strong(jfe.init_frontend(cfg, seed=0))
+    st, _ = step(st0, jnp.asarray(grays[0]))
     st = strong(st)
-    pst = convert.frontend_state_from_numpy(_leaves(st), device="cpu")
     draws = _draws(st.key)
     _, want = step(st, jnp.asarray(grays[1]))
-    new, got = pfe.mono_vo_step(pst, torch.tensor(grays[1]), pcfg,
-                                raw=torch.tensor(draws))
+    return dict(cfg=cfg, pcfg=_port_config(cfg), grays=grays, depths=depths,
+                st1=st, draws0=_draws(st0.key), draws=draws, want=want)
+
+
+def test_refine_cap_applies_to_mono_before_consensus_inherited(cap_step):
+    """Inherited from the JAX package (denseslam_tpu/config.py refine_cap,
+    ROADMAP.md Queue C): mono_vo_step refines the temporal leg before flow
+    consensus, over the first refine_cap valid matches only; with a cap of
+    8 the matches past it keep their detector positions, on both
+    packages."""
+    c = cap_step
+    pst = convert.frontend_state_from_numpy(_leaves(c["st1"]), device="cpu")
+    new, got = pfe.mono_vo_step(pst, torch.tensor(c["grays"][1]), c["pcfg"],
+                                raw=torch.tensor(c["draws"]))
+    want = c["want"]
     np.testing.assert_array_equal(got.flow_valid.numpy(),
                                   np.asarray(want.flow_valid))
     np.testing.assert_allclose(got.flow_uv_curr.numpy(),
@@ -479,6 +490,27 @@ def test_refine_cap_applies_to_mono_before_consensus_inherited():
     moved = (got.flow_uv_curr.numpy() != new.feats_l.uv.numpy()).any(-1)
     assert moved[rows[:8]].any()
     assert not moved[rows[8:]].any()
+
+
+def test_dense_slam_last_flow_matches_jax_mono(cap_step):
+    """DenseSLAM.last_flow (the viewer's scene-flow pane): None on a fresh
+    system; after frame 1 of the mono path the JAX step's (flow_uv_prev,
+    flow_uv_curr, flow_valid), flags equal, positions within the 1e-4 px
+    of the test above."""
+    c = cap_step
+    slam = pd.DenseSLAM(c["pcfg"], device="cpu", seed=0)
+    assert slam.last_flow is None
+    for i, d in enumerate((c["draws0"], c["draws"])):
+        slam.process_frame(torch.tensor(c["grays"][i]),
+                           depth=torch.tensor(c["depths"][i]),
+                           draws=torch.tensor(d))
+    want = c["want"]
+    got = slam.last_flow
+    assert len(got) == 3 and int(got[2].sum()) > 16
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want.flow_valid))
+    for g, w in zip(got[:2], (want.flow_uv_prev, want.flow_uv_curr)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-4)
 
 
 def test_dense_slam_mono_process_frame():

@@ -168,6 +168,29 @@ def test_frontend_state_round_trip(ref):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
+def test_dense_slam_last_flow_matches_jax(ref):
+    """DenseSLAM.last_flow (the viewer's scene-flow pane) on the RGB-D
+    path: None on a fresh system; after frame 1 the JAX rgbd_vo_step's
+    (flow_uv_prev, flow_uv_curr, flow_valid) from the same state (the
+    program JAX's DenseSLAM runs there), flags equal, positions within
+    1e-3 px (the subpixel refinement's tolerance in
+    tests/test_torch_vo.py)."""
+    step = jax.jit(lambda st, g, d: jfe.rgbd_vo_step(st, g, d, ref["cfg"]))
+    _, want = step(ref["states"][1], jnp.asarray(ref["grays"][1]),
+                   jnp.asarray(ref["depths"][1]))
+    slam = pd.DenseSLAM(ref["pcfg"], device="cpu", seed=0)
+    assert slam.last_flow is None
+    for i in (0, 1):
+        slam.process_frame(torch.tensor(ref["grays"][i]),
+                           depth=torch.tensor(ref["depths"][i]),
+                           draws=torch.tensor(ref["draws"][i]))
+    got = [t.numpy() for t in slam.last_flow]
+    np.testing.assert_array_equal(got[2], np.asarray(want.flow_valid))
+    assert got[2].sum() >= 8
+    for g, w in zip(got[:2], (want.flow_uv_prev, want.flow_uv_curr)):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=1e-3)
+
+
 @pytest.fixture(scope="module")
 def port_run(ref):
     pcfg = ref["pcfg"]

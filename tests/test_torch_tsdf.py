@@ -199,3 +199,30 @@ def test_decay_and_slide_window_passes_match_jax(frames):
     mp = convert.map_state_from_numpy([np.asarray(x) for x in
                                        jax.tree.leaves(m)], device="cpu")
     _assert_maps_equal(jt.slide_window(m, 4), pt.slide_window(mp, 4))
+
+
+def test_used_memory_decay_catchup_and_reset_match_jax(frames):
+    """ops/tsdf.py used_memory_bytes, decay_catchup (the sequence-end decay
+    that ignores the age gate) and reset (a fresh map) against JAX's."""
+    cfg, poses, grays, depths = frames
+    pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
+    intr, tc = cfg.rig.intr, cfg.tsdf
+    T, d = jnp.asarray(poses[0]), jnp.asarray(depths[0])
+    m, s, k = jt.allocate_for_frame(jt.make_map(tc), d, T, intr, tc)
+    m = jt.integrate(m, s, k, d, None, T, intr, tc)
+    m = m._replace(frame=jnp.int32(1),
+                   weight=m.weight * jnp.asarray(
+                       np.random.default_rng(2).integers(1, 4, (1, 512)),
+                       jnp.float32))
+
+    def port(m):
+        return convert.map_state_from_numpy(
+            [np.asarray(x) for x in jax.tree.leaves(m)], device="cpu")
+
+    mp = port(m)
+    assert int(pt.used_memory_bytes(mp)) == int(jt.used_memory_bytes(m)) > 0
+    assert int(pt.used_memory_bytes(mp, 8)) == int(jt.used_memory_bytes(m, 8))
+    caught = jt.decay_catchup(m, 2)
+    _assert_maps_equal(caught, pt.decay_catchup(port(m), 2))
+    assert int(caught.decayed_blocks) >= 0
+    _assert_maps_equal(jt.reset(m, tc), pt.reset(port(m), pcfg.tsdf))

@@ -11,8 +11,8 @@ Tolerances, and why:
     The descriptor cost matrices are float32 matmuls that XLA:CPU and
     torch sum in another order, so a near-tie argmin may pick the other
     neighbour. stereo_disparities given the same match: exact.
-  * estimate_gain: rtol 1e-6 (the two sums over the matches add in another
-    order).
+  * estimate_gain: bit for bit (the port adds the two sums over the
+    matches in XLA:CPU's order, ops/matching.py `xla_sum`).
   * refine_quad_subpix, both modes: atol 1e-3 px, as refine_temporal_subpix
     (ZSSD sums and bilinear weights; XLA contracts FMAs).
   * vo_step per frame from JAX's state: poses within 1e-4 m (translation)
@@ -144,6 +144,20 @@ def test_quad_match_agrees(ref, prior):
         np.testing.assert_array_equal(a[same], b.numpy()[same], name)
 
 
+@pytest.mark.parametrize("n", [5, 32, 33, 100, 256, 300, 2048, 4097])
+def test_xla_sum_equals_jitted_jax_sum(n):
+    """ops/matching.py xla_sum: XLA:CPU's order of a float32 sum (windows
+    of 32, evenly zero-padded, then their sums), bit for bit against a
+    jitted jnp.sum on values like the exposure's patch sums."""
+    rng = np.random.default_rng(n)
+    f = jax.jit(lambda v, x: jnp.sum(v * x))
+    for _ in range(10):
+        x = (rng.uniform(0, 6000, n)
+             * (rng.uniform(size=n) > 0.3)).astype(np.float32)
+        want = float(f(jnp.ones(n, jnp.float32), jnp.asarray(x)))
+        assert float(pm.xla_sum(torch.tensor(x))) == want
+
+
 def test_estimate_gain_agrees(ref):
     qj, _ = _quads(ref, False)
     img0, img1 = ref["lefts"][0], ref["lefts"][1] * 1.03
@@ -151,7 +165,7 @@ def test_estimate_gain_agrees(ref):
     want = float(jax.jit(jm.estimate_gain)(*map(jnp.asarray, args)))
     got = pm.estimate_gain(*map(torch.tensor, args))
     assert got.dtype == torch.float32 and got.shape == ()
-    np.testing.assert_allclose(float(got), want, rtol=1e-6)
+    assert float(got) == want
     assert abs(want - 1.03) < 0.05
     none = pm.estimate_gain(*map(torch.tensor, args[:4]),
                             torch.zeros(len(qj[8]), dtype=torch.bool))
