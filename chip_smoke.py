@@ -210,10 +210,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    tracking >= 95%, poses equal bit for bit to
                    SLAMSystem.process_chunk called directly on the decoded
                    frames.
- 25. cli_resume    the sequence per frame without the backend, whole and as
-                   frames 0-31, a checkpoint, and 32-63 resumed from it:
+ 25. cli_resume    the sequence's first 32 frames per frame without the
+                   backend, whole and as frames 0-15, a checkpoint, and
+                   16-31 resumed from it:
                    poses and final state equal bit for bit, the checkpoint's
-                   keys the JAX layout's plus the generator's.
+                   keys the JAX layout's (the frontend's key among them).
  26. cli_rgbd      48 frames in TUM layout (640x480, the rgbd phase's sensor
                    model) with --sensor rgbd --sampler pallas --use_color:
                    the RGB-D VO branch of DenseSLAM.process_frame; tracking
@@ -245,7 +246,19 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    through open-loop vo_step: KITTI t_err < 0.6% and end
                    error < 0.8% of the path; every estimate_gain call of
                    the drive recomputed on the CPU equal bit for bit.
- 31. throughput    frames/s of stereo + fusion, of the fusion tail alone
+ 31. sharded       the sharded map (parallel/) on this one card: 4 ranks
+                   spawned on cuda:0 over gloo (its collectives staged
+                   through the host), each fusing the slice's 40 frames
+                   (its SGM depths, the bench_full.py configuration) into
+                   its shard with its own B1: B1 40 times in every rank;
+                   the shards gathered into one table equal to the
+                   slice's single-chip map, block for block and voxel for
+                   voxel, over the 30 frames before decay; over all 40,
+                   blocks differ only at keys held twice (the inherited
+                   hash defect) and every rank counts the same decayed
+                   blocks; then the dry run (tools/dryrun_multichip.py) in
+                   the same ranks. Fused frames/s of the 4 ranks.
+ 32. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
@@ -343,11 +356,11 @@ MONO_FRAME_FRAMES = 32   # the mono_frame phase: the drive's first frames
 # depth_gtpose d1.25 0.616, coverage 0.37
 MONO_ATE_M = 2.5
 # ... held by the median ATE of the drive on MONO_ATE_DRAWS sets of
-# 8-point draws (the system's generator seeds 0-4): one drive's ATE is
-# decided by which of the hypotheses tied at the top count win, which
-# last bits move (ROADMAP.md Queue C), and it moves by more than the
-# margin between the JAX record and this bound from one draw set to the
-# next (PERF.md section 6)
+# 8-point draws (the frontend keys PRNGKey(0-4); set 0 is JAX's own):
+# one drive's ATE is decided by which of the hypotheses tied at the top
+# count win, which last bits move (ROADMAP.md Queue C), and it moves by
+# more than the margin between the JAX record and this bound from one
+# draw set to the next (PERF.md section 6)
 MONO_ATE_DRAWS = 5
 MONO_INPUT_D1 = 0.99
 MONO_GTPOSE_D1 = 0.5
@@ -466,8 +479,9 @@ def rgbd_frames(cfg, dev, seed: int = 0):
     noisy = depths * (1.0 + 0.01 * rel.to(dev))
     drop = holes.to(dev) | (depths <= 0) | (depths > cfg.tsdf.max_depth_m)
     depths = torch.where(drop, 0.0, noisy)
-    draws = torch.stack([ransac.draw_hypotheses(cfg.frontend.ransac_iters,
-                                                gen) for _ in range(n)])
+    draws = torch.stack([torch.randint(
+        0, ransac._RAW_HIGH, (cfg.frontend.ransac_iters, 3), generator=gen)
+        for _ in range(n)])
     torch.cuda.synchronize()
     # on the card before the drive, so that no chunk copies them there
     draws = draws.to(dev)
@@ -696,8 +710,9 @@ def stereo_frames(cfg, dev, seed: int = 1):
     nr = torch.randn(rights.shape, generator=gen)
     lefts = torch.clamp(lefts * gain.to(dev) + 2.0 * nl.to(dev), 0, 255)
     rights = torch.clamp(rights * gain.to(dev) + 2.0 * nr.to(dev), 0, 255)
-    draws = torch.stack([ransac.draw_hypotheses(cfg.frontend.ransac_iters,
-                                                gen) for _ in range(n)])
+    draws = torch.stack([torch.randint(
+        0, ransac._RAW_HIGH, (cfg.frontend.ransac_iters, 3), generator=gen)
+        for _ in range(n)])
     torch.cuda.synchronize()
     return dict(poses=poses, lefts=lefts, rights=rights, gts=gts,
                 draws=draws.to(dev),
@@ -1249,6 +1264,188 @@ def run_slice(cfg, dev):
     return dict(run, depth=depth, launches=launches)
 
 
+SHARDED_RANKS = 4
+
+
+def sharded_rank(mesh, path: str, cfg, device: str, exact_frames: int
+                 ) -> dict:
+    """One rank of the sharded phase: the slice's frames (saved at `path`)
+    fused into this rank's shard of the map of `cfg`, B1's launches
+    counted around exactly those fuses. After `exact_frames` frames and
+    after all of them the shards are gathered, and rank 0 holds the
+    gather against the single-chip map of the same frames (fuse_sequence,
+    which it fuses itself). Then the dry run."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.ops import hash as vhash
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+    from denseslam_tpu_torch.parallel.sharded_map import ShardedTsdf
+    from denseslam_tpu_torch.tools.dryrun_multichip import dryrun
+
+    if mesh.device != torch.device(device) or mesh.size != SHARDED_RANKS:
+        raise AssertionError(f"rank on {mesh.device} of {mesh.size}")
+    data = torch.load(path, map_location=mesh.device, weights_only=False)
+    sync = (torch.cuda.synchronize if mesh.device.type == "cuda"
+            else (lambda: None))
+    st = ShardedTsdf(cfg, mesh)
+    m = st.make_map()
+    n = data["depth"].shape[0]
+    if mesh.rank == 0:
+        m1 = tsdf_ops.make_map(cfg.tsdf, mesh.device)
+        db1 = dense_slam.make_fusion_db(cfg, mesh.device)
+    launches = {k: 0 for k in kernels.launch_counts}
+    fuse_s, vs = 0.0, []
+    for lo, hi in ((0, exact_frames), (exact_frames, n)):
+        sync()
+        mesh.barrier()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        for i in range(lo, hi):
+            m = st.fuse(m, data["depth"][i], data["gray"][i], data["T"][i])
+        blocks = st.num_blocks(m)
+        sync()
+        fuse_s += time.perf_counter() - t0
+        for k, v in kernels.launch_counts.items():
+            launches[k] += v
+        g = st.gather_to_single(m, as_numpy=True)
+        if mesh.rank == 0:
+            sl = slice(lo, hi)
+            m1, db1 = dense_slam.fuse_sequence(
+                m1, db1, data["depth"][sl], data["gray"][sl], data["T"][sl],
+                data["fids"][sl], cfg)
+            vs.append(compare_by_key(
+                g, dense_slam.copy_map(m1, torch.device("cpu")),
+                cfg.tsdf.probe_len))
+    local = int((m.table.keys != vhash.EMPTY_KEY).sum())
+    return dict(rank=mesh.rank, launches=launches, fuse_s=fuse_s,
+                blocks=blocks, local_blocks=local, overflow=int(m.overflow),
+                decayed=int(m.decayed_blocks), vs_single=vs,
+                single_decayed=(int(m1.decayed_blocks) if mesh.rank == 0
+                                else None),
+                dryrun=dryrun(mesh))
+
+
+def compare_by_key(a, b, probe_len: int) -> dict:
+    """Two maps (host tensors) block by block, as a lookup reads them:
+    each key's first block in probe order. Counts the keys only one map
+    holds, the keys a map holds twice (the inherited hash defect: a block
+    that decay frees leaves a hole in a probe chain, and a later insert of
+    a key further along the chain claims the hole, so the key is held
+    twice and only the first block is found; denseslam_tpu/ops/hash.py
+    insert_keys), and the shared keys whose blocks differ in tsdf, weight
+    or colour, apart and among the keys that are held twice."""
+    from denseslam_tpu_torch.ops import hash as vhash
+
+    def live(m):
+        k = m.table.keys
+        k = k[k != vhash.EMPTY_KEY]
+        keys = torch.unique(k)
+        slots = vhash.lookup_keys(m.table, keys, probe_len).long()
+        held = torch.bincount(torch.searchsorted(keys, k),
+                              minlength=keys.numel())
+        return keys, slots, held > 1
+
+    ka, sa, da = live(a)
+    kb, sb, db = live(b)
+    ina = torch.isin(ka, kb)
+    inb = torch.isin(kb, ka)
+    ra, rb = sa[ina], sb[inb]
+    differ = torch.zeros(int(ina.sum()), dtype=torch.bool)
+    for x, y in ((a.tsdf, b.tsdf), (a.weight, b.weight), (a.color, b.color)):
+        differ |= (x[ra] != y[rb]).any(dim=-1)
+    twice = da[ina] | db[inb]
+    return dict(keys_a=int(ka.numel()), keys_b=int(kb.numel()),
+                only_a=int((~ina).sum()), only_b=int((~inb).sum()),
+                held_twice_a=int(da.sum()), held_twice_b=int(db.sum()),
+                blocks_differ=int(differ.sum()),
+                blocks_differ_held_twice=int((differ & twice).sum()))
+
+
+SHARDED_EXACT_FRAMES = 30     # the slice's decay age gate opens after these
+
+
+def run_sharded(dev, gpu, run, cfg=None, device: str = "cuda:0",
+                exact_frames: int = SHARDED_EXACT_FRAMES):
+    """Phase `sharded` (see the module docstring): SHARDED_RANKS spawned
+    ranks sharing cuda:0 over gloo. Gates: every rank on cuda:0 launched
+    B1 once per frame and no other kernel, overflow 0, every rank owns
+    blocks, the dry run's own checks and its map-side facts alike on all
+    ranks; the gathered map equal to the single-chip map block for block
+    over the first `exact_frames` frames, before decay frees a block; over
+    the whole run (the inherited hash defect of `compare_by_key` makes the
+    two differ after decay) every differing block is at a key held twice,
+    the keys held by one map only are no more than those held twice, and
+    every rank counts the same decayed blocks. These are what this
+    deterministic drive has shown at full width, not laws: a stale copy of
+    a key held twice decays on its own, and at 160x120 on the CPU some
+    blocks differ at keys held once by the end."""
+    from denseslam_tpu_torch.models import dense_slam
+    from denseslam_tpu_torch.parallel import launch
+    from denseslam_tpu_torch.tools.dryrun_multichip import (
+        summary as dryrun_summary)
+
+    cfg = cfg or slice_config()
+    n = run["depth"].shape[0]
+    db = dense_slam.make_fusion_db(cfg, device=dev)
+    path = os.path.join(ROOT, "build", "sharded_frames.pt")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(dict(depth=dense_slam.db_quantize_depth(db, run["depth"]),
+                    gray=run["lefts"], T=run["T"], fids=run["fids"]), path)
+    t0 = time.perf_counter()
+    ranks = launch.run_local(sharded_rank, SHARDED_RANKS, path, cfg, device,
+                             exact_frames, backend="gloo", device=device)
+    wall = time.perf_counter() - t0
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    fuse_s = max(r["fuse_s"] for r in ranks)
+    exact, whole = ranks[0]["vs_single"]
+    dry = ranks[0]["dryrun"]
+    emit(dict(phase="sharded", ranks=SHARDED_RANKS,
+              layout="4 ranks share cuda:0 over gloo; gloo's collectives "
+              "staged through the host (parallel/mesh.py)",
+              frames=n, launches=launches,
+              launches_by_rank=[r["launches"]["tile_sample"] for r in ranks],
+              blocks=ranks[0]["blocks"],
+              local_blocks=[r["local_blocks"] for r in ranks],
+              overflow=ranks[0]["overflow"], decayed=ranks[0]["decayed"],
+              single_decayed=ranks[0]["single_decayed"],
+              vs_single_first=dict(frames=exact_frames, **exact),
+              vs_single_all=dict(frames=n, **whole),
+              fused_fps=n / fuse_s, fuse_s=fuse_s, wall_s=wall, dryrun=dry,
+              dryrun_line=dryrun_summary(dry),
+              vo_err_by_rank=[r["dryrun"]["vo_err"] for r in ranks],
+              gpu=gpu))
+    same = {k: v for k, v in dry.items() if k != "vo_err"}
+    gates = dict(
+        b1=all(r["launches"]["tile_sample"] == n for r in ranks),
+        other_kernels=all(v == 0 for k, v in launches.items()
+                          if k != "tile_sample"),
+        overflow=all(r["overflow"] == 0 for r in ranks),
+        every_rank_owns=all(r["local_blocks"] > 0 for r in ranks),
+        exact=(exact["only_a"] == exact["only_b"] == exact["blocks_differ"]
+               == exact["held_twice_a"] == exact["held_twice_b"] == 0
+               and exact["keys_a"] > 0),
+        keys_all=whole["keys_a"] > 0,
+        # after decay, as every full-width run of this drive has shown: the
+        # blocks that differ are all at keys held twice, and keys held by
+        # one map only are fewer than the keys held twice (the inherited
+        # hash defect; that the shards part from the single map only as
+        # JAX's do is tests/test_torch_parallel.py's decay drive)
+        differ_only_held_twice=(whole["blocks_differ"]
+                                == whole["blocks_differ_held_twice"]),
+        one_sided_keys=(max(whole["only_a"], whole["only_b"])
+                        <= min(whole["held_twice_a"], whole["held_twice_b"])),
+        decayed=ranks[0]["decayed"] > 0,
+        decayed_alike=all(r["decayed"] == ranks[0]["decayed"]
+                          for r in ranks),
+        # what every rank must hold alike (the VO is each rank's own)
+        replicated=all({k: v for k, v in r["dryrun"].items()
+                        if k != "vo_err"} == same for r in ranks))
+    if not all(gates.values()):
+        raise AssertionError(f"sharded gates failed: {gates}")
+    return dict(launches=launches)
+
+
 def check_against_cpu(cfg, dev, run):
     """Frame 0's stereo and frames 0-1's fusion rerun on the CPU (the plain
     versions) and held against the card."""
@@ -1332,16 +1529,6 @@ def fusion_intermediates(cfg, m, depth, gray, T):
     rows = safe.long()
     out.update(weight=m.weight[rows].float(), tsdf=m.tsdf[rows].float())
     return out
-
-
-def verify_draws(k: int):
-    """Loop-verification draws for the backend: (k, 3) integers from a CPU
-    generator seeded with the verification's seed (the JAX package's key
-    numbering), so that the card and the CPU verify with the same draws."""
-    def draws(seed: int) -> torch.Tensor:
-        gen = torch.Generator().manual_seed(seed)
-        return torch.randint(0, 2 ** 31 - 1, (k, 3), generator=gen)
-    return draws
 
 
 class TickCapture:
@@ -1431,20 +1618,20 @@ def run_system(cfg, dev, gpu):
     copies); the eval renders stay out of it, as there."""
     from denseslam_tpu_torch.tools.long_drive_eval import (drive_system,
                                                            mean_metrics,
+                                                           system_chunk,
                                                            system_setup)
     from denseslam_tpu_torch import kernels
     from denseslam_tpu_torch.eval import traj_metrics
     from denseslam_tpu_torch.models.system import SLAMSystem
 
     gt, scene = system_setup(SYSTEM_LOOP_FRAMES)
-    k_verify = max(64, cfg.frontend.ransac_iters // 2)
-    system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
-                        verify_draws=verify_draws(k_verify))
+    system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev)
     cap = TickCapture(system)
     purged = count_purges(system)
     kernels.reset_counts()
     d = drive_system(cfg, dev, system, gt, scene, system.slam.raycast_view,
-                     cap=cap, frames=SYSTEM_FRAMES, eval_every=EVAL_EVERY)
+                     cap=cap, frames=SYSTEM_FRAMES, eval_every=EVAL_EVERY,
+                     make_chunk=cached(system_chunk))
     launches = dict(kernels.launch_counts)
     ok_frames, evals, eval_ids = d["ok_frames"], d["evals"], d["eval_ids"]
     proc_s, proc_frames = d["proc_s"], d["proc_frames"]
@@ -1480,6 +1667,7 @@ def run_system(cfg, dev, gpu):
               culled=system.num_culled, relocs=system.num_relocs,
               keyframes=be.num_keyframes, ba_rejects=be.ba_rejects,
               pg_rejects=be.pg_rejects, ate_rmse_m=ate,
+              jax_record_ate_m=jax_record_ate("results_long_drive.json"),
               end_error_m=float(np.linalg.norm(est[-1][:3, 3]
                                                - gt[-1][:3, 3])),
               kitti_t_err_pct=kitti["kitti_t_err_pct"],
@@ -1525,9 +1713,7 @@ def check_system_against_cpu(cfg, cap):
         return ba.BAProblem(*(t.to(device) for t in p))
 
     cpu = torch.device("cpu")
-    k_verify = max(64, cfg.frontend.ransac_iters // 2)
-    sy = SLAMSystem(cfg, ba_every=4, loop_every=2, device=cpu,
-                    verify_draws=verify_draws(k_verify))
+    sy = SLAMSystem(cfg, ba_every=4, loop_every=2, device=cpu)
     convert.backend_state_from_numpy(
         convert.backend_state_to_numpy(cap.pre["backend"]), sy.backend)
     sy._tick_count = cap.pre["tick_count"]
@@ -1651,6 +1837,7 @@ def run_submaps(cfg, dev, gpu, ref):
     trajectory alone). Then check_memory_freed on a spilled submap."""
     from denseslam_tpu_torch.tools.long_drive_eval import (drive_system,
                                                            mean_metrics,
+                                                           system_chunk,
                                                            system_setup)
     from denseslam_tpu_torch import kernels
     from denseslam_tpu_torch.eval import traj_metrics
@@ -1658,9 +1845,7 @@ def run_submaps(cfg, dev, gpu, ref):
 
     scfg = submaps_config(cfg)
     gt, scene = system_setup(SYSTEM_LOOP_FRAMES)
-    k_verify = max(64, scfg.frontend.ransac_iters // 2)
-    system = SLAMSystem(scfg, ba_every=4, loop_every=2, device=dev,
-                        verify_draws=verify_draws(k_verify))
+    system = SLAMSystem(scfg, ba_every=4, loop_every=2, device=dev)
     slam = system.slam
     sm = slam.submaps
     purge, restore, finalize = (slam.purge_keyframes, slam.restore_submap,
@@ -1697,7 +1882,7 @@ def run_submaps(cfg, dev, gpu, ref):
     kernels.reset_counts()
     d = drive_system(scfg, dev, system, gt, scene, render,
                      after_eval=after_eval, frames=SYSTEM_FRAMES,
-                     eval_every=EVAL_EVERY)
+                     eval_every=EVAL_EVERY, make_chunk=cached(system_chunk))
     launches = dict(kernels.launch_counts)
 
     be = system.backend
@@ -1832,7 +2017,7 @@ def check_submaps_against_cpu(cfg, dev, run):
     t0 = time.perf_counter()
     cpu = DenseSLAM(scfg, device=torch.device("cpu"))
     convert.slam_state_from_numpy(
-        convert.slam_state_to_numpy(slam, np.zeros(2, np.uint32)), cpu)
+        convert.slam_state_to_numpy(slam), cpu)
     copy_s = time.perf_counter() - t0
 
     def keyed(s):
@@ -1878,7 +2063,8 @@ def run_render(cfg, dev, fr, stereo, gpu, out=None):
     the splat renderer (the default) and the sphere-traced raycast, each
     scored against the ground-truth depth at that pose, timed behind the
     sleep kernel and profiled once (profile_part: launches, device ms,
-    busy share, host syncs); then the splat z-buffer of the same map
+    busy share, host syncs; the raycast only under --profile); then the
+    splat z-buffer of the same map
     cloned to the CPU, whose keys must equal the card's on >= 99.9% of
     pixels."""
     from denseslam_tpu_torch.tools.long_drive_eval import (eval_floor_m,
@@ -1912,14 +2098,18 @@ def run_render(cfg, dev, fr, stereo, gpu, out=None):
                                         min_depth=lo, max_depth=hi)
         if not (q["coverage"] > 0.3 and q["d1_25"] > 0.8):
             raise AssertionError(f"{renderer} depth off the scene: {q}")
-        _, prof = profile_part(f"render_{renderer}", 1,
-                               lambda _: slam.raycast_view(T), None, out)
+        # the raycast's 55,220 launches take most of a minute of profiler
+        # table processing: profiled only under --profile
+        prof = {}
+        if renderer == "splat" or out is not None:
+            _, prof = profile_part(f"render_{renderer}", 1,
+                                   lambda _: slam.raycast_view(T), None, out)
         rec[renderer] = dict(
             # warmed up by the calls above
             cuda_ms=cuda_ms(lambda: slam.raycast_view(T), reps, warm=0),
-            **{k: prof[k] for k in ("wall_ms", "device_ms",
-                                    "device_busy_share", "launches",
-                                    "host_syncs")},
+            **{k: prof.get(k, "not measured")
+               for k in ("wall_ms", "device_ms", "device_busy_share",
+                         "launches", "host_syncs")},
             d1_25=q["d1_25"], coverage=q["coverage"], absrel=q["absrel"],
             mae_m=q["mae"])
     sc = slam._splat_cfg
@@ -1950,8 +2140,7 @@ def drive_frames(cfg, dev, chunks, ba_every: int, loop_every: int):
     from denseslam_tpu_torch.models.system import SLAMSystem
 
     system = SLAMSystem(cfg, ba_every=ba_every, loop_every=loop_every,
-                        device=dev, verify_draws=verify_draws(
-                            max(64, cfg.frontend.ransac_iters // 2)))
+                        device=dev)
     pd = system.pd
     pd_range = (pd.lo, pd.hi)
     pd.lo = pd.hi = pd.scale = FRAME_PD_SCALE
@@ -2081,8 +2270,8 @@ def timer_syncs(run, lefts, rights, out=None):
     """The timers' own host syncs: the next FRAME_TIMER_AB frames of the
     drive (`lefts`, `rights`; the first is a keyframe) through the live
     window's system, its RANSAC budget pinned at the last live value, each
-    run from the same state (io/convert.py's snapshot and the generator's
-    state) after a warm-up run from it, once with utils/timing.py's TIMERS
+    run from the same state (io/convert.py's snapshot, the frontend's key
+    among it) after a warm-up run from it, once with utils/timing.py's TIMERS
     as they are and once with tic and toc doing nothing, their host syncs
     counted by sync_count; then the timed run once more under
     profile_part, whose count of the runtime's sync calls checks that
@@ -2092,14 +2281,11 @@ def timer_syncs(run, lefts, rights, out=None):
 
     system = run["system"]
     system.pd.lo = system.pd.hi = system.pd.scale
-    key = np.zeros(2, np.uint32)
-    snap = convert.system_state_to_numpy(system, key)
-    gen = system.generator.get_state()
+    snap = convert.system_state_to_numpy(system)
     n = lefts.shape[0]
 
     def setup():
         convert.system_state_from_numpy(snap, system)
-        system.generator.set_state(gen)
         return 0
 
     def frames(i):
@@ -2144,19 +2330,21 @@ def run_frame(cfg, dev, gpu, out=None):
     counts the frames after the first 16."""
     from denseslam_tpu_torch.tools.long_drive_eval import (system_chunk,
                                                            system_setup)
+    from denseslam_tpu_torch.utils import threefry
     gt, scene = system_setup(SYSTEM_LOOP_FRAMES)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    chunks = [system_chunk(cfg, gt, scene, base,
-                           min(base + SYSTEM_CHUNK, FRAME_FRAMES), gen, dev)
+    key = threefry.prng_key(0)
+    chunks = [cached(system_chunk)(cfg, gt, scene, base,
+                                   min(base + SYSTEM_CHUNK, FRAME_FRAMES),
+                                   key, dev)
               for base in range(0, FRAME_FRAMES, SYSTEM_CHUNK)]
     run = drive_frames(cfg, dev, chunks, 4, 2)
     full = frame_stats(run, gt)
     vo = frame_stats(drive_frames(cfg, dev, chunks, 0, 0), gt)
     end = FRAME_FRAMES + FRAME_WINDOW_WARM + FRAME_WINDOW
-    lefts, rights = system_chunk(cfg, gt, scene, FRAME_FRAMES, end, gen, dev)
+    lefts, rights = system_chunk(cfg, gt, scene, FRAME_FRAMES, end, key, dev)
     prof, scales = live_window(run, lefts, rights, out)
     lefts, rights = system_chunk(cfg, gt, scene, end, end + FRAME_TIMER_AB,
-                                 gen, dev)
+                                 key, dev)
     ab = timer_syncs(run, lefts, rights, out)
     on, off = (ab[k]["host_syncs"] for k in ("timers_on", "timers_off"))
     emit(dict(phase="frame", frames=FRAME_FRAMES, budget_scale=FRAME_PD_SCALE,
@@ -2275,18 +2463,19 @@ def run_icp(cfg, dev, gpu):
 
 def mono_frames(cfg, dev, n: int, seed: int):
     """The mono drive's first n frames, as its first chunk made them (the
-    same generator), the ground truth, and n frames of 8-point draws from
-    a CPU generator seeded `seed`, on the card."""
+    same key), the ground truth, and n frames of 8-point draws from a CPU
+    generator seeded `seed`, on the card."""
     from denseslam_tpu_torch.tools.long_drive_eval import (depth_chunk,
                                                            system_setup)
     from denseslam_tpu_torch.ops import ransac
+    from denseslam_tpu_torch.utils import threefry
     gt, scene = system_setup(MONO_LOOP_FRAMES)
-    gen = torch.Generator(device=dev).manual_seed(2)
-    grays, depths = depth_chunk(cfg, gt, scene, 0, SYSTEM_CHUNK, gen, dev)
+    grays, depths = cached(depth_chunk)(cfg, gt, scene, 0, SYSTEM_CHUNK,
+                                        threefry.prng_key(0), dev)
     cpu_gen = torch.Generator().manual_seed(seed)
-    draws = torch.stack([ransac.draw_hypotheses(cfg.frontend.ransac_iters,
-                                                cpu_gen, size=8)
-                         for _ in range(n)])
+    draws = torch.stack([torch.randint(
+        0, ransac._RAW_HIGH, (cfg.frontend.ransac_iters, 8),
+        generator=cpu_gen) for _ in range(n)])
     torch.cuda.synchronize()
     return dict(grays=grays[:n].clone(), depths=depths[:n].clone(),
                 draws=draws.to(dev), poses=gt[:n],
@@ -2354,16 +2543,15 @@ def run_mono(cfg, dev, gpu):
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
 
     gt, scene = system_setup(MONO_LOOP_FRAMES)
-    system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
-                        verify_draws=verify_draws(
-                            max(64, cfg.frontend.ransac_iters // 2)))
+    system = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev)
     purged = count_purges(system)
     sources, unwrap = count_insert_failures(tsdf_ops)
     kernels.reset_counts()
     try:
         d = drive_system(cfg, dev, system, gt, scene,
                          system.slam.raycast_view, frames=MONO_FRAMES,
-                         eval_every=MONO_EVAL_EVERY, make_chunk=depth_chunk)
+                         eval_every=MONO_EVAL_EVERY,
+                         make_chunk=cached(depth_chunk))
     finally:
         unwrap()
     launches = dict(kernels.launch_counts)
@@ -2403,6 +2591,7 @@ def run_mono(cfg, dev, gpu):
               keyframes=be.num_keyframes, ba_rejects=be.ba_rejects,
               pg_rejects=be.pg_rejects, ate_rmse_m=ate,
               ate_by_draws_m=ates, ate_median_m=float(np.median(ates)),
+              jax_record_ate_m=jax_record_ate("results_mono.json"),
               end_error_m=float(np.linalg.norm(est[-1][:3, 3]
                                                - gt[-1][:3, 3])),
               kitti_t_err_pct=kitti["kitti_t_err_pct"],
@@ -2436,18 +2625,19 @@ def run_mono(cfg, dev, gpu):
 
 def mono_ate(cfg, dev, gt, scene, seed: int) -> float:
     """The mono drive again (the same frames and noise, no eval) with the
-    8-point draws of the system's generator seeded `seed`: its ATE."""
+    8-point draws of the frontend key PRNGKey(`seed`): its ATE."""
     from denseslam_tpu_torch.tools.long_drive_eval import depth_chunk
     from denseslam_tpu_torch.eval import traj_metrics
     from denseslam_tpu_torch.models.system import SLAMSystem
+    from denseslam_tpu_torch.utils import threefry
 
     system = SLAMSystem(cfg, seed=seed, ba_every=4, loop_every=2,
-                        device=dev, verify_draws=verify_draws(
-                            max(64, cfg.frontend.ransac_iters // 2)))
-    gen = torch.Generator(device=dev).manual_seed(2)
+                        device=dev)
+    key = threefry.prng_key(0)
+    make = cached(depth_chunk)
     for base in range(0, MONO_FRAMES, SYSTEM_CHUNK):
-        system.process_chunk(*depth_chunk(cfg, gt, scene, base,
-                                         base + SYSTEM_CHUNK, gen, dev))
+        system.process_chunk(*make(cfg, gt, scene, base, base + SYSTEM_CHUNK,
+                                   key, dev))
     system.finish()
     est = [T for _, T in system.trajectory()]
     return traj_metrics.ate_rmse(est, list(gt))
@@ -2616,11 +2806,50 @@ def run_orb(cfg, dev, fr, gpu):
     return dict(launches=launches)
 
 
+DRIVE_CHUNKS = {}   # what a chunk is made of -> a drive's frames, on the card
+
+
+def _chunk_key(make, cfg, gt, scene, lo, hi, key, dev):
+    """Everything a chunk maker's frames depend on, as a dict key: the
+    maker, the config, the poses and the scene (by value), the frame range,
+    the threefry key and the device."""
+    arrays = tuple(np.asarray(a).tobytes() for a in (gt, *scene[:2]))
+    return (make.__name__, cfg, arrays, tuple(scene[2:]), lo, hi,
+            tuple(key.tolist()), str(dev))
+
+
+def cached(make):
+    """The drive tool's chunk maker `make` (system_chunk, depth_chunk)
+    with its chunks kept in DRIVE_CHUNKS: the phases that replay a drive's
+    frames (`submaps` and `frame` the system drive's, the mono drive's
+    other draw sets) make them once. A chunk is reused only for the same
+    inputs (`_chunk_key`). main() empties DRIVE_CHUNKS after the last of
+    them."""
+    def make_cached(cfg, gt, scene, lo, hi, key, dev):
+        k = _chunk_key(make, cfg, gt, scene, lo, hi, key, dev)
+        if k not in DRIVE_CHUNKS:
+            DRIVE_CHUNKS[k] = make(cfg, gt, scene, lo, hi, key, dev)
+        return DRIVE_CHUNKS[k]
+    return make_cached
+
+
+def jax_record_ate(name: str):
+    """The JAX package's record of a drive (its ATE on XLA:TPU, on the
+    same frames and draws since PR 11), printed beside the card's, not
+    gated: the records are another compiler's."""
+    with open(os.path.join(ROOT, name)) as fh:
+        return json.load(fh)["ate_rmse_m"]
+
+
 def surface_distances(v: torch.Tensor, scene) -> torch.Tensor:
     """Distance of each point (N, 3) to the nearest true surface of a
-    loop scene: its spheres and its ground plane."""
-    c = torch.as_tensor(scene.sphere_centers, device=v.device)
-    r = torch.as_tensor(scene.sphere_radii, device=v.device)
+    loop scene: its spheres and its ground plane, in float64. (In float32
+    the plane's height 1.65 m rounds down by 2.4e-8 m, which moved the
+    many vertices of the horizontal tet edges on the voxel-centre rows
+    two voxels from the plane to 4.8e-9 m past two voxels.)"""
+    v = v.to(torch.float64)
+    c = torch.as_tensor(scene.sphere_centers, device=v.device).double()
+    r = torch.as_tensor(scene.sphere_radii, device=v.device).double()
     d = (v[:, 1] - scene.plane_y).abs()
     for i in range(c.shape[0]):
         d = torch.minimum(d, ((v - c[i]).norm(dim=-1) - r[i]).abs())
@@ -2669,12 +2898,18 @@ def run_mesh(cfg, dev, system, gpu):
                           scene)
     d = d.cpu().numpy()
     med, p95 = float(np.median(d)), float(np.quantile(d, 0.95))
+    # not gated, an open question: the vertices more than 1.5 voxels
+    # below the ground (y points down) and the median without them
+    below = tris.reshape(-1, 3)[:, 1] > scene.plane_y + 1.5 * vsz
     emit(dict(phase="mesh", triangles=n,
               blocks=int(tsdf_ops.num_allocated_blocks(m)),
               obj_bytes=os.path.getsize(path), save_mesh_s=save_s,
               extract_s_by_chunk=extract_s, cpu_extract_s=cpu_s,
               cpu_max_abs_err_m=cpu_err, edge_max_m=edge,
-              surface_dist_median_m=med, surface_dist_p95_m=p95, gpu=gpu))
+              surface_dist_median_m=med, surface_dist_p95_m=p95,
+              below_ground_share=float(below.mean()),
+              surface_dist_median_not_below_m=float(np.median(d[~below])),
+              gpu=gpu))
     gates = dict(triangles=n >= 10_000, cpu=cpu_err <= 1e-5,
                  edges=edge < 2 * vsz, surface=med < 2 * vsz)
     if not all(gates.values()):
@@ -2781,7 +3016,8 @@ def run_tracks(cfg, dev, gpu):
 CLI_DIR = os.path.join(ROOT, "build", "cli")
 # the KITTI-layout sequence: the flagship loop drive's first frames
 CLI_FRAMES = 64
-CLI_RESUME_AT = 32
+CLI_RESUME_FRAMES = 32    # cli_resume: the sequence's first frames, whole
+CLI_RESUME_AT = 16        # ... and resumed at this frame
 CLI_RGBD_FRAMES = 48
 CLI_CPU_FRAMES = 5
 # the keys of the JAX package's summary (denseslam_tpu/main.py:428-439)
@@ -3073,13 +3309,13 @@ def run_cli_chunk(dev, gpu, kitti):
 
 def run_cli_resume(dev, gpu, kitti):
     """The sequence per frame without the backend (--sampler pallas
-    --compute_depth, no --voxel_decay): uninterrupted, and as frames 0-31 with
-    --checkpoint_out, then 32-63 resumed with --checkpoint_in
-    --frame_offset 32. Gates: the launch identity of the uninterrupted run
-    (no re-fused or purged keyframes), its poses and final checkpoint (map,
-    DB, frontend, history, generator) equal to the resumed run's bit for
-    bit, and the checkpoint's keys those of the JAX layout plus the port's
-    generator key."""
+    --compute_depth, no --voxel_decay): its first CLI_RESUME_FRAMES frames
+    uninterrupted, and as frames 0-15 with --checkpoint_out, then 16-31
+    resumed with --checkpoint_in --frame_offset 16. Gates: the launch
+    identity of the uninterrupted run (no re-fused or purged keyframes),
+    its poses and final checkpoint (map, DB, frontend with its key,
+    history) equal to the resumed run's bit for bit, and the checkpoint's
+    keys those of the JAX layout."""
     out = os.path.join(CLI_DIR, "out_resume")
     os.makedirs(out, exist_ok=True)
     # without --voxel_decay: the command line runs the sequence-end decay
@@ -3091,7 +3327,7 @@ def run_cli_resume(dev, gpu, kitti):
             + ["--sampler", "pallas", "--compute_depth"])
     path = lambda n: os.path.join(out, n)  # noqa: E731
     cap, launches, seconds = cli_run(
-        base + ["--frame_limit", str(CLI_FRAMES), "--checkpoint_out",
+        base + ["--frame_limit", str(CLI_RESUME_FRAMES), "--checkpoint_out",
                 path("whole.npz"), "--save_kitti_trajectory",
                 path("whole.txt")])
     fused = sum(o["fused"] for o in cap.outs)
@@ -3099,16 +3335,17 @@ def run_cli_resume(dev, gpu, kitti):
     track = float(np.mean([o["tracking_ok"] for o in cap.outs[1:]]))
     cli_run(base + ["--frame_limit", str(CLI_RESUME_AT), "--checkpoint_out",
                     path("first.npz")])
-    cli_run(base + ["--frame_offset", str(CLI_RESUME_AT), "--checkpoint_in",
+    cli_run(base + ["--frame_limit", str(CLI_RESUME_FRAMES - CLI_RESUME_AT),
+                    "--frame_offset", str(CLI_RESUME_AT), "--checkpoint_in",
                     path("first.npz"), "--checkpoint_out", path("resumed.npz"),
                     "--save_kitti_trajectory", path("resumed.txt")])
     with np.load(path("whole.npz")) as za, np.load(path("resumed.npz")) as zb:
         a, b = dict(za), dict(zb)
     differ = sorted(k for k in a if k not in b or not (
         a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])))
-    want_keys = jax_checkpoint_keys() | {"meta/torch_generator"}
+    want_keys = jax_checkpoint_keys()
     poses_equal = read_text(path("whole.txt")) == read_text(path("resumed.txt"))
-    emit(dict(phase="cli_resume", frames=CLI_FRAMES,
+    emit(dict(phase="cli_resume", frames=CLI_RESUME_FRAMES,
               resumed_at=CLI_RESUME_AT, fused=fused, launches=launches,
               tracking_ok_share=track, poses_equal=poses_equal,
               checkpoint_keys=len(a), differing_keys=differ,
@@ -3157,26 +3394,19 @@ def run_cli_cpu_reference(dev, gpu, kitti):
     """The `cli` command's first CLI_CPU_FRAMES frames on the card and with
     --device cpu (the CPU run with --profile_dir): poses within 1 mm /
     1e-4 rad. Both runs draw their RANSAC and verification hypotheses from
-    one CPU generator seeded 0 (a card generator and a CPU one seeded alike
-    draw different numbers) and hold the PD controller's budget at 1 (it
-    reads wall time)."""
+    the same threefry keys (made on the host, as the JAX package's) and
+    hold the PD controller's budget at 1 (it reads wall time)."""
     from denseslam_tpu_torch.models.system import PDController
-    from denseslam_tpu_torch.ops import ransac
 
     argv = (["--dataset_root", kitti, "--frame_limit", str(CLI_CPU_FRAMES)]
             + cli_map_flags()
             + ["--sampler", "pallas", "--compute_depth", "--enable_backend",
                "--online_correction"])
-    draw, update = ransac.draw_hypotheses, PDController.update
+    update = PDController.update
     poses, seconds = {}, {}
     try:
         PDController.update = lambda self, ms: self.scale
         for where in ("cuda", "cpu"):
-            gen = torch.Generator().manual_seed(0)
-            ransac.draw_hypotheses = (
-                lambda k, g, device=None, size=3, gen=gen: torch.randint(
-                    0, ransac._RAW_HIGH, (k, size), generator=gen).to(
-                    device if device is not None else g.device))
             extra = (["--device", "cpu", "--profile_dir",
                       os.path.join(CLI_DIR, "profile_cpu")]
                      if where == "cpu" else [])
@@ -3184,7 +3414,7 @@ def run_cli_cpu_reference(dev, gpu, kitti):
             poses[where] = torch.tensor(np.stack(
                 [T for _, T in cap.slams[0].trajectory()]))
     finally:
-        ransac.draw_hypotheses, PDController.update = draw, update
+        PDController.update = update
     t_err, r_err = pose_errors(poses["cuda"], poses["cpu"], "CLI")
     trace = os.path.join(CLI_DIR, "profile_cpu", "trace.json")
     emit(dict(phase="cli_cpu_reference", frames=CLI_CPU_FRAMES,
@@ -3547,9 +3777,7 @@ def profile_tick(cfg, dev, cap, out: str):
     from denseslam_tpu_torch.models.dense_slam import copy_db, copy_map
     from denseslam_tpu_torch.models.system import SLAMSystem
 
-    k_verify = max(64, cfg.frontend.ransac_iters // 2)
-    sy = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev,
-                    verify_draws=verify_draws(k_verify))
+    sy = SLAMSystem(cfg, ba_every=4, loop_every=2, device=dev)
     state = convert.backend_state_to_numpy(cap.pre["backend"])
     before = cap.apply["before"]
 
@@ -3905,6 +4133,7 @@ def main(argv=None) -> int:
     timed("kernels_ragged", check_sgm_ragged, cfg, dev)
     run = timed("slice", run_slice, cfg, dev)
     timed("slice_cpu_reference", check_against_cpu, cfg, dev, run)
+    sharded = timed("sharded", run_sharded, dev, gpu, run)
 
     rcfg = drive_config("rgbd")
     fr = rgbd_frames(rcfg, dev)
@@ -3927,11 +4156,13 @@ def main(argv=None) -> int:
     timed("submaps_cpu_reference", check_submaps_against_cpu, scfg, dev,
           submaps)
     frame = timed("frame", run_frame, scfg, dev, gpu, args.profile)
+    DRIVE_CHUNKS.clear()
     icp = timed("icp", run_icp, rcfg, dev, gpu)
     mcfg = drive_config("mono")
     mono = timed("mono", run_mono, mcfg, dev, gpu)
     timed("mono_cpu_reference", check_mono_against_cpu, mcfg, dev)
     mono_frame = timed("mono_frame", run_mono_frame, mcfg, dev, gpu)
+    DRIVE_CHUNKS.clear()
     orb = timed("orb", run_orb, scfg, dev, sfr, gpu)
     bilinear = timed("bilinear", run_bilinear, cfg, dev, run)
     timed("tracks", run_tracks, scfg, dev, gpu)
@@ -3954,7 +4185,7 @@ def main(argv=None) -> int:
                  cli_chunk=cli_chunk["launches"],
                  cli_resume=cli_resume["launches"],
                  cli_rgbd=cli_rgbd["launches"], viewer=viewer["launches"],
-                 tools=tools["launches"])
+                 tools=tools["launches"], sharded=sharded["launches"])
     for rec in recs:
         rec["launches_by_path"] = {k: v[rec["name"]] for k, v in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -11,17 +11,12 @@ either package resumes in the other:
                          the JAX package's uint16;
   meta/pend_frames{s}, meta/pend_poses{s}, meta/pend_errs{s}
                          corrections deferred for submap s;
-  fe/{i}                 the frontend state's leaves in the JAX order; the
-                         PRNG key's place holds the key the state was
-                         loaded with (`DenseSLAM.prng_key`), else a zero
-                         key;
+  fe/{i}                 the frontend state's leaves in the JAX order, its
+                         threefry key among them, so that a resumed run
+                         draws what an uninterrupted one would;
   meta/frame, meta/keyframes, meta/pose_frames, meta/pose_mats
                          the frame counter, the fused-keyframe count and
-                         the pose history;
-  meta/torch_generator   the port's own: the state of the generator its
-                         RANSAC draws come from (the JAX loader reads only
-                         the keys it names), so that a resumed run equals an
-                         uninterrupted one bit for bit.
+                         the pose history.
 
 Loading puts every submap on the system's device; a plane written under
 another storage_dtype converts through float (values, not bits), as the
@@ -36,9 +31,6 @@ import numpy as np
 import torch
 
 from . import convert
-
-_GENERATOR_KEY = "meta/torch_generator"
-_KEY_LEAF = f"fe/{convert._KEY_AT}"
 
 
 def _put(flat: Dict[str, np.ndarray], prefix: str,
@@ -62,8 +54,7 @@ def _get(data, prefix: str) -> List[np.ndarray]:
 
 def save_slam_checkpoint(path: str, slam) -> None:
     """Serialise a DenseSLAM's dynamic state: every submap with its fusion
-    DB and alignment poses, the frontend state, the history and the
-    generator."""
+    DB and alignment poses, the frontend state and the history."""
     sm = slam.submaps
     sm.finalize_spills()
     s = sm.num_local_maps
@@ -87,16 +78,12 @@ def save_slam_checkpoint(path: str, slam) -> None:
             flat[f"meta/pend_poses{si}"] = np.stack([pend[f][0] for f in fids])
             flat[f"meta/pend_errs{si}"] = np.asarray(
                 [pend[f][1] for f in fids], np.float64)
-    key = (slam.prng_key if slam.prng_key is not None
-           else np.zeros(2, np.uint32))
-    _put(flat, "fe", convert.frontend_state_to_numpy(slam.fe_state, key),
-         set())
+    _put(flat, "fe", convert.frontend_state_to_numpy(slam.fe_state), set())
     flat["meta/frame"] = np.asarray(slam.frame)
     flat["meta/keyframes"] = np.asarray(slam.current_keyframes)
     if slam.pose_history:
         flat["meta/pose_frames"] = np.asarray([p[0] for p in slam.pose_history])
         flat["meta/pose_mats"] = np.stack([p[1] for p in slam.pose_history])
-    flat[_GENERATOR_KEY] = slam.generator.get_state().numpy()
     np.savez_compressed(path, **flat)
 
 
@@ -144,6 +131,3 @@ def load_slam_checkpoint(path: str, slam) -> None:
     for si in range(s):
         sm.maps[si] = _as_storage(sm.maps[si], dtype)
     slam.current_keyframes = int(data["meta/keyframes"])
-    slam.prng_key = np.asarray(data[_KEY_LEAF])
-    if _GENERATOR_KEY in data:
-        slam.generator.set_state(torch.from_numpy(data[_GENERATOR_KEY]))

@@ -5,8 +5,8 @@ table.keys, tsdf, weight, color, alloc_frame, last_seen, frame,
 decayed_blocks, overflow — the order io/checkpoint.py of the JAX package
 writes. A fusion DB is depth, gray, T_fused, frame_id, valid, head.
 Features are uv, cls, desc, score, valid; a frontend state is the leaves
-of the JAX `FrontendState` (`jax.tree.leaves` order), whose PRNG key the
-port does not keep.
+of the JAX `FrontendState` (`jax.tree.leaves` order), its PRNG key as the
+two uint32 words that the port's threefry key holds.
 
 bf16 planes arrive as `ml_dtypes.bfloat16` arrays or as their uint16 bits
 and are reinterpreted bit for bit; they leave as uint16 bits (the
@@ -159,35 +159,37 @@ def features_to_numpy(f: Features) -> List[np.ndarray]:
     return [_np(t) for t in f]
 
 
-# FrontendState's fields after the two feature sets, in the JAX order;
-# the JAX state has its PRNG key between prior_ok and frame
+# FrontendState's fields after the two feature sets, in the JAX order
+# (the key is the threefry key's two uint32 words, held on the host)
 _STATE_DTYPES = (("disp_l", torch.float32), ("disp_r", torch.float32),
                  ("T_wc", torch.float32), ("T_delta_prev", torch.float32),
                  ("initialized", torch.bool), ("prior_ok", torch.bool),
-                 ("frame", torch.int32), ("img_l", torch.float32),
-                 ("img_r", torch.float32), ("exposure", torch.float32))
+                 ("key", torch.int64), ("frame", torch.int32),
+                 ("img_l", torch.float32), ("img_r", torch.float32),
+                 ("exposure", torch.float32))
 _KEY_AT = 16
 
 
 def frontend_state_from_numpy(leaves: Sequence, device=None) -> FrontendState:
-    """JAX FrontendState leaves (numpy, key included) -> port state; the
-    key is dropped (the port takes its RANSAC draws as an argument)."""
+    """JAX FrontendState leaves (numpy) -> port state on `device`, its key
+    on the host."""
     dev = resolve_device(device)
     leaves = list(leaves)
-    rest = leaves[10:_KEY_AT] + leaves[_KEY_AT + 1:]
     return FrontendState(
         feats_l=features_from_numpy(leaves[:5], dev),
         feats_r=features_from_numpy(leaves[5:10], dev),
-        **{name: torch.tensor(np.asarray(a), dtype=dt, device=dev)
-           for (name, dt), a in zip(_STATE_DTYPES, rest)})
+        **{name: torch.tensor(np.asarray(a).astype(np.int64) if name == "key"
+                              else np.asarray(a), dtype=dt,
+                              device="cpu" if name == "key" else dev)
+           for (name, dt), a in zip(_STATE_DTYPES, leaves[10:])})
 
 
-def frontend_state_to_numpy(st: FrontendState, key) -> List[np.ndarray]:
-    """Port state -> JAX FrontendState leaves, with `key` (numpy) in the
-    key's place."""
+def frontend_state_to_numpy(st) -> List[np.ndarray]:
+    """FrontendState (the port's or the JAX package's) -> JAX leaves, the
+    key as uint32 words."""
     rest = [_np(getattr(st, name)) for name, _ in _STATE_DTYPES]
-    leaves = features_to_numpy(st.feats_l) + features_to_numpy(st.feats_r)
-    return leaves + rest[:6] + [np.asarray(key)] + rest[6:]
+    rest[_KEY_AT - 10] = rest[_KEY_AT - 10].astype(np.uint32)
+    return features_to_numpy(st.feats_l) + features_to_numpy(st.feats_r) + rest
 
 
 def _rig(v) -> StereoRig:
@@ -293,15 +295,14 @@ def submap_state_to_numpy(sm, i: int) -> dict:
                 dirty=bool(sm.dirty[i]))
 
 
-def slam_state_to_numpy(slam, key) -> dict:
-    """A DenseSLAM's state (the port's; the submaps of the JAX package's
-    too): every submap (`submap_state_to_numpy`), the frontend state, with
-    `key` (numpy) in the PRNG key's place of the JAX leaf order, the frame
-    counter and the pose history."""
+def slam_state_to_numpy(slam) -> dict:
+    """A DenseSLAM's state (the port's or the JAX package's): every submap
+    (`submap_state_to_numpy`), the frontend state in the JAX leaf order,
+    the frame counter and the pose history."""
     sm = slam.submaps
     return dict(submaps=[submap_state_to_numpy(sm, i)
                          for i in range(sm.num_local_maps)],
-                fe_state=frontend_state_to_numpy(slam.fe_state, key),
+                fe_state=frontend_state_to_numpy(slam.fe_state),
                 frame=int(slam.frame),
                 pose_history=[(int(f), np.asarray(T, np.float32))
                               for f, T in slam.pose_history])
@@ -336,10 +337,10 @@ _SYSTEM_FIELDS = ("num_loops", "num_corrections", "num_relocs", "num_culled",
                   "_reloc_pending", "_lost_anchor_nkf")
 
 
-def system_state_to_numpy(system, key) -> dict:
-    """The port's SLAMSystem state (see slam_state_to_numpy for `key`)."""
+def system_state_to_numpy(system) -> dict:
+    """The port's SLAMSystem state."""
     return dict(backend=backend_state_to_numpy(system.backend),
-                slam=slam_state_to_numpy(system.slam, key),
+                slam=slam_state_to_numpy(system.slam),
                 **{f: getattr(system, f) for f in _SYSTEM_FIELDS})
 
 

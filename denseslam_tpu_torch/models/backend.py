@@ -8,12 +8,11 @@ triangulation and descriptor association), `ops/ba.py` `solve` and
 sketch (`_signature`) against a sketch buffer on the device; each
 shortlisted candidate is verified geometrically by the stereo VO's RANSAC.
 
-The JAX version draws each verification's RANSAC hypotheses from a key
-made of the query and candidate indices (`PRNGKey(qi * 31 + ci)`;
-relocalization: `7000 + num_keyframes * 31 + ci`). Here the draws come
-from `verify_draws(seed)` with that seed when the caller gives one (the
-parity tests pass the JAX draws), else from the backend's
-`torch.Generator`.
+Each verification draws its RANSAC hypotheses from a threefry key made of
+the query and candidate indices, as the JAX version does
+(`PRNGKey(qi * 31 + ci)`; relocalization: `7000 + num_keyframes * 31 +
+ci`), through utils/threefry.py; a caller may hand in `verify_draws(seed)`
+for that seed instead.
 
 Host reads: one for the window solve (costs, poses and observation mask
 in one transfer), one per retrieval and one per verification batch.
@@ -32,7 +31,7 @@ from ..config import SystemConfig
 from ..device import resolve_device
 from ..ops import ba, matching, posegraph, ransac
 from ..ops.features import Features
-from ..utils import lie
+from ..utils import lie, threefry
 from ..utils.numerics import true_div
 
 _SIG_M = 256     # descriptors retained per keyframe sketch
@@ -164,8 +163,8 @@ class Backend:
 
     `device` (None = the CUDA card; raises without one) holds the
     keyframes' features, the sketch buffer and the solves. `verify_draws`
-    maps a verification's seed to its (k, 3) RANSAC draws; without it the
-    draws come from `generator`, seeded with 0 on `device`."""
+    maps a verification's seed to its (k, 3) RANSAC draws; without it they
+    are `randint(PRNGKey(seed), (k, 3), 0, 2^31 - 1)`, JAX's draws."""
 
     def __init__(self, cfg: SystemConfig, device=None,
                  verify_draws: Optional[Callable[[int], torch.Tensor]] = None):
@@ -184,7 +183,6 @@ class Backend:
         # the last BA window's observation mask: cull_redundant's evidence
         self._last_window_ids: Optional[np.ndarray] = None
         self._last_window_mask: Optional[np.ndarray] = None
-        self.generator = torch.Generator(device=self.device).manual_seed(0)
         self.verify_draws = verify_draws
         # verification runs half the VO's hypothesis budget (at least 64)
         self._verify_cfg = dataclasses.replace(
@@ -267,7 +265,8 @@ class Backend:
         k = self._verify_cfg.ransac_iters
         if self.verify_draws is not None:
             return upload(np.asarray(self.verify_draws(seed)), self.device)
-        return ransac.draw_hypotheses(k, self.generator, self.device)
+        return ransac.draw_hypotheses(threefry.prng_key(seed), k,
+                                      self.device)
 
     def _verify(self, q_l: Features, q_r: Features, cands: List[Keyframe],
                 seeds: List[int]):

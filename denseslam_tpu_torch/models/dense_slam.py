@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import warnings
+from functools import partial
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,7 +40,7 @@ from ..ops import raycast as rc_ops
 from ..ops import splat as splat_ops
 from ..ops import stereo as stereo_ops
 from ..ops import tsdf as tsdf_ops
-from ..utils import lie
+from ..utils import lie, threefry
 from ..utils.camera import backproject, project
 from ..utils.image import (bilateral_filter_depth, depth_bilinear_sample,
                            rgb_to_gray)
@@ -196,16 +197,19 @@ def _virtual_right_features(feats_l: feat_ops.Features,
 
 
 def _sequence_draws(draws: Optional[torch.Tensor],
-                    generator: Optional[torch.Generator], n: int,
-                    cfg: SystemConfig, dev, size: int = 3) -> torch.Tensor:
+                    fe_state: fe.FrontendState, n: int, cfg: SystemConfig,
+                    dev, size: int = 3) -> torch.Tensor:
     """(n, K, size) RANSAC draws on `dev` (size 8 for mono): `draws`, or
-    drawn from `generator`, all at once."""
+    the draws the frontend's key makes on the next n steps (each step
+    splits it once and draws from the second half), made on the host and
+    copied once."""
     if draws is None:
-        if generator is None:
-            raise ValueError("a sequence needs `draws` or a torch.Generator")
-        draws = torch.stack([ransac.draw_hypotheses(
-            cfg.frontend.ransac_iters, generator, size=size)
-            for _ in range(n)])
+        key, out = fe_state.key, []
+        for _ in range(n):
+            key, sub = threefry.split(key)
+            out.append(ransac.draw_hypotheses(
+                sub, cfg.frontend.ransac_iters, size=size))
+        draws = torch.stack(out)
     return draws.to(dev)
 
 
@@ -230,20 +234,19 @@ def _stack_stats(per_frame) -> dict:
 def process_sequence(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
                      db: FusionDB, lefts: torch.Tensor, rights: torch.Tensor,
                      frame_ids: torch.Tensor, cfg: SystemConfig,
-                     draws: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None):
+                     draws: Optional[torch.Tensor] = None):
     """Stereo throughput path: per frame `vo_step`, then, on keyframes
     where tracking holds, SGM depth of the pair (`compute_depth`: on the
     card kernel 2 three times and kernel 4 once) and `fuse_keyframe` of it
     with the left image as gray. lefts / rights (N, H, W), frame_ids (N,)
-    int32; draws and generator as in `process_sequence_rgbd`.
+    int32; draws as in `process_sequence_rgbd`.
 
     The JAX version is one `lax.scan` with a `lax.cond` on the keyframe
     test; here that test is the one value read back to the host per frame.
 
     Returns (fe_state, map, db, stats): stats hold T_wc, tracking_ok,
     num_inliers, fused, feats_l, feats_r and sig, stacked over frames."""
-    draws = _sequence_draws(draws, generator, lefts.shape[0], cfg,
+    draws = _sequence_draws(draws, fe_state, lefts.shape[0], cfg,
                             lefts.device)
     every = cfg.pipeline.keyframe_every
     per_frame = []
@@ -263,21 +266,20 @@ def process_sequence_rgbd(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
                           db: FusionDB, grays: torch.Tensor,
                           depths: torch.Tensor, frame_ids: torch.Tensor,
                           cfg: SystemConfig,
-                          draws: Optional[torch.Tensor] = None,
-                          generator: Optional[torch.Generator] = None):
+                          draws: Optional[torch.Tensor] = None):
     """RGB-D throughput path: per frame `rgbd_vo_step`, then, on keyframes
     where tracking holds, `fuse_keyframe` of the sensor depth (no stereo
     matcher runs). grays / depths (N, H, W), frame_ids (N,) int32.
 
     draws (N, K, 3) are the per-frame RANSAC draws; when None they are
-    drawn, all at once, from `generator` (K = cfg.frontend.ransac_iters).
-    Draws that are not on the frames' device are copied there once; a copy
-    from the host waits for the card, so keep them (or the generator) on
-    the card.
+    the ones the frontend state's key makes, as in the JAX scan (K =
+    cfg.frontend.ransac_iters). Draws that are not on the frames' device
+    are copied there once. The key advances one split a frame either
+    way.
 
     Returns (fe_state, map, db, stats) as `process_sequence` does, with
     the virtual right-view features as feats_r."""
-    draws = _sequence_draws(draws, generator, grays.shape[0], cfg,
+    draws = _sequence_draws(draws, fe_state, grays.shape[0], cfg,
                             grays.device)
     every = cfg.pipeline.keyframe_every
     per_frame = []
@@ -297,18 +299,17 @@ def process_sequence_mono(fe_state: fe.FrontendState, m: tsdf_ops.MapState,
                           db: FusionDB, grays: torch.Tensor,
                           depths: torch.Tensor, frame_ids: torch.Tensor,
                           cfg: SystemConfig,
-                          draws: Optional[torch.Tensor] = None,
-                          generator: Optional[torch.Generator] = None):
+                          draws: Optional[torch.Tensor] = None):
     """Monocular throughput path: per frame `mono_vo_step` (8-point RANSAC
     and the ground-plane scale; the depth never feeds the estimator), then,
     on keyframes where tracking holds, `fuse_keyframe` of the SUPPLIED
     depth. The backend's stereo currency is a virtual disparity sampled
     from that depth at the feature positions (feats_r). grays / depths
-    (N, H, W), frame_ids (N,) int32; draws (N, K, 8), or drawn from
-    `generator` as `process_sequence_rgbd` does.
+    (N, H, W), frame_ids (N,) int32; draws (N, K, 8), or drawn from the
+    state's key as `process_sequence_rgbd` does.
 
     Returns (fe_state, map, db, stats) as `process_sequence` does."""
-    draws = _sequence_draws(draws, generator, grays.shape[0], cfg,
+    draws = _sequence_draws(draws, fe_state, grays.shape[0], cfg,
                             grays.device, size=8)
     every = cfg.pipeline.keyframe_every
     per_frame = []
@@ -339,30 +340,39 @@ def _topk_slots(scores: torch.Tensor, k: int):
 
 
 def _replay(m: tsdf_ops.MapState, db: FusionDB, slot: int,
-            T_new: Optional[torch.Tensor], cfg: SystemConfig):
+            T_new: Optional[torch.Tensor], cfg: SystemConfig,
+            key_filter=None, tsdf_cfg=None):
     """De-integrate DB slot `slot`'s frame at the pose it was fused at and,
     given T_new, re-integrate it there. In place; returns the map."""
-    intr, tc = cfg.rig.intr, cfg.tsdf
+    intr = cfg.rig.intr
+    tc = tsdf_cfg if tsdf_cfg is not None else cfg.tsdf
     depth = db_depth(db, slot)
     color = tsdf_ops.pack_gray(db_gray(db, slot))
     T_old = db.T_fused[slot]
-    m, s, k = tsdf_ops.allocate_for_frame(m, depth, T_old, intr, tc)
+    m, s, k = tsdf_ops.allocate_for_frame(m, depth, T_old, intr, tc,
+                                          key_filter=key_filter)
     m = tsdf_ops.deintegrate(m, s, k, depth, color, T_old, intr, tc)
     if T_new is not None:
-        m, s, k = tsdf_ops.allocate_for_frame(m, depth, T_new, intr, tc)
+        m, s, k = tsdf_ops.allocate_for_frame(m, depth, T_new, intr, tc,
+                                              key_filter=key_filter)
         m = tsdf_ops.integrate(m, s, k, depth, color, T_new, intr, tc)
     return m
 
 
 def online_correction(m: tsdf_ops.MapState, db: FusionDB,
                       opt_T: torch.Tensor, opt_valid: torch.Tensor,
-                      cfg: SystemConfig):
+                      cfg: SystemConfig, key_filter=None, tsdf_cfg=None):
     """De-fuse / re-fuse the worst-drift fused keyframes: score each DB
     slot's fused pose against its optimised pose `opt_T` (C, 4, 4) where
     `opt_valid` (C,); when at least start_correction_num slots drift past
     min_error, replay up to correction_num of them, worst first, then run
     the defusion-part GC. In place on map and DB; returns (map, db,
-    number re-fused)."""
+    number re-fused).
+
+    key_filter / tsdf_cfg: the sharded map's ownership seam. Each rank
+    replays only the blocks it owns, into its local table; the scoring
+    reads only the DB, which every rank holds whole, so the ranks agree
+    on which frames to replay without a message."""
     oc = cfg.correction
     err = lie.pose_error_weighted(db.T_fused, opt_T)
     stale = db.valid & opt_valid & (err > oc.min_error)
@@ -372,7 +382,8 @@ def online_correction(m: tsdf_ops.MapState, db: FusionDB,
     num = 0
     for slot, score in zip(slots, worst):
         if score > 0.0:
-            m = _replay(m, db, slot, opt_T[slot], cfg)
+            m = _replay(m, db, slot, opt_T[slot], cfg, key_filter,
+                        tsdf_cfg)
             db.T_fused[slot] = opt_T[slot]
             num += 1
     if num:
@@ -387,14 +398,15 @@ def online_correction(m: tsdf_ops.MapState, db: FusionDB,
 
 
 def purge_culled(m: tsdf_ops.MapState, db: FusionDB, culled: torch.Tensor,
-                 cfg: SystemConfig):
+                 cfg: SystemConfig, key_filter=None, tsdf_cfg=None):
     """De-fuse the DB entries whose keyframe the backend culled (C,) and
-    drop them, up to correction_num per call. In place; returns (map, db)."""
+    drop them, up to correction_num per call. In place; returns (map, db).
+    key_filter / tsdf_cfg: the ownership seam (see online_correction)."""
     scores = torch.where(db.valid & culled, 1.0, -1.0)
     slots, run = _topk_slots(scores, cfg.correction.correction_num)
     for slot, score in zip(slots, run):
         if score > 0.0:
-            m = _replay(m, db, slot, None, cfg)
+            m = _replay(m, db, slot, None, cfg, key_filter, tsdf_cfg)
             db.valid[slot] = False
             db.frame_id[slot] = -1
     return m, db
@@ -406,7 +418,8 @@ def purge_culled(m: tsdf_ops.MapState, db: FusionDB, culled: torch.Tensor,
 
 def online_correction_delta(m: tsdf_ops.MapState, db: FusionDB,
                             opt_T: torch.Tensor, opt_valid: torch.Tensor,
-                            cfg: SystemConfig):
+                            cfg: SystemConfig, key_filter=None,
+                            tsdf_cfg=None):
     """`online_correction` plus the mask (S,) of pool rows whose content it
     changed, found by comparing the pool before and after: it covers every
     mutation, the replay and its GC alike, and feeds the delta respill.
@@ -414,10 +427,12 @@ def online_correction_delta(m: tsdf_ops.MapState, db: FusionDB,
     colour planes are copied first (about 0.8 GB at the drive's pool).
     The alloc_frame / last_seen stamps are left out: they change on every
     visible slot of every replayed frame, and folding them in would make
-    the delta most of the pool."""
+    the delta most of the pool. key_filter / tsdf_cfg as in
+    `online_correction`."""
     before = (m.table.keys.clone(), m.tsdf.clone(), m.weight.clone(),
               m.color.clone())
-    m, db, num = online_correction(m, db, opt_T, opt_valid, cfg)
+    m, db, num = online_correction(m, db, opt_T, opt_valid, cfg, key_filter,
+                                   tsdf_cfg)
     changed = ((m.table.keys != before[0])
                | (m.tsdf != before[1]).any(dim=-1)
                | (m.weight != before[2]).any(dim=-1)
@@ -448,12 +463,6 @@ def _composite_merge(best: rc_ops.Raycast, rc: rc_ops.Raycast,
         mask=best.mask | rc.mask,
         color=torch.where(closer[..., None], rc.color, best.color),
     )
-
-
-def _check_supported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded map is not ported yet (ROADMAP.md Queue A, A10)")
 
 
 def _map_leaves(m: tsdf_ops.MapState) -> List[torch.Tensor]:
@@ -547,6 +556,8 @@ class SubmapManager:
         self.num_ghost_renders = 0
         self.num_delta_spills = 0
         self.num_async_spills = 0
+        # parallel/sharded_map.py ShardedTsdf of a sharded active map
+        self.sharded = None
         self._reset()
         self.create_new(np.eye(4, dtype=np.float32), anchor_frame_id=0)
 
@@ -582,15 +593,19 @@ class SubmapManager:
         return len(self.maps) - 1
 
     def create_new(self, T_global, anchor_frame_id: int = -1,
+                   map_state: Optional[tsdf_ops.MapState] = None,
                    async_spill: bool = False, enforce: bool = True) -> int:
         """A fresh submap (map and DB on the device) anchored at
-        `T_global`, now the active one. A spawn is when the device
-        footprint grows by a pool and a DB, so the budget is checked,
-        unless `enforce` is False (the chunk path enforces after its tick,
-        so that no spill queues behind the tick). Returns its index."""
+        `T_global`, now the active one; `map_state` replaces the fresh
+        pool (a sharded DenseSLAM spawns a fresh shard). A spawn is when
+        the device footprint grows by a pool and a DB, so the budget is
+        checked, unless `enforce` is False (the chunk path enforces after
+        its tick, so that no spill queues behind the tick). Returns its
+        index."""
         T = _pose_np(T_global)
-        idx = self._append(tsdf_ops.make_map(self.cfg.tsdf, self.device),
-                           make_fusion_db(self.cfg, self.device), T, T,
+        m = (map_state if map_state is not None
+             else tsdf_ops.make_map(self.cfg.tsdf, self.device))
+        idx = self._append(m, make_fusion_db(self.cfg, self.device), T, T,
                            anchor_frame_id, on_host=False)
         if enforce:
             self.enforce_memory_budget(async_spill=async_spill)
@@ -934,6 +949,16 @@ class SubmapManager:
     def is_on_host(self, idx: int) -> bool:
         return self._on_host[idx]
 
+    def demote_to_host(self, idx: int, m: tsdf_ops.MapState) -> None:
+        """Replace submap `idx` by the host map `m` (CPU tensors) and move
+        its DB to the host: the sharded spawn's demotion of the old active
+        shard, which starts its life as an inactive submap spilled."""
+        self.maps[idx] = m
+        self.dbs[idx] = copy_db(self.dbs[idx], torch.device("cpu"))
+        self._on_host[idx] = True
+        self._spill_cache[idx] = None
+        self._delta_rows[idx] = None
+
     # -- the memory-budget policy ------------------------------------------
 
     def submap_device_bytes(self, idx: int) -> int:
@@ -1005,7 +1030,10 @@ class SubmapManager:
         return sum(1 for i in range(len(self.maps)) if not self.is_on_host(i))
 
     def local_map_size(self, idx: int) -> int:
-        """Allocated blocks of submap `idx` (counted where it lives)."""
+        """Allocated blocks of submap `idx` (counted where it lives; a
+        sharded active map over all its ranks)."""
+        if self.sharded is not None and idx == self.active_idx:
+            return self.sharded.num_blocks(self.maps[idx])
         return int(tsdf_ops.num_allocated_blocks(self.maps[idx]))
 
     def should_start_new(self, visible_blocks: int, threshold: float,
@@ -1044,20 +1072,25 @@ class DenseSLAM:
     "splat", the default, else the sphere-traced raycast) and
     `raycast_composite` every submap under its alignment; `save_mesh`
     writes the active submap's mesh. On `device` (None = the CUDA card;
-    raises without one). The per-frame RANSAC draws come from `generator`,
-    seeded by `seed`, unless `process_frame` is handed them.
+    raises without one). The RANSAC draws come from the frontend state's
+    threefry key, `PRNGKey(seed)` at the start, as in the JAX package,
+    unless `process_frame` is handed them.
     `process_frame` times its stages on utils/timing.py's TIMERS
     (`frontend`, `stereo_depth`, `fusion`); `fusion_ms` holds each fused
-    keyframe's fusion time. `prng_key` is the JAX frontend's RANSAC key
-    that a checkpoint carried (io/checkpoint.py writes it back; the port
-    draws from `generator`).
+    keyframe's fusion time.
 
-    Not ported: a sharded map (ROADMAP.md Queue A, A10); that option
-    raises NotImplementedError."""
+    `mesh` (parallel/mesh.py `MapMesh`, one process per rank) shards the
+    active map over the ranks (parallel/sharded_map.py): fusion,
+    correction, purge, decay and the raycast run on each rank's shard, on
+    the mesh's device. Every rank runs the rest (odometry, depth, the
+    DB, the earlier submaps) in full and takes the values that reach the
+    map from rank 0: the pose and tracking flag of each frame, a
+    keyframe's depth and image, the backend's poses and culls. A spawn
+    demotes the old shard through `gather_to_single` to a whole submap on
+    the host."""
 
     def __init__(self, cfg: SystemConfig, mesh=None, device=None,
                  seed: int = 0):
-        _check_supported(mesh)
         if cfg.correction.enabled and cfg.tsdf.storage_dtype == "bfloat16":
             warnings.warn(
                 "online correction replays de-integration against a "
@@ -1066,10 +1099,21 @@ class DenseSLAM:
                 "exact. Use float32 storage when correction fidelity "
                 "matters.", stacklevel=2)
         self.cfg = cfg
+        self._sharded = None
+        if mesh is not None:
+            from ..parallel.mesh import MapMesh
+            from ..parallel.sharded_map import ShardedTsdf
+            if not isinstance(mesh, MapMesh):
+                raise TypeError("mesh must be a parallel.mesh.MapMesh "
+                                f"(the map axis), not {type(mesh).__name__}")
+            device = mesh.device if device is None else device
+            self._sharded = ShardedTsdf(cfg, mesh)
         self.device = resolve_device(device)
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.fe_state = fe.init_frontend(cfg, device=self.device)
+        self.fe_state = fe.init_frontend(cfg, device=self.device, seed=seed)
         self.submaps = SubmapManager(cfg, self.device)
+        if self._sharded is not None:
+            self.submaps.sharded = self._sharded
+            self.submaps.maps[0] = self._sharded.make_map()
         self.frame = 0
         self.current_keyframes = 0
         self.pose_history: List[Tuple[int, np.ndarray]] = []
@@ -1082,7 +1126,6 @@ class DenseSLAM:
         # VisoSparseSFProvider::GetFlow
         self.last_flow: Optional[Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]] = None
-        self.prng_key: Optional[np.ndarray] = None
         self._splat_cfg = splat_ops.SplatConfig(
             **dataclasses.asdict(cfg.splat))
 
@@ -1113,7 +1156,7 @@ class DenseSLAM:
         frame given no depth only tracks, and fuses nothing), RGB-D VO
         (sensor="rgbd") or stereo VO with the PD controller's
         `budget_scale`, each drawing its RANSAC hypotheses from `draws`
-        ((K, 8) for mono, else (K, 3)) or the system's generator; with
+        ((K, 8) for mono, else (K, 3)) or the frontend state's key; with
         use_external_odometry=False ICP of the depth against a render of
         the map at the last fused pose. The JAX version runs SGM on every
         frame that has a right image; here it runs only where the depth is
@@ -1133,10 +1176,6 @@ class DenseSLAM:
             self.fe_state = self.fe_state._replace(T_wc=T_wc)
             tracking_ok, vo_stats = True, {}
         elif p.sensor == "mono" or p.use_external_odometry:
-            if draws is None:
-                draws = ransac.draw_hypotheses(
-                    cfg.frontend.ransac_iters, self.generator,
-                    size=8 if p.sensor == "mono" else 3)
             if p.sensor == "mono":
                 self.fe_state, vo = fe.mono_vo_step(self.fe_state, left, cfg,
                                                     raw=draws)
@@ -1180,6 +1219,13 @@ class DenseSLAM:
                                  res.rmse]).cpu().numpy()
                 tracking_ok = bool(s[0])
                 vo_stats = dict(icp_rmse=float(s[1]))
+        if self._sharded is not None:
+            # rank 0's pose and flag decide what every rank fuses
+            T_rep, tracking_ok = self._sharded.replicate_pose(T_wc,
+                                                              tracking_ok)
+            if self.fe_state.T_wc is T_wc:
+                self.fe_state = self.fe_state._replace(T_wc=T_rep)
+            T_wc = T_rep
         TIMERS.toc("frontend", sync=T_wc)
 
         fused = False
@@ -1194,8 +1240,18 @@ class DenseSLAM:
                 depth = depth_postprocess(depth, T_wc, self.last_fused_depth,
                                           self.last_fused_T, cfg)
             TIMERS.tic("fusion")
-            m, self.db = fuse_keyframe(self.submaps.active, self.db, depth,
-                                       left, T_wc, self.frame, cfg)
+            if self._sharded is not None:
+                # the mm-quantised depth, so that the DB replay is exact;
+                # rank 0's depth and image
+                depth, left = self._sharded.replicate(
+                    db_quantize_depth(self.db, depth), left)
+                m = self._sharded.fuse(self.submaps.active, depth, left,
+                                       T_wc)
+                self.db = db_push(self.db, depth, left, T_wc, self.frame)
+            else:
+                m, self.db = fuse_keyframe(self.submaps.active, self.db,
+                                           depth, left, T_wc, self.frame,
+                                           cfg)
             self.submaps.active = m
             TIMERS.toc("fusion", sync=m.tsdf)
             self._fusion_laps.append(TIMERS.last_lap("fusion"))
@@ -1206,10 +1262,11 @@ class DenseSLAM:
             self.maybe_spawn_submap(T_wc)
 
         # pose and block count in one read-back
-        pose_nb = torch.cat([
-            T_wc.reshape(-1).to(torch.float32),
-            tsdf_ops.num_allocated_blocks(self.submaps.active)
-            .to(torch.float32)[None]]).cpu().numpy()
+        nb = tsdf_ops.num_allocated_blocks(self.submaps.active)
+        if self._sharded is not None:
+            nb = self._sharded.mesh.all_reduce(nb)
+        pose_nb = torch.cat([T_wc.reshape(-1).to(torch.float32),
+                             nb.to(torch.float32)[None]]).cpu().numpy()
         return self._finish_frame_record(pose_nb, fused, tracking_ok,
                                          vo_stats)
 
@@ -1231,6 +1288,10 @@ class DenseSLAM:
         (pruning by `splat_prune_sdf`) and rebuild points and normals."""
         cfg = self.cfg
         intr = cfg.rig.intr
+        if self._sharded is not None and m is self.submaps.active:
+            # the sharded active map: each rank renders its shard and the
+            # renders combine by nearest depth
+            return self._sharded.raycast(m, T_wc)
         if cfg.pipeline.renderer != "splat":
             return rc_ops.raycast(m, T_wc, intr, cfg.tsdf)
         rc = splat_ops.splat_render(m, T_wc, intr, cfg.tsdf, self._splat_cfg)
@@ -1262,7 +1323,10 @@ class DenseSLAM:
         blocks, read back together."""
         v = torch.stack([
             ((m.last_seen == m.frame - 1) & m.table.valid).sum(),
-            tsdf_ops.num_allocated_blocks(m)]).cpu()
+            tsdf_ops.num_allocated_blocks(m)])
+        if self._sharded is not None and m is self.submaps.active:
+            v = self._sharded.mesh.all_reduce(v)
+        v = v.cpu()
         return int(v[0]), int(v[1])
 
     def maybe_spawn_submap(self, T_wc, defer_enforce: bool = False) -> bool:
@@ -1280,8 +1344,18 @@ class DenseSLAM:
         visible, size = self._spawn_stats(self.submaps.active)
         if not self.submaps.should_start_new(visible, thr, size=size):
             return False
-        self.submaps.create_new(_pose_np(T_wc), anchor_frame_id=self.frame,
-                                enforce=not defer_enforce)
+        if self._sharded is not None:
+            # only the active map is sharded: the old shard becomes a whole
+            # submap spilled to the host, and a fresh shard starts
+            sm = self.submaps
+            sm.demote_to_host(sm.active_idx, self._sharded.gather_to_single(
+                sm.active, as_numpy=True))
+            sm.create_new(_pose_np(T_wc), anchor_frame_id=self.frame,
+                          map_state=self._sharded.make_map())
+        else:
+            self.submaps.create_new(_pose_np(T_wc),
+                                    anchor_frame_id=self.frame,
+                                    enforce=not defer_enforce)
         if not defer_enforce:
             self.submaps.enforce_memory_budget()
         return True
@@ -1355,6 +1429,9 @@ class DenseSLAM:
         `restore_submap` (correcting inactive pools live costs a replay
         per tick and deferring coalesces ticks). Returns the number of
         re-fused keyframes."""
+        if self._sharded is not None:
+            frame_ids, poses = self._sharded.replicate_host(
+                np.asarray(frame_ids), np.asarray(poses))
         lut = {int(f): i for i, f in enumerate(frame_ids)}
         sm = self.submaps
         if sm.num_local_maps > 1:
@@ -1394,9 +1471,12 @@ class DenseSLAM:
                     opt_valid[slot] = True
             if not opt_valid.any():
                 continue
-            m, db, n = online_correction(
-                sm.maps[si], db, upload(opt_T, self.device),
-                upload(opt_valid, self.device), self.cfg)
+            # only the active map is sharded; the others replay whole
+            correct = (self._sharded.correct
+                       if self._sharded is not None and si == sm.active_idx
+                       else partial(online_correction, cfg=self.cfg))
+            m, db, n = correct(sm.maps[si], db, upload(opt_T, self.device),
+                               upload(opt_valid, self.device))
             sm.maps[si] = m
             sm.dbs[si] = db
             if n > 0:
@@ -1410,7 +1490,11 @@ class DenseSLAM:
         """Remove the fused keyframes the backend culled."""
         db_ids = self.db.frame_id.cpu().numpy()
         culled = upload(np.isin(db_ids, culled_frame_ids), self.device)
-        m, db = purge_culled(self.submaps.active, self.db, culled, self.cfg)
+        if self._sharded is not None:
+            m, db = self._sharded.purge(self.submaps.active, self.db, culled)
+        else:
+            m, db = purge_culled(self.submaps.active, self.db, culled,
+                                 self.cfg)
         self.submaps.active = m
         self.db = db
 
@@ -1420,8 +1504,12 @@ class DenseSLAM:
             return
         w = self.cfg.decay.max_decay_weight
         for _ in range(self.cfg.decay.min_decay_age):
-            self.submaps.active = tsdf_ops.decay_catchup(self.submaps.active,
-                                                         w)
+            if self._sharded is not None:
+                self.submaps.active = self._sharded.decay_catchup_step(
+                    self.submaps.active, w)
+            else:
+                self.submaps.active = tsdf_ops.decay_catchup(
+                    self.submaps.active, w)
 
     def _inview_slots(self, idx: int, T_wc) -> np.ndarray:
         """The allocated slots of submap `idx` whose block centres, moved by
@@ -1479,6 +1567,8 @@ class DenseSLAM:
         them first."""
         T = (self.fe_state.T_wc if T_wc is None
              else _pose_tensor(T_wc, self.device))
+        if self._sharded is not None:
+            (T,) = self._sharded.replicate(T)
         sm = self.submaps
         best: Optional[rc_ops.Raycast] = None
         for idx in range(sm.num_local_maps):
@@ -1491,7 +1581,7 @@ class DenseSLAM:
                 trigger = any(err > self.cfg.correction.inactive_min_error
                               for _, err in
                               sm.pending_corrections[idx].values())
-                if ghost and not trigger:
+                if ghost and not trigger and self._sharded is None:
                     m = sm.ghost_render_state(idx, slots)
                     sm.num_ghost_renders += 1
                 else:
@@ -1541,9 +1631,14 @@ class DenseSLAM:
 
     def save_mesh(self, path: str) -> int:
         """Marching-tetrahedra OBJ export of the active submap (the
-        reference's SaveCurrSceneToMesh, ops/meshing.py). Returns the
-        triangle count."""
-        tris = meshing.extract_mesh(self.submaps.active, self.cfg.tsdf)
+        reference's SaveCurrSceneToMesh, ops/meshing.py); a sharded one is
+        first gathered into one table (`gather_to_single`), since each
+        shard hashes modulo its own slot count. Returns the triangle
+        count."""
+        m = self.submaps.active
+        if self._sharded is not None:
+            m = self._sharded.gather_to_single(m)
+        tris = meshing.extract_mesh(m, self.cfg.tsdf)
         meshing.save_obj(path, tris)
         return int(tris.shape[0])
 

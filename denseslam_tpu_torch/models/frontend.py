@@ -3,10 +3,12 @@ denseslam_tpu/models/frontend.py): the state, `init_frontend`, the stereo
 step `vo_step`, the RGB-D step `rgbd_vo_step` and the monocular step
 `mono_vo_step`.
 
-The JAX state carries a PRNG key for the RANSAC draws; here the draws are
-an argument of the step, or come from a `torch.Generator` the caller
-passes, so the state has no key. No function here reads a value back to
-the host.
+The state carries the RANSAC draws' threefry key (utils/threefry.py), as
+the JAX state does: `init_frontend` makes `PRNGKey(seed)`, and each step
+splits it once and draws its hypotheses from the second half, so the port
+draws what the JAX package draws. The key lives on the host, whatever the
+state's device; a step may be handed its draws (`raw`) instead, and still
+splits the key. No function here reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from ..config import SystemConfig
 from ..device import resolve_device
 from ..ops import features as feat_ops
 from ..ops import matching, mono, ransac
-from ..utils import lie
+from ..utils import lie, threefry
 from ..utils.numerics import sqrt, true_div
 
 
@@ -32,6 +34,7 @@ class FrontendState(NamedTuple):
     T_delta_prev: torch.Tensor   # last inter-frame motion
     initialized: torch.Tensor    # bool () has a previous frame
     prior_ok: torch.Tensor       # bool () last RANSAC succeeded
+    key: torch.Tensor            # (2,) threefry key of the draws, on the host
     frame: torch.Tensor          # i32 () frame counter
     img_l: torch.Tensor          # (H, W) previous left image
     img_r: torch.Tensor          # (H, W) previous right image
@@ -62,8 +65,9 @@ def _empty_features(cfg: SystemConfig, dev) -> feat_ops.Features:
 
 
 def init_frontend(cfg: SystemConfig, T_init: Optional[torch.Tensor] = None,
-                  device=None) -> FrontendState:
-    """Fresh state on `device` (None = the CUDA card; raises without one)."""
+                  device=None, seed: int = 0) -> FrontendState:
+    """Fresh state on `device` (None = the CUDA card; raises without one),
+    its key `PRNGKey(seed)`."""
     dev = resolve_device(device)
     eye = torch.eye(4, dtype=torch.float32, device=dev)
     n = cfg.frontend.max_features
@@ -77,6 +81,7 @@ def init_frontend(cfg: SystemConfig, T_init: Optional[torch.Tensor] = None,
         T_delta_prev=eye,
         initialized=torch.zeros((), dtype=torch.bool, device=dev),
         prior_ok=torch.zeros((), dtype=torch.bool, device=dev),
+        key=threefry.prng_key(seed),
         frame=torch.zeros((), dtype=torch.int32, device=dev),
         img_l=torch.zeros((h, w), dtype=torch.float32, device=dev),
         img_r=torch.zeros((h, w), dtype=torch.float32, device=dev),
@@ -84,13 +89,24 @@ def init_frontend(cfg: SystemConfig, T_init: Optional[torch.Tensor] = None,
     )
 
 
+def _split_draws(state: FrontendState, raw: Optional[torch.Tensor],
+                 cfg: SystemConfig, dev, size: int = 3):
+    """The step's `key, sub = split(state.key)` and its draws: `raw` when
+    given, else `randint(sub, (K, size), 0, 2^31 - 1)` on `dev`."""
+    key, sub = threefry.split(state.key)
+    if raw is None:
+        raw = ransac.draw_hypotheses(sub, cfg.frontend.ransac_iters, dev,
+                                     size)
+    return key, raw
+
+
 def _advance(state: FrontendState, uv_prev: torch.Tensor,
              uv_curr: torch.Tensor, valid: torch.Tensor,
              res: ransac.VOResult, **new) -> Tuple[FrontendState, VOOutput]:
     """The steps' common tail: the RANSAC motion where it holds, else the
     constant-velocity fallback (identity on the first frame); the pose;
-    the next state from `new` (feats_l, feats_r, disp_l, disp_r, img_l,
-    img_r, exposure) and the output, whose flow is the matches
+    the next state from `new` (feats_l, feats_r, disp_l, disp_r, key,
+    img_l, img_r, exposure) and the output, whose flow is the matches
     uv_prev -> uv_curr where valid."""
     dev = state.T_wc.device
     use_est = state.initialized & res.ok
@@ -117,15 +133,15 @@ def _advance(state: FrontendState, uv_prev: torch.Tensor,
 
 def vo_step(state: FrontendState, left: torch.Tensor, right: torch.Tensor,
             cfg: SystemConfig, raw: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None,
             budget_scale: Optional[float] = None
             ) -> Tuple[FrontendState, VOOutput]:
     """One frame of stereo VO: both images scaled by the running exposure,
     features of each, the circular quad match (gated around the motion
     prior while the last RANSAC held), flow consensus, subpixel refinement,
     the per-feature stereo disparities for the next frame's prior, RANSAC
-    and the exposure update from this frame's matched patches. `raw` /
-    `generator`: the RANSAC draws (see ops/ransac.py); `budget_scale`: the
+    and the exposure update from this frame's matched patches. `raw`: the
+    RANSAC draws (K, 3), else drawn from the state's key (see
+    `_split_draws`); `budget_scale`: the
     PD controller's RANSAC budget (see `estimate_stereo_motion`)."""
     fc = cfg.frontend
     intr = cfg.rig.intr
@@ -158,9 +174,9 @@ def vo_step(state: FrontendState, left: torch.Tensor, right: torch.Tensor,
     else:
         disp_lc = torch.full((f_lc.uv.shape[0],), -1.0, device=left.device)
         disp_rc = disp_lc
+    key, raw = _split_draws(state, raw, cfg, left.device)
     res = ransac.estimate_stereo_motion(q, cfg.rig, fc, raw=raw,
                                         T_init=state.T_delta_prev,
-                                        generator=generator,
                                         budget_scale=budget_scale)
 
     exposure = state.exposure
@@ -171,7 +187,7 @@ def vo_step(state: FrontendState, left: torch.Tensor, right: torch.Tensor,
         g = torch.clamp(g, 0.7, 1.4)
         exposure = torch.clamp(state.exposure / g, 0.25, 4.0)
     return _advance(state, q.uv_lp, q.uv_lc, q.valid, res, feats_l=f_lc,
-                    feats_r=f_rc, disp_l=disp_lc, disp_r=disp_rc,
+                    feats_r=f_rc, disp_l=disp_lc, disp_r=disp_rc, key=key,
                     img_l=left, img_r=right, exposure=exposure)
 
 
@@ -192,14 +208,12 @@ def virtual_disparity(feats: feat_ops.Features, depth: torch.Tensor,
 
 def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
                  depth: torch.Tensor, cfg: SystemConfig,
-                 raw: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None
+                 raw: Optional[torch.Tensor] = None
                  ) -> Tuple[FrontendState, VOOutput]:
     """One frame of RGB-D VO: the depth image synthesises virtual right-view
     observations (disparity = fx * B / Z at each feature), so temporal
     matching, flow consensus and the 4-way-reprojection RANSAC run as on
-    the stereo quad problem. `raw` / `generator`: the RANSAC draws (see
-    ops/ransac.py)."""
+    the stereo quad problem. `raw`: the RANSAC draws, as in `vo_step`."""
     fc = cfg.frontend
     intr = cfg.rig.intr
     f_lc = feat_ops.detect(gray, fc)
@@ -240,25 +254,25 @@ def rgbd_vo_step(state: FrontendState, gray: torch.Tensor,
         valid=ok,
     )
     q = matching.remove_outliers(q, fc)
+    key, raw = _split_draws(state, raw, cfg, gray.device)
     res = ransac.estimate_stereo_motion(q, cfg.rig, fc, raw=raw,
-                                        T_init=state.T_delta_prev,
-                                        generator=generator)
+                                        T_init=state.T_delta_prev)
     return _advance(state, q.uv_lp, q.uv_lc, q.valid, res, feats_l=f_lc,
                     feats_r=state.feats_r, disp_l=disp_lc,
-                    disp_r=state.disp_r, img_l=gray, img_r=state.img_r,
-                    exposure=state.exposure)
+                    disp_r=state.disp_r, key=key, img_l=gray,
+                    img_r=state.img_r, exposure=state.exposure)
 
 
 def mono_vo_step(state: FrontendState, left: torch.Tensor,
-                 cfg: SystemConfig, raw: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None
+                 cfg: SystemConfig, raw: Optional[torch.Tensor] = None
                  ) -> Tuple[FrontendState, VOOutput]:
     """One frame of monocular VO: features of the image, temporal matching
     against the previous frame's, subpixel refinement of the temporal leg,
-    flow consensus, 8-point RANSAC (`raw` (K, 8) / `generator`: its draws,
-    see ops/mono.py) and the ground-plane metric scale. Where the ground
-    gives no scale, the previous frame's speed is kept (1 on the first
-    motion). The right features and disparities stay as they are.
+    flow consensus, 8-point RANSAC (`raw` (K, 8): its draws, else drawn
+    from the state's key, see ops/mono.py) and the ground-plane metric
+    scale. Where the ground gives no scale, the previous frame's speed is
+    kept (1 on the first motion). The right features and disparities stay
+    as they are.
 
     Inherited from the JAX package (denseslam_tpu/config.py
     `refine_cap`): the refinement runs before consensus, on the first
@@ -283,8 +297,9 @@ def mono_vo_step(state: FrontendState, left: torch.Tensor,
             tol_flow=fc.outlier_flow_tol_px, tol_disp=fc.outlier_disp_tol_px,
             min_support=fc.outlier_min_support)
 
+    key, raw = _split_draws(state, raw, cfg, left.device, size=8)
     res = mono.estimate_mono_motion(uv_prev, uv_curr, valid, intr, fc,
-                                    raw=raw, generator=generator)
+                                    raw=raw)
     sc = mono.estimate_scale_ground(res.T_delta, uv_prev, uv_curr,
                                     res.inliers, intr, fc.camera_height_m,
                                     fc.camera_pitch_rad)
@@ -297,5 +312,6 @@ def mono_vo_step(state: FrontendState, left: torch.Tensor,
     return _advance(state, uv_prev, uv_curr, valid,
                     res._replace(T_delta=T_est), feats_l=f_lc,
                     feats_r=state.feats_r, disp_l=state.disp_l,
-                    disp_r=state.disp_r, img_l=left, img_r=state.img_r,
+                    disp_r=state.disp_r, key=key, img_l=left,
+                    img_r=state.img_r,
                     exposure=state.exposure)

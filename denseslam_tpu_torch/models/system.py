@@ -85,7 +85,6 @@ class SLAMSystem:
         self.device = self.slam.device
         self.backend = Backend(cfg, device=self.device,
                                verify_draws=verify_draws)
-        self.generator = self.slam.generator
         self.ba_every = ba_every
         self.loop_every = loop_every
         self.reloc_after = reloc_after   # lost frames before relocalizing
@@ -123,8 +122,7 @@ class SLAMSystem:
         fids = torch.arange(frame0, frame0 + n, dtype=torch.int32,
                             device=lefts.device)
         st, m, db, stats = seq(slam.fe_state, slam.submaps.active, slam.db,
-                               lefts, rights, fids, self.cfg, draws=draws,
-                               generator=self.generator)
+                               lefts, rights, fids, self.cfg, draws=draws)
         slam.fe_state = st
         slam.submaps.active = m
         slam.db = db
@@ -147,7 +145,7 @@ class SLAMSystem:
         after a lost streak, run ONE backend tick for the chunk and
         re-anchor the chunk's history and the frontend once. `draws`
         (N, K, 3), (N, K, 8) for mono, are the scan's RANSAC draws
-        (default: from the system's generator).
+        (default: from the frontend state's key, as in the JAX package).
 
         Returns the last frame's telemetry and the chunk's tracking flags."""
         t0 = time.perf_counter()
@@ -367,7 +365,7 @@ class SLAMSystem:
         frames; register a fused keyframe with the backend and run its
         tick, whose optimisation moves the frontend pose at once. `draws`
         (K, 3), (K, 8) for mono: the frame's RANSAC draws (default: from
-        the generator).
+        the frontend state's key).
         The frame's wall time feeds the PD controller."""
         if self._prefetched is not None:
             raise RuntimeError("a prefetched chunk is pending: call "

@@ -88,10 +88,19 @@ def _huber_w(r, delta):
                        true_div(delta, torch.clamp(n, min=1e-9)))
 
 
-def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig) -> BAResult:
+def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig,
+          mesh=None) -> BAResult:
     """Damped GN with Schur elimination; a chi2 pass at half-time drops
-    observations still gross after the first half of the iterations."""
+    observations still gross after the first half of the iterations.
+
+    mesh: when given (parallel/mesh.py `MapMesh`), each rank holds a slice
+    of the landmarks, and every camera-side sum (U, the gradient, the
+    Schur complement, the costs and the counts) is summed over the ranks
+    by all-reduce; the landmark blocks stay on their rank and the reduced
+    camera solve is the same on every rank (parallel/ba.py)."""
     K = problem.T_wc.shape[0]
+    allsum = ((lambda x: mesh.all_reduce(x)) if mesh is not None
+              else (lambda x: x))
     dev, dt = problem.T_wc.device, problem.T_wc.dtype
     delta = cfg.huber_px
     mono = problem.obs[..., 2] < 0.0     # no right obs: zero the ur row
@@ -107,14 +116,14 @@ def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig) -> BAResult:
         r = torch.where(zero_ur, 0.0, r)
         w = _huber_w(r, delta) * mask
         ok = w * (p[..., 2] > 0.05)
-        return (ok[..., None] * r * r).sum(), r, p, ok
+        return allsum((ok[..., None] * r * r).sum()), r, p, ok
 
     def gn_iters(T_cw, pts, mask, n):
         # cameras with too few effective observations are frozen like the
         # gauge-fixed ones: their blocks are near-singular, and the damped
         # solve would take large steps along the null directions
         eff = mask & pv[:, None]
-        weak = eff.to(torch.int32).sum(dim=0) < 8
+        weak = allsum(eff.to(torch.int32).sum(dim=0)) < 8
         fixm = problem.fixed | weak
         lm_damp = torch.full((), 1e-4, dtype=dt, device=dev)
         for _ in range(n):
@@ -129,10 +138,10 @@ def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig) -> BAResult:
             wm = (w * mask * pv[:, None])[..., None, None]
             Jc_w = J_cam * wm
             Jp_w = J_pt * wm
-            U = torch.einsum("lkai,lkaj->kij", Jc_w, J_cam)
+            U = allsum(torch.einsum("lkai,lkaj->kij", Jc_w, J_cam))
             V = torch.einsum("lkai,lkaj->lij", Jp_w, J_pt)
             W = torch.einsum("lkai,lkaj->lkij", Jc_w, J_pt)
-            b_c = torch.einsum("lkai,lka->ki", Jc_w, r)
+            b_c = allsum(torch.einsum("lkai,lka->ki", Jc_w, r))
             b_p = torch.einsum("lkai,lka->li", Jp_w, r)
 
             damp_c = lm_damp * torch.clamp(
@@ -145,9 +154,9 @@ def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig) -> BAResult:
             Vinv = inv3x3(V)
             WVinv = torch.einsum("lkij,ljm->lkim", W, Vinv)
             # Schur: S = blockdiag(U) - sum_l W Vinv W^T
-            S = -torch.einsum("lkim,lqjm->kqij", WVinv, W)
+            S = -allsum(torch.einsum("lkim,lqjm->kqij", WVinv, W))
             S[diag_k, diag_k] += U
-            rhs = b_c - torch.einsum("lkim,lm->ki", WVinv, b_p)
+            rhs = b_c - allsum(torch.einsum("lkim,lm->ki", WVinv, b_p))
 
             S = torch.where(fixm[:, None, None, None]
                             | fixm[None, :, None, None], 0.0, S)
@@ -190,4 +199,4 @@ def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig) -> BAResult:
     final_cost = cost_of(T_cw_f, pts_f, mask1)[0]
     return BAResult(T_wc=lie.inv_T(T_cw_f), points_w=pts_f,
                     initial_cost=init_cost, final_cost=final_cost,
-                    num_obs=mask1.to(torch.int32).sum())
+                    num_obs=allsum(mask1.to(torch.int32).sum()))

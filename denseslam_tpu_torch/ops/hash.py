@@ -21,6 +21,7 @@ PACK_HALF = 1 << (PACK_BITS - 1)
 _PACK_MASK = (1 << PACK_BITS) - 1
 
 EMPTY_KEY = 2 ** 30
+EMPTY_COORD = -(2 ** 30)   # the coordinate-space sentinel of `coords`
 _I32_MAX = 2 ** 31 - 1
 
 
@@ -68,11 +69,22 @@ def pack_xyz(x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
     return key.masked_fill(~ok, EMPTY_KEY)
 
 
+def pack_coords(coords: torch.Tensor, mask=None) -> torch.Tensor:
+    """(..., 3) int32 coords -> packed keys (out of range or masked ->
+    EMPTY_KEY)."""
+    return pack_xyz(coords[..., 0], coords[..., 1], coords[..., 2], mask)
+
+
 def unpack_xyz(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     x = (keys & _PACK_MASK) - PACK_HALF
     y = ((keys >> PACK_BITS) & _PACK_MASK) - PACK_HALF
     z = ((keys >> (2 * PACK_BITS)) & _PACK_MASK) - PACK_HALF
     return x, y, z
+
+
+def unpack_coords(keys: torch.Tensor) -> torch.Tensor:
+    """Packed keys -> (..., 3) int32 coords (for small and cold outputs)."""
+    return torch.stack(unpack_xyz(keys), dim=-1)
 
 
 def hash_key(keys: torch.Tensor, num_slots: int) -> torch.Tensor:
@@ -97,6 +109,12 @@ class HashTable(NamedTuple):
     def valid(self) -> torch.Tensor:
         return self.keys != EMPTY_KEY
 
+    @property
+    def coords(self) -> torch.Tensor:
+        """(S, 3) coords, EMPTY_COORD on free slots (export and debug)."""
+        return unpack_coords(self.keys).masked_fill(~self.valid[:, None],
+                                                    EMPTY_COORD)
+
 
 def make_table(num_slots: int, device) -> HashTable:
     return HashTable(keys=torch.full((num_slots,), EMPTY_KEY,
@@ -118,6 +136,12 @@ def lookup_keys(table: HashTable, qkeys: torch.Tensor,
         slot = torch.where(hit, cand, slot)
         found = found | hit
     return slot
+
+
+def lookup(table: HashTable, queries: torch.Tensor,
+           probe_len: int) -> torch.Tensor:
+    """Coord-space `lookup_keys`: (N, 3) queries -> slots."""
+    return lookup_keys(table, pack_coords(queries), probe_len)
 
 
 def insert_keys(
@@ -170,6 +194,12 @@ def insert_keys(
     return HashTable(keys=keys), slots, fresh
 
 
+def insert(table: HashTable, queries: torch.Tensor, qmask: torch.Tensor,
+           probe_len: int) -> Tuple[HashTable, torch.Tensor, torch.Tensor]:
+    """Coord-space `insert_keys` of (N, 3) deduplicated coords."""
+    return insert_keys(table, pack_coords(queries, qmask), qmask, probe_len)
+
+
 def free_slots(table: HashTable, slot_idx: torch.Tensor,
                mask: torch.Tensor) -> HashTable:
     """Free the given slots (in place)."""
@@ -196,4 +226,14 @@ def unique_keys(keys: torch.Tensor,
     out = s2[:cap]
     umask = out != EMPTY_KEY
     total = is_first.to(torch.int32).sum().to(torch.int32)
+    return out, umask, total
+
+
+def unique_coords(coords: torch.Tensor, mask: torch.Tensor,
+                  cap: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Coord-space `unique_keys` of (N, 3) coords under mask (N,): returns
+    (unique (cap, 3) with EMPTY_COORD past the last, mask (cap,),
+    total_unique)."""
+    keys, umask, total = unique_keys(pack_coords(coords, mask), cap)
+    out = unpack_coords(keys).masked_fill(~umask[:, None], EMPTY_COORD)
     return out, umask, total

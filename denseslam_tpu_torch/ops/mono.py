@@ -7,10 +7,9 @@ and the four (R, t) decompositions of the winner ranked by triangulated
 depth counts. Scale is unobservable; `estimate_scale_ground` fixes it
 from the calibrated camera height over the ground plane.
 
-The hypotheses' correspondence draws are an argument: `raw` (K, 8)
-non-negative integers. Parity tests pass in the JAX package's threefry
-draws; without them the draws come from the `generator` the caller gives
-(`ransac.draw_hypotheses(..., size=8)`).
+The hypotheses' correspondence draws are `raw` (K, 8) non-negative
+integers: the caller draws them from its threefry key as the JAX version
+draws them (`ransac.draw_hypotheses(key, K, size=8)`).
 
 The SVDs have a sign ambiguity (of the nullspace vector and of U and V),
 and the card's batched solver (cuSOLVER) differs from LAPACK in the last
@@ -21,7 +20,7 @@ the factors. The 8-point nullspaces are solved in float64 (see
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +28,6 @@ from ..config import FrontendConfig
 from ..utils import lie
 from ..utils.camera import Intrinsics
 from ..utils.numerics import true_div
-from .ransac import draw_hypotheses
 
 # the rotation by +90 degrees about z of the essential decomposition
 _W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
@@ -181,27 +179,20 @@ def _decompose(E: torch.Tensor):
 
 def estimate_mono_motion(uv_prev: torch.Tensor, uv_curr: torch.Tensor,
                          valid: torch.Tensor, intr: Intrinsics,
-                         cfg: FrontendConfig,
-                         raw: Optional[torch.Tensor] = None,
-                         generator: Optional[torch.Generator] = None
+                         cfg: FrontendConfig, raw: torch.Tensor
                          ) -> MonoVOResult:
     """8-point RANSAC over the matches (N,): K = cfg.ransac_iters
     hypotheses of 8 correspondences drawn among the valid ones by `raw`
-    (K, 8) (when None, drawn from `generator`), the first hypothesis with
-    the most Sampson inliers, and its decomposition that puts the most of
-    them in front of both cameras. ok needs >= 12 inliers, half of them
-    in front; otherwise T_delta is the identity."""
+    (K, 8) (`ransac.draw_hypotheses(key, K, size=8)`), the first
+    hypothesis with the most Sampson inliers, and its decomposition that
+    puts the most of them in front of both cameras. ok needs >= 12
+    inliers, half of them in front; otherwise T_delta is the identity."""
     dev = uv_prev.device
     xp, yp = _normalize(uv_prev, intr)
     xc, yc = _normalize(uv_curr, intr)
     n_ok = valid.to(torch.int32).sum()
 
     k = cfg.ransac_iters
-    if raw is None:
-        if generator is None:
-            raise ValueError("estimate_mono_motion needs `raw` draws or a "
-                             "torch.Generator")
-        raw = draw_hypotheses(k, generator, dev, size=8)
     if tuple(raw.shape) != (k, 8):
         raise ValueError(f"raw draws of shape {tuple(raw.shape)}, "
                          f"expected {(k, 8)}")

@@ -5,10 +5,10 @@ All K hypotheses run together as a batch dimension: each GN iteration is
 one set of (K, 3)-point tensor ops, inlier counting one (K, N) reduction,
 and the refit a masked GN over all matches.
 
-The hypotheses' correspondence draws are an argument: `raw` (K, 3)
-non-negative integers. Parity tests pass in the JAX package's threefry
-draws; without them the draws come from the `generator` the caller gives
-(there is no global RNG here).
+The hypotheses' correspondence draws are `raw` (K, 3) non-negative
+integers that the caller draws as the JAX version draws them:
+`draw_hypotheses(key, K)`, i.e. `randint(key, (K, 3), 0, 2^31 - 1)` of a
+threefry key (utils/threefry.py); there is no global RNG here.
 
 Returns T_prev_curr ("T_delta"): p_curr = R p_prev + t.
 """
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..config import FrontendConfig
-from ..utils import lie
+from ..utils import lie, threefry
 from ..utils.camera import StereoRig
 from ..utils.numerics import true_div
 from .matching import QuadMatches
@@ -38,13 +38,14 @@ class VOResult(NamedTuple):
     ok: torch.Tensor           # bool () solution trustworthy
 
 
-def draw_hypotheses(k: int, generator: torch.Generator, device=None,
+def draw_hypotheses(key: torch.Tensor, k: int, device=None,
                     size: int = 3) -> torch.Tensor:
-    """(k, size) int64 draws in [0, 2^31 - 1) from `generator`, on
-    `device`: `size` correspondences a hypothesis (3 for this solver, 8
-    for ops/mono.py's)."""
-    raw = torch.randint(0, _RAW_HIGH, (k, size), generator=generator,
-                        device=generator.device)
+    """(k, size) int64 draws in [0, 2^31 - 1) of the threefry key `key`,
+    as jax.random.randint draws them (ops/ransac.py:157 and ops/mono.py:179
+    of the JAX package), on `device`: `size` correspondences a hypothesis
+    (3 for this solver, 8 for ops/mono.py's). Keys live on the host, so
+    this is host work and one copy."""
+    raw = threefry.randint(key, (k, size), 0, _RAW_HIGH)
     return raw.to(device) if device is not None else raw
 
 
@@ -131,14 +132,11 @@ def _active_hypotheses(k: int, budget_scale: float) -> int:
 
 
 def estimate_stereo_motion(q: QuadMatches, rig: StereoRig,
-                           cfg: FrontendConfig,
-                           raw: Optional[torch.Tensor] = None,
+                           cfg: FrontendConfig, raw: torch.Tensor,
                            T_init: Optional[torch.Tensor] = None,
-                           generator: Optional[torch.Generator] = None,
                            budget_scale: Optional[float] = None) -> VOResult:
     """RANSAC + refit over quad matches. `raw` (K, 3) are the hypothesis
-    draws (K = cfg.ransac_iters); when None they are drawn from
-    `generator`.
+    draws (K = cfg.ransac_iters; `draw_hypotheses(key, K)`).
 
     budget_scale (a host number in (0, 1], optional) is the PD frame-time
     controller's knob: only the first ceil(K * budget_scale) hypotheses
@@ -150,11 +148,6 @@ def estimate_stereo_motion(q: QuadMatches, rig: StereoRig,
     n_ok = ok.to(torch.int32).sum()
 
     k = cfg.ransac_iters
-    if raw is None:
-        if generator is None:
-            raise ValueError("estimate_stereo_motion needs `raw` draws or a "
-                             "torch.Generator")
-        raw = draw_hypotheses(k, generator, dev)
     if tuple(raw.shape) != (k, 3):
         raise ValueError(f"raw draws of shape {tuple(raw.shape)}, expected {(k, 3)}")
     # hypotheses: K x 3 correspondences among the valid matches (valid

@@ -131,19 +131,26 @@ def _check_supported(cfg: TsdfConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def touched_block_keys(depth: torch.Tensor, T_wc: torch.Tensor,
-                       intr: Intrinsics, cfg: TsdfConfig) -> torch.Tensor:
+                       intr: Intrinsics, cfg: TsdfConfig,
+                       row0: Optional[int] = None) -> torch.Tensor:
     """Packed keys of blocks in the truncation band of each depth sample —
-    (k*H*W/s^2,) int32, EMPTY_KEY where invalid."""
+    (k*H*W/s^2,) int32, EMPTY_KEY where invalid.
+
+    row0: when given, `depth` is an already subsampled row slab whose first
+    row is subsampled row `row0` of the image (the sharded map's exchange
+    allocation divides key generation across ranks by slabs)."""
     s = cfg.alloc_subsample
-    if s > 1:
-        depth = depth[::s, ::s]
+    if row0 is None:
+        if s > 1:
+            depth = depth[::s, ::s]
+        row0 = 0
     h, w = depth.shape
     dev = depth.device
     mu = cfg.trunc_dist_m
     block_m = cfg.block_size_m
     inv_block = 1.0 / block_m
     v = (torch.arange(h, dtype=torch.float32, device=dev)[:, None]
-         + 0.0) * float(s)
+         + float(row0)) * float(s)
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :] * float(s)
     dirx = true_div(u - intr.cx, intr.fx).expand(h, w)
     diry = true_div(v - intr.cy, intr.fy).expand(h, w)
@@ -176,10 +183,14 @@ def _floor_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def allocate_for_frame(m: MapState, depth: torch.Tensor, T_wc: torch.Tensor,
-                       intr: Intrinsics, cfg: TsdfConfig):
+                       intr: Intrinsics, cfg: TsdfConfig, key_filter=None):
     """Allocate blocks touched by this frame; returns (map, visible_slots
-    (max_visible_blocks,), visible_mask)."""
+    (max_visible_blocks,), visible_mask). `key_filter` (keys -> keys), when
+    given, maps the blocks this table must not own to EMPTY_KEY: the
+    sharded map's ownership seam (parallel/sharded_map.py)."""
     keys = touched_block_keys(depth, T_wc, intr, cfg)
+    if key_filter is not None:
+        keys = key_filter(keys)
     uniq, umask, total = vhash.unique_keys(keys, cfg.max_visible_blocks)
     return allocate_keys(m, uniq, umask, total, cfg)
 

@@ -18,12 +18,14 @@ as the JAX script's small-shape smoke mode does) says otherwise; a small
 The frames are rendered on the run's device (io/synthetic.py) under the
 JAX script's nuisance: an exposure gain 1 + gain_amp sin(2 pi t / 150),
 Gaussian photometric noise, and for the depth sensors (rgbd, mono)
-relative depth noise and dropped pixels. The noise comes from one torch
-generator on the device seeded 2, drawn chunk by chunk in frame order: the
-JAX script's threefry draws (PRNGKey(0) folded in per 32-frame batch)
-cannot be reproduced in torch, so a drive here sees other noise of the
-same law. There is nothing to compile ahead: `warmup_s` times the first
-use of the renderer and of the SGM evaluation (the CUDA kernels' build).
+relative depth noise and dropped pixels. The noise is the JAX script's
+own: threefry (utils/threefry.py) under `fold_in(PRNGKey(0), s0)` for the
+32-frame batch that starts at frame s0, split 2 ways (stereo: left,
+right) or 3 (depth sensors: gray, depth, holes), so that a drive here
+sees the JAX script's frames (its normal samples within a few float32
+ulps, see utils/threefry.py). There is nothing to compile ahead:
+`warmup_s` times the first use of the renderer and of the SGM evaluation
+(the CUDA kernels' build).
 `health_ms_*` is the host's mean enqueue time of 20 small device ops.
 
 The pieces of the drive (system_setup, system_chunk, depth_chunk,
@@ -47,7 +49,7 @@ import numpy as np
 import torch
 
 CHUNK = 64                 # the flagship drive's frames per chunk
-NOISE_SEED = 2             # the device generator of the nuisance
+NOISE_BATCH = 32           # frames per nuisance key (fold_in of the first)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -205,40 +207,58 @@ def _gain(lo: int, hi: int, amp: float, dev) -> torch.Tensor:
     return (1.0 + amp * torch.sin(2 * math.pi * t / 150.0))[:, None, None]
 
 
-def system_chunk(cfg, gt, scene, lo: int, hi: int, gen, dev,
+def _batch_keys(key, lo: int, hi: int, parts: int):
+    """(s0, s1, keys) of each NOISE_BATCH-frame batch of frames [lo, hi):
+    `split(fold_in(key, s0), parts)`, as scripts/long_drive_eval.py:
+    316-330 keys its batches."""
+    from ..utils import threefry
+    for s0 in range(lo, hi, NOISE_BATCH):
+        yield (s0, min(s0 + NOISE_BATCH, hi),
+               threefry.split(threefry.fold_in(key, s0), parts))
+
+
+def system_chunk(cfg, gt, scene, lo: int, hi: int, key, dev,
                  photo_noise: float = 2.0, gain_amp: float = 0.15):
     """Frames [lo, hi) of the drive as rectified pairs rendered on `dev`,
     under the nuisance of scripts/long_drive_eval.py:229-238 (gain
     1 + gain_amp sin(2 pi t / 150), photometric noise on each image), the
-    noise drawn from the device generator `gen`."""
+    noise drawn from the drive's threefry key `key` (`_batch_keys`)."""
     from ..io import synthetic
-    lefts, rights, _ = synthetic.render_stereo_trajectory(
-        gt[lo:hi], cfg.rig, scene, device=dev)
-    gain = _gain(lo, hi, gain_amp, dev)
-    nl = torch.randn(lefts.shape, generator=gen, device=dev)
-    nr = torch.randn(rights.shape, generator=gen, device=dev)
-    return (torch.clamp(lefts * gain + photo_noise * nl, 0, 255),
-            torch.clamp(rights * gain + photo_noise * nr, 0, 255))
+    from ..utils import threefry
+    lefts, rights = [], []
+    for s0, s1, (kl, kr) in _batch_keys(key.to(dev), lo, hi, 2):
+        lg, rg, _ = synthetic.render_stereo_trajectory(
+            gt[s0:s1], cfg.rig, scene, device=dev)
+        gain = _gain(s0, s1, gain_amp, dev)
+        nl = photo_noise * threefry.normal(kl, lg.shape)
+        nr = photo_noise * threefry.normal(kr, rg.shape)
+        lefts.append(torch.clamp(lg * gain + nl, 0, 255))
+        rights.append(torch.clamp(rg * gain + nr, 0, 255))
+    return torch.cat(lefts), torch.cat(rights)
 
 
-def depth_chunk(cfg, gt, scene, lo: int, hi: int, gen, dev,
+def depth_chunk(cfg, gt, scene, lo: int, hi: int, key, dev,
                 photo_noise: float = 2.0, gain_amp: float = 0.15,
                 depth_noise: float = 0.01, depth_holes: float = 0.05):
     """Frames [lo, hi) for the depth sensors (rgbd, mono) as (grays,
     supplied depths) rendered on `dev`, under the depth-sensor model of
     scripts/long_drive_eval.py:240-254 (the gain and photometric noise,
     relative depth noise, dropped pixels, no depth past max_depth_m), the
-    noise drawn from the device generator `gen`."""
+    noise drawn from the drive's threefry key `key` (`_batch_keys`)."""
     from ..io import synthetic
-    grays, depths = synthetic.render_trajectory(gt[lo:hi], cfg.rig.intr,
-                                                scene, device=dev)
-    gain = _gain(lo, hi, gain_amp, dev)
-    photo = torch.randn(grays.shape, generator=gen, device=dev)
-    rel = torch.randn(depths.shape, generator=gen, device=dev)
-    holes = torch.rand(depths.shape, generator=gen, device=dev) < depth_holes
-    drop = holes | (depths <= 0) | (depths > cfg.tsdf.max_depth_m)
-    return (torch.clamp(grays * gain + photo_noise * photo, 0, 255),
-            torch.where(drop, 0.0, depths * (1.0 + depth_noise * rel)))
+    from ..utils import threefry
+    grays, depths = [], []
+    for s0, s1, (kl, kd, kh) in _batch_keys(key.to(dev), lo, hi, 3):
+        lg, dd = synthetic.render_trajectory(gt[s0:s1], cfg.rig.intr, scene,
+                                             device=dev)
+        gain = _gain(s0, s1, gain_amp, dev)
+        nl = photo_noise * threefry.normal(kl, lg.shape)
+        grays.append(torch.clamp(lg * gain + nl, 0, 255))
+        dn = dd * (1.0 + depth_noise * threefry.normal(kd, dd.shape))
+        holes = threefry.uniform(kh, dd.shape) < depth_holes
+        drop = holes | (dd <= 0) | (dd > cfg.tsdf.max_depth_m)
+        depths.append(torch.where(drop, 0.0, dn))
+    return torch.cat(grays), torch.cat(depths)
 
 
 def eval_floor_m(cfg) -> float:
@@ -318,13 +338,14 @@ def drive_system(cfg, dev, system, gt, scene, render, cap=None,
                  make_chunk=None, chunk: int = CHUNK, prefetch: bool = False,
                  render_chunk: int = 16, log=None):
     """A loop drive through `system`: `frames` frames in chunks of `chunk`,
-    each made on `dev` by `make_chunk(cfg, gt, scene, lo, hi, gen, dev)`
-    (system_chunk by default; `gen` a device generator seeded NOISE_SEED)
-    and run through SLAMSystem.process_chunk — or with chunk=0 through
-    process_frame one frame at a time, `render_chunk` frames made at a
-    time, the depth sensors' depth passed as the depth (the JAX script
-    passes it as the right image, where rgbd raises and mono fuses
-    nothing) — with the
+    each made on `dev` by `make_chunk(cfg, gt, scene, lo, hi, key, dev)`
+    (system_chunk by default; `key` the threefry PRNGKey(0) of the JAX
+    script's nuisance) and run through SLAMSystem.process_chunk — or with
+    chunk=0 through process_frame one frame at a time, `render_chunk`
+    frames made at a time, the depth sensors' depth passed as the right
+    image as scripts/long_drive_eval.py:386-387 passes it (an inherited
+    defect: there rgbd raises "rgbd VO needs a depth image" and mono
+    fuses nothing) — with the
     drive's depth evaluation every `eval_every`-th fused keyframe through
     `render` (eval_renders), then `after_eval()` after each chunk that had
     eval frames, and finish(). With `prefetch` the next chunk's scan is
@@ -334,11 +355,11 @@ def drive_system(cfg, dev, system, gt, scene, render, cap=None,
     chunk on (scripts/long_drive_eval.py:296-298), less the copies of a
     tick capture `cap`; `log(hi)` is called after each chunk. Returns the
     tracking flags, the eval metrics and frames, and the seconds."""
+    from ..utils import threefry
     make_chunk = make_chunk or system_chunk
-    gen = torch.Generator(device=dev).manual_seed(NOISE_SEED)
+    key = threefry.prng_key(0)
     use_chunk = chunk > 0
     ck = chunk if use_chunk else render_chunk
-    depth_sensor = cfg.pipeline.sensor in ("rgbd", "mono")
     ok_frames, proc_s, proc_frames, synth_s = [], 0.0, 0, 0.0
     evals, eval_ids, eval_s, kf_seen = [], [], 0.0, 0
     lost, t_steady, steady_frame0 = 0, None, None
@@ -349,7 +370,7 @@ def drive_system(cfg, dev, system, gt, scene, render, cap=None,
     def make(lo, hi):
         nonlocal synth_s
         t0 = time.perf_counter()
-        pair = make_chunk(cfg, gt, scene, lo, hi, gen, dev)
+        pair = make_chunk(cfg, gt, scene, lo, hi, key, dev)
         _sync(dev)
         synth_s += time.perf_counter() - t0
         return pair
@@ -385,10 +406,7 @@ def drive_system(cfg, dev, system, gt, scene, render, cap=None,
             for i in range(hi - base):
                 t = base + i
                 t0 = time.perf_counter()
-                if depth_sensor:
-                    out = system.process_frame(lefts[i], depth=rights[i])
-                else:
-                    out = system.process_frame(lefts[i], rights[i])
+                out = system.process_frame(lefts[i], rights[i])
                 okf[i] = bool(out["tracking_ok"])
                 if t > steady_from:
                     proc_s += time.perf_counter() - t0
@@ -470,13 +488,13 @@ def main(argv=None) -> int:
                              args.chunk, dwell)
     depth_sensor = args.sensor in ("rgbd", "mono")
 
-    def make_chunk(cfg, gt, scene, lo, hi, gen, dev):
+    def make_chunk(cfg, gt, scene, lo, hi, key, dev):
         if depth_sensor:
-            a, b = depth_chunk(cfg, gt, scene, lo, hi, gen, dev,
+            a, b = depth_chunk(cfg, gt, scene, lo, hi, key, dev,
                                args.photo_noise, args.gain_amp,
                                args.depth_noise, args.depth_holes)
         else:
-            a, b = system_chunk(cfg, gt, scene, lo, hi, gen, dev,
+            a, b = system_chunk(cfg, gt, scene, lo, hi, key, dev,
                                 args.photo_noise, args.gain_amp)
         if blackout is not None:
             t = torch.arange(lo, hi, device=dev)

@@ -14,8 +14,9 @@ Tolerances, and why:
     within 1e-4 m.
   * `Backend` on the 14-keyframe revisit of tests/test_backend_model.py
     (320x240, 512 features, backend caps cut to a 4-keyframe window, 256
-    landmarks, 32 graph nodes, 64 edges, 128 retrieval slots), with the
-    JAX verification draws handed to the port: the retrieval scores within
+    landmarks, 32 graph nodes, 64 edges, 128 retrieval slots), the port
+    drawing JAX's verification samples from their keys: the retrieval
+    scores within
     one descriptor's share (1/nq; a cosine at the 0.85 threshold can flip
     with the summation order), the detected loop and its edge (1e-4),
     the local BA poses (1e-4 m / 1e-4 rad), the culled keyframes and the
@@ -23,6 +24,7 @@ Tolerances, and why:
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -104,6 +106,22 @@ def test_pose_error_weighted_np_matches_jax():
         assert pl.pose_error_weighted_np(a, b) == jl.pose_error_weighted_np(a, b)
 
 
+def _edge_terms(a, b, m):
+    zero6 = jnp.zeros((6,), jnp.float32)
+    f_i = lambda x: jpg._edge_residual(x, zero6, a, b, m)  # noqa: E731
+    f_j = lambda x: jpg._edge_residual(zero6, x, a, b, m)  # noqa: E731
+    return f_i(zero6), jax.jacfwd(f_i)(zero6), jax.jacfwd(f_j)(zero6)
+
+
+# one program for every case (a function made inside a case compiles anew)
+_jax_edge_terms = jax.jit(jax.vmap(_edge_terms))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_ba_solver(rig, backend):
+    return jax.jit(lambda p: jba.solve(p, rig, backend))
+
+
 @pytest.mark.parametrize("angle", [0.0, 1e-4, 1.0])
 def test_posegraph_jacobian_matches_jacfwd(angle):
     """Edge residual Jacobians from the port's one forward-mode pass
@@ -121,14 +139,7 @@ def test_posegraph_jacobian_matches_jacfwd(angle):
                       for _ in range(e)])
     noise[0] = np.eye(4)                  # one edge exactly at its measurement
     Tj = (Ti.astype(np.float64) @ Tm @ noise).astype(np.float32)
-    zero6 = jnp.zeros((6,), jnp.float32)
-
-    def terms(a, b, m):
-        f_i = lambda x: jpg._edge_residual(x, zero6, a, b, m)  # noqa: E731
-        f_j = lambda x: jpg._edge_residual(zero6, x, a, b, m)  # noqa: E731
-        return f_i(zero6), jax.jacfwd(f_i)(zero6), jax.jacfwd(f_j)(zero6)
-
-    want = jax.jit(jax.vmap(terms))(Ti, Tj, Tm)
+    want = _jax_edge_terms(Ti, Tj, Tm)
     got = ppg.edge_terms(_t(Ti), _t(Tj), _t(Tm))
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
@@ -152,7 +163,7 @@ def test_ba_solve_matches_jax(noisy):
         ki = rng.integers(0, obs.shape[1], n_out)
         obs[li, ki, :2] += rng.normal(0, 30, (n_out, 2))
         problem = problem._replace(obs=jnp.asarray(obs))
-    want = jax.jit(lambda p: jba.solve(p, cfg.rig, cfg.backend))(problem)
+    want = _jax_ba_solver(cfg.rig, cfg.backend)(problem)
     pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
     got = pba.solve(_port_ba_problem(problem), pcfg.rig, pcfg.backend)
     _assert_poses(got.T_wc.numpy(), want.T_wc)
@@ -208,13 +219,6 @@ def _revisit_poses():
     return np.stack(poses).astype(np.float32)
 
 
-def _verify_draws(k):
-    def draws(seed):
-        return np.asarray(jax.random.randint(
-            jax.random.PRNGKey(seed), (k, 3), 0, jnp.iinfo(jnp.int32).max))
-    return draws
-
-
 @pytest.fixture(scope="module")
 def revisit():
     """Both backends fed the same keyframes (features detected by JAX, at
@@ -231,8 +235,7 @@ def revisit():
                                                   rng.normal(0, 0.006, 3)])
     detect = jax.jit(lambda g: jfeat.detect(g, cfg.frontend))
     jb = jbe.Backend(cfg)
-    k_verify = max(64, cfg.frontend.ransac_iters // 2)
-    pb = pbe.Backend(pcfg, device="cpu", verify_draws=_verify_draws(k_verify))
+    pb = pbe.Backend(pcfg, device="cpu")
     for i, T in enumerate(poses):
         left, right, _ = js.render_stereo(jnp.asarray(T), cfg.rig)
         fl, fr = detect(left), detect(right)

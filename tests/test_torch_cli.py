@@ -59,35 +59,12 @@ def _outputs(d):
             "--metrics_json", f"{d}/metrics.json"]
 
 
-class _JaxDraws:
-    """Stands in for the port's draw_hypotheses: the draws the JAX
-    frontend makes on frames `start`, `start + 1`, ... (PRNGKey(0) split
-    once a frame)."""
-
-    def __init__(self, start=0):
-        from denseslam_tpu.config import FrontendConfig
-        k = FrontendConfig().ransac_iters
-        key, self.draws = jax.random.PRNGKey(0), []
-        for _ in range(N):
-            key, sub = jax.random.split(key)
-            self.draws.append(torch.tensor(np.asarray(jax.random.randint(
-                sub, (k, 3), 0, jnp.iinfo(jnp.int32).max))).long())
-        self.i = start
-
-    def __call__(self, k, generator, device=None, size=3):
-        self.i += 1
-        return self.draws[self.i - 1]
-
-
-def _port_main(argv, draws=None):
+def _port_main(argv):
+    """The port's command line on the CPU. It draws its RANSAC hypotheses
+    from the frontend's threefry key, PRNGKey(0) split once a frame, as
+    the JAX command line does: nothing is handed in."""
     from denseslam_tpu_torch.main import main
-    orig = pransac.draw_hypotheses
-    if draws is not None:
-        pransac.draw_hypotheses = draws
-    try:
-        return main(argv + ["--device", "cpu"])
-    finally:
-        pransac.draw_hypotheses = orig
+    return main(argv + ["--device", "cpu"])
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -100,18 +77,34 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def _settled_init_frontend(init):
+    """JAX's init_frontend with disp_l strongly typed: its fresh state holds
+    disp_l weakly typed and its VO step returns it strongly typed, so the
+    jitted step compiles twice on the fresh state's types and on its own.
+    The same values in the step's types compile it once."""
+    def settled(*args, **kwargs):
+        st = init(*args, **kwargs)
+        return st._replace(disp_l=jnp.asarray(np.asarray(st.disp_l)))
+    return settled
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     from denseslam_tpu.main import main as jax_main
+    from denseslam_tpu.models import frontend as jfe
 
     base = tmp_path_factory.mktemp("cli")
     root = str(base / "seq")
     make_dataset([root, "--frames", str(N), "--width", "160", "--height",
                   "120", "--device", "cpu"])
     out = {k: str(base / k) for k in ("jax", "port")}
-    assert jax_main(["--dataset_root", root] + FLAGS + _outputs(out["jax"])) == 0
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jfe, "init_frontend",
+                   _settled_init_frontend(jfe.init_frontend))
+        assert jax_main(["--dataset_root", root] + FLAGS
+                        + _outputs(out["jax"])) == 0
     assert _port_main(["--dataset_root", root] + FLAGS
-                      + _outputs(out["port"]), _JaxDraws()) == 0
+                      + _outputs(out["port"])) == 0
     return dict(root=root, **out)
 
 
@@ -224,10 +217,9 @@ def test_cli_checkpoints_load_across_packages(runs, tmp_path):
     jload(f"{runs['jax']}/ckpt.npz", js)
     ps = DenseSLAM(pcfg, device="cpu")
     load_slam_checkpoint(f"{runs['jax']}/ckpt.npz", ps)
-    key = np.asarray(js.fe_state.key)
-    np.testing.assert_array_equal(ps.prng_key, key)
-    same(convert.slam_state_to_numpy(js, key),
-         convert.slam_state_to_numpy(ps, key))
+    np.testing.assert_array_equal(ps.fe_state.key.numpy(),
+                                  np.asarray(js.fe_state.key))
+    same(convert.slam_state_to_numpy(js), convert.slam_state_to_numpy(ps))
     assert ps.current_keyframes == js.current_keyframes
 
     # the port's checkpoint into JAX: the same leaves as the port's state
@@ -235,11 +227,9 @@ def test_cli_checkpoints_load_across_packages(runs, tmp_path):
     load_slam_checkpoint(f"{runs['port']}/ckpt.npz", ps2)
     js2 = JaxSLAM(jcfg)
     jload(f"{runs['port']}/ckpt.npz", js2)
-    key = np.asarray(js2.fe_state.key)
-    same(convert.slam_state_to_numpy(js2, key),
-         convert.slam_state_to_numpy(ps2, key))
+    same(convert.slam_state_to_numpy(js2), convert.slam_state_to_numpy(ps2))
     assert _npz(f"{runs['port']}/ckpt.npz").keys() == (
-        _npz(f"{runs['jax']}/ckpt.npz").keys() | {"meta/torch_generator"})
+        _npz(f"{runs['jax']}/ckpt.npz").keys())
 
 
 def test_cli_resume_equals_uninterrupted_run(runs, tmp_path):
@@ -248,38 +238,41 @@ def test_cli_resume_equals_uninterrupted_run(runs, tmp_path):
     uninterrupted run bit for bit (the same draws)."""
     root, ck = runs["root"], str(tmp_path / "ck.npz")
     assert _port_main(["--dataset_root", root, "--frame_limit", "3",
-                       "--checkpoint_out", ck] + FLAGS, _JaxDraws(0)) == 0
+                       "--checkpoint_out", ck] + FLAGS) == 0
     d = str(tmp_path / "resumed")
     os.makedirs(d)
     assert _port_main(["--dataset_root", root, "--frame_offset", "3",
                        "--checkpoint_in", ck, "--save_trajectory",
                        f"{d}/traj.txt", "--checkpoint_out", f"{d}/ckpt.npz"]
-                      + FLAGS, _JaxDraws(3)) == 0
+                      + FLAGS) == 0
     assert _read(f"{d}/traj.txt") == _read(f"{runs['port']}/traj.txt")
     a, b = _npz(f"{d}/ckpt.npz"), _npz(f"{runs['port']}/ckpt.npz")
     assert a.keys() == b.keys()
     for k in a:
-        if k != "meta/torch_generator":     # the draws were handed in
-            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
 
 
 def test_checkpoint_restores_the_generator(tmp_path):
-    """The port's own key: a resumed DenseSLAM draws what an uninterrupted
-    one would."""
+    """The frontend's threefry key travels in the checkpoint: a resumed
+    DenseSLAM draws what an uninterrupted one would, and the key is the
+    JAX package's (PRNGKey(5) split once)."""
     from denseslam_tpu_torch.config import tiny_test_config
     from denseslam_tpu_torch.io.checkpoint import (load_slam_checkpoint,
                                                    save_slam_checkpoint)
     from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.utils import threefry
 
     cfg = tiny_test_config()
     a = DenseSLAM(cfg, device="cpu", seed=5)
-    pransac.draw_hypotheses(8, a.generator)
+    a.fe_state = a.fe_state._replace(key=threefry.split(a.fe_state.key)[0])
     save_slam_checkpoint(str(tmp_path / "g.npz"), a)
     b = DenseSLAM(cfg, device="cpu", seed=0)
     load_slam_checkpoint(str(tmp_path / "g.npz"), b)
-    assert b.prng_key.dtype == np.uint32 and not b.prng_key.any()
-    assert torch.equal(pransac.draw_hypotheses(8, a.generator),
-                       pransac.draw_hypotheses(8, b.generator))
+    np.testing.assert_array_equal(
+        b.fe_state.key.numpy(),
+        np.asarray(jax.random.split(jax.random.PRNGKey(5))[0]))
+    assert torch.equal(pransac.draw_hypotheses(b.fe_state.key, 8),
+                       pransac.draw_hypotheses(a.fe_state.key, 8))
 
 
 def test_cli_chunk_equals_process_chunk(runs, tmp_path):

@@ -10,9 +10,10 @@ the RANSAC budget of `vo_step`.
 Frames: the synthetic street at 160x120 under the stereo drive's
 photometric noise, drawn with numpy; 256 features, 32 RANSAC hypotheses,
 32 disparities, a keyframe every 2 frames, online correction on, the
-backend cut as in tests/test_torch_system.py. The JAX system draws each
-frame's hypotheses from its frontend's key and its verification samples
-from their seeds; the port is handed the same draws. Its PD controller
+backend cut as in tests/test_torch_system.py. Both systems draw each
+frame's hypotheses from their frontend's key and the verification
+samples from their seeds (the port through utils/threefry.py); nothing
+is handed in. Its PD controller
 reads wall time, so both sides hold its scale at 0.5.
 
 Tolerances, and why:
@@ -104,13 +105,6 @@ def _draws(key, n, k):
     return np.stack(out)
 
 
-def _verify_draws(k):
-    def draws(seed):
-        return torch.tensor(np.asarray(jax.random.randint(
-            jax.random.PRNGKey(seed), (k, 3), 0, jnp.iinfo(jnp.int32).max)))
-    return draws
-
-
 def _settle_types(slam):
     """JAX's fresh frontend state holds disp_l weakly typed, and the state
     its VO step returns holds it strongly typed: the same values, strongly
@@ -169,8 +163,7 @@ def drive():
     _settle_types(jsystem.slam)
     draws = _draws(jsystem.slam.fe_state.key, n, K)
     psystem = psys.SLAMSystem(pcfg, seed=0, ba_every=2, loop_every=1,
-                              reloc_after=2, device="cpu",
-                              verify_draws=_verify_draws(max(64, K // 2)))
+                              reloc_after=2, device="cpu")
     for s in (jsystem, psystem):
         s.pd.lo = s.pd.hi = s.pd.scale = 0.5
     jo, po, jstates = [], [], []
@@ -182,8 +175,7 @@ def drive():
                                         depth=jnp.asarray(depths[i])))
         po.append(psystem.process_frame(torch.tensor(lefts[i]),
                                         torch.tensor(rights[i]),
-                                        depth=torch.tensor(depths[i]),
-                                        draws=torch.tensor(draws[i])))
+                                        depth=torch.tensor(depths[i])))
         if i < 2:
             flows.append(tuple([np.asarray(a) for a in s.slam.last_flow]
                                for s in (jsystem, psystem)))

@@ -1,6 +1,7 @@
 """ops/hash.py port vs the JAX table: hashing, dedupe, insert and lookup
 must agree slot for slot (the JAX algorithm is deterministic)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -115,3 +116,54 @@ def test_masked_set_is_a_drop_mode_scatter(rng):
     before = dst.clone()
     ph.masked_set_(dst, idx, src, torch.zeros(20, dtype=torch.bool))
     assert torch.equal(before, dst)
+
+
+def test_coordinate_api_matches_jax(rng):
+    """The coordinate-space names (EMPTY_COORD, pack_coords,
+    unpack_coords, HashTable.coords, unique_coords, insert, lookup) equal
+    JAX's bit for bit, and keep tests/test_hash.py's properties: every
+    inserted block found at its slot, a second insert finds them all, and
+    absent coordinates miss."""
+    assert ph.EMPTY_COORD == int(jh.EMPTY_COORD)
+    c = rng.integers(-600, 600, (512, 3)).astype(np.int32)  # incl. out of range
+    mask = rng.random(512) < 0.9
+    jk = np.asarray(jh.pack_coords(jnp.asarray(c), jnp.asarray(mask)))
+    pk = ph.pack_coords(torch.tensor(c), torch.tensor(mask)).numpy()
+    np.testing.assert_array_equal(pk, jk)
+    np.testing.assert_array_equal(
+        ph.unpack_coords(torch.tensor(jk)).numpy(),
+        np.asarray(jh.unpack_coords(jnp.asarray(jk))))
+
+    coords = rng.integers(-50, 50, (96, 3)).astype(np.int32)
+    coords[48:] = coords[:48]                                  # duplicates
+    m = np.ones(96, bool)
+    m[::7] = False
+    # jitted: eagerly, every op of the probe rounds compiles on its own
+    ju, jm, jt = jax.jit(jh.unique_coords, static_argnums=2)(
+        jnp.asarray(coords), jnp.asarray(m), 64)
+    pu, pm_, pt_ = ph.unique_coords(torch.tensor(coords), torch.tensor(m), 64)
+    np.testing.assert_array_equal(pu.numpy(), np.asarray(ju))
+    np.testing.assert_array_equal(pm_.numpy(), np.asarray(jm))
+    assert int(pt_) == int(jt)
+
+    jtab, js, jf = jax.jit(jh.insert, static_argnums=3)(jh.make_table(256),
+                                                        ju, jm, 16)
+    ptab, ps, pf = ph.insert(ph.make_table(256, "cpu"), pu, pm_, 16)
+    np.testing.assert_array_equal(ptab.keys.numpy(), np.asarray(jtab.keys))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(pf.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(ptab.coords.numpy(),
+                                  np.asarray(jtab.coords))
+    live = (pm_ & (ps >= 0)).numpy()
+    assert live.sum() == int(pt_)
+    np.testing.assert_array_equal(ph.lookup(ptab, pu, 16).numpy()[live],
+                                  ps.numpy()[live])
+    _, ps2, pf2 = ph.insert(ptab, pu, pm_, 16)
+    np.testing.assert_array_equal(ps2.numpy(), ps.numpy())
+    assert not pf2.numpy()[pm_.numpy()].any()
+    missing = torch.tensor([[100, 100, 100], [-99, 0, 3]], dtype=torch.int32)
+    np.testing.assert_array_equal(
+        ph.lookup(ptab, missing, 16).numpy(),
+        np.asarray(jax.jit(jh.lookup, static_argnums=2)(
+            jtab, jnp.asarray(missing.numpy()), 16)))
+    assert (ph.lookup(ptab, missing, 16).numpy() == -1).all()

@@ -7,8 +7,9 @@ with the mono drive's sensor model (photometric noise 2.0, a gain ramp,
 1% relative depth noise, 5% holes) and the estimator settings of
 tests/test_torch_mono.py (512 features, a 0.5 px Sampson threshold).
 
-The JAX system draws each frame's 8-point hypotheses from its frontend's
-key; the port is handed the same draws. Tolerances, and why:
+Both systems draw each frame's 8-point hypotheses from their frontend's
+key (the port through utils/threefry.py); nothing is handed in.
+Tolerances, and why:
   * tracking flags, fused keyframes, keyframe ids and every counter
     (loops, corrections, culled, BA rejects, odometry edges) equal;
   * keyframe poses, the pose history and the frontend pose within 1e-4 m
@@ -91,24 +92,6 @@ def _frames(cfg, rng):
     return g, d
 
 
-def _scan_draws(seed, n):
-    """The 8-point draws the JAX frontend makes on its first n frames: its
-    key splits once a frame, and the second half draws."""
-    key, out = jax.random.PRNGKey(seed), []
-    for _ in range(n):
-        key, sub = jax.random.split(key)
-        out.append(np.asarray(jax.random.randint(
-            sub, (K, 8), 0, jnp.iinfo(jnp.int32).max)))
-    return np.stack(out)
-
-
-def _verify_draws(k):
-    def draws(seed):
-        return np.asarray(jax.random.randint(
-            jax.random.PRNGKey(seed), (k, 3), 0, jnp.iinfo(jnp.int32).max))
-    return draws
-
-
 def _snapshot(system, out, jax_side):
     slam = system.slam
     if jax_side:
@@ -134,19 +117,16 @@ def runs():
     cfg = _config()
     pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
     grays, depths = _frames(cfg, np.random.default_rng(7))
-    draws = _scan_draws(0, CHUNK * N_CHUNKS)
     jsystem = jsys.SLAMSystem(cfg, seed=0, ba_every=1, loop_every=1)
     psystem = psys.SLAMSystem(pcfg, seed=0, ba_every=1, loop_every=1,
-                              device="cpu",
-                              verify_draws=_verify_draws(max(64, K // 2)))
+                              device="cpu")
     snaps = []
     for c in range(N_CHUNKS):
         sl = slice(c * CHUNK, (c + 1) * CHUNK)
         jo = jsystem.process_chunk(jnp.asarray(grays[sl]),
                                    jnp.asarray(depths[sl]))
         po = psystem.process_chunk(torch.tensor(grays[sl]),
-                                   torch.tensor(depths[sl]),
-                                   draws=torch.tensor(draws[sl]))
+                                   torch.tensor(depths[sl]))
         snaps.append((_snapshot(psystem, po, False),
                       _snapshot(jsystem, jo, True)))
     return snaps, psystem, jsystem

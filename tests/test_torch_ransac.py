@@ -138,8 +138,10 @@ def test_estimate_stereo_motion_with_jax_draws(motion, seed):
 
 
 def test_estimate_stereo_motion_draws_from_a_generator():
-    """Without draws the port takes them from the caller's generator; the
-    same seed gives the same solution, and no generator is an error."""
+    """The port draws the hypotheses from the caller's threefry key as
+    jax.random.randint draws them from the same key (the draws equal bit
+    for bit, so the solutions do); the draws are a required argument."""
+    from denseslam_tpu_torch.utils import threefry
     cfg = convert.config_from_dict(dataclasses.asdict(
         tiny_test_config(width=320, height=240, baseline_m=0.537)))
     cfg = dataclasses.replace(cfg, frontend=dataclasses.replace(
@@ -147,9 +149,13 @@ def test_estimate_stereo_motion_draws_from_a_generator():
     xi = torch.tensor([0.0, 0.0, 0.3, 0.0, 0.01, 0.0])
     q = pm.QuadMatches(*map(torch.tensor, _quads(
         np.random.default_rng(5), cfg, pl.se3_exp(xi).numpy())))
-    a, b = (pr.estimate_stereo_motion(
-        q, cfg.rig, cfg.frontend,
-        generator=torch.Generator().manual_seed(7)) for _ in range(2))
+    raw = np.asarray(jax.random.randint(jax.random.PRNGKey(7), (16, 3), 0,
+                                        jnp.iinfo(jnp.int32).max))
+    drawn = pr.draw_hypotheses(threefry.prng_key(7), 16)
+    np.testing.assert_array_equal(drawn.numpy(), raw)
+    a = pr.estimate_stereo_motion(q, cfg.rig, cfg.frontend, raw=drawn)
+    b = pr.estimate_stereo_motion(q, cfg.rig, cfg.frontend,
+                                  raw=torch.tensor(raw))
     assert bool(a.ok) and torch.equal(a.T_delta, b.T_delta)
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(TypeError, match="raw"):
         pr.estimate_stereo_motion(q, cfg.rig, cfg.frontend)

@@ -152,19 +152,18 @@ def test_rgbd_vo_step_per_frame_with_jax_draws(ref):
 
 
 def test_frontend_state_round_trip(ref):
-    """JAX state -> port -> JAX leaves, key given back: unchanged; and a
-    fresh port state equals a fresh JAX state."""
-    key_at = 16                      # after feats_l, feats_r and 6 fields
+    """JAX state -> port -> JAX leaves, the threefry key among them:
+    unchanged; and a fresh port state, key and all, equals a fresh JAX
+    state."""
     leaves = _leaves(ref["states"][2])
     st = convert.frontend_state_from_numpy(leaves, device="cpu")
-    back = convert.frontend_state_to_numpy(st, leaves[key_at])
+    back = convert.frontend_state_to_numpy(st)
     assert len(back) == len(leaves)
     for a, b in zip(leaves, back):
         assert a.dtype == b.dtype and np.array_equal(a, b)
     init = _leaves(jfe.init_frontend(ref["cfg"]))
     fresh = pfe.init_frontend(ref["pcfg"], device="cpu")
-    for a, b in zip(init, convert.frontend_state_to_numpy(fresh,
-                                                          init[key_at])):
+    for a, b in zip(init, convert.frontend_state_to_numpy(fresh)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
 

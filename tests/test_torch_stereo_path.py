@@ -92,9 +92,12 @@ def ref():
     fids = np.arange(N, dtype=np.int32)
     seq = jax.jit(lambda st, m, db, l, r, f: jd.process_sequence(
         st, m, db, l, r, f, cfg))
-    st, m, db = jax.tree.map(lambda x: x.astype(x.dtype), (
-        jfe.init_frontend(cfg, seed=0), jt.make_map(cfg.tsdf),
-        jd.make_fusion_db(cfg)))
+    m, db = jax.tree.map(lambda x: x.astype(x.dtype), (
+        jt.make_map(cfg.tsdf), jd.make_fusion_db(cfg)))
+    # the frontend state in the types the step returns (disp_l strong,
+    # disp_r weak), so that the sequence compiles once
+    st = jfe.init_frontend(cfg, seed=0)
+    st = st._replace(disp_l=jnp.asarray(np.asarray(st.disp_l)))
     stats, draws = [], []
     for i in range(N):
         draws.append(np.asarray(jax.random.randint(

@@ -9,10 +9,10 @@ hypotheses, 48 disparities):
     revisits a known view relocks it, the keyframes registered since the
     loss began are corrected (each within the JAX test's 0.3 m of the
     revisited pose) and those before it are not moved, and the pose is
-    within the JAX test's 0.15 m. The
-    scan is handed the JAX frontend's RANSAC draws and the backend the
-    JAX verification draws, `7000 + num_keyframes * 31 + ci` for the
-    relocalization (models/backend.py `relocalize`);
+    within the JAX test's 0.15 m. The scan draws the JAX frontend's
+    RANSAC hypotheses and the backend the JAX verification draws, `7000 +
+    num_keyframes * 31 + ci` for the relocalization (models/backend.py
+    `relocalize`), from JAX's keys (utils/threefry.py);
   * `prefetch_chunk` against plain `process_chunk` (test_system.py:
     238-270), a keyframe every 2 frames: the trajectory, the keyframe
     poses and the backend's counters equal bit for bit (the JAX test
@@ -24,8 +24,6 @@ hypotheses, 48 disparities):
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -46,26 +44,6 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _jax_scan_draws(k, n):
-    """The RANSAC draws the JAX frontend makes on its first n frames (its
-    key splits once a frame)."""
-    key, out = jax.random.PRNGKey(0), []
-    for _ in range(n):
-        key, sub = jax.random.split(key)
-        out.append(np.asarray(jax.random.randint(
-            sub, (k, 3), 0, jnp.iinfo(jnp.int32).max)))
-    return torch.tensor(np.stack(out)).long()
-
-
-def _jax_verify_draws(k):
-    """The backend's verification draws for a seed, as the JAX backend
-    makes them (PRNGKey(seed))."""
-    def draws(seed):
-        return np.asarray(jax.random.randint(
-            jax.random.PRNGKey(seed), (k, 3), 0, jnp.iinfo(jnp.int32).max))
-    return draws
-
-
 def _config(**pipeline):
     """tiny_test_config at 320x240 with the frontend cut to 256 features
     and 64 RANSAC hypotheses (at 50 px buckets of 8 this image holds at
@@ -84,23 +62,20 @@ def test_chunk_mode_relocalization_after_blackout():
     cfg = _config(fusion_db_capacity=8)
     k = cfg.frontend.ransac_iters
     sys_ = SLAMSystem(cfg, ba_every=0, loop_every=0, reloc_after=2,
-                      device="cpu",
-                      verify_draws=_jax_verify_draws(max(64, k // 2)))
+                      device="cpu")
     chunk = 4
-    draws = _jax_scan_draws(k, 4 * chunk)
     poses = synthetic.make_trajectory(8, step_m=0.1, yaw_rate=0.0)
     lefts, rights, _ = synthetic.render_stereo_trajectory(poses, cfg.rig,
                                                           device="cpu")
     # phase 1: two clean chunks build the keyframe DB
     for i in range(0, 8, chunk):
-        out = sys_.process_chunk(lefts[i:i + chunk], rights[i:i + chunk],
-                                 draws=draws[i:i + chunk])
+        out = sys_.process_chunk(lefts[i:i + chunk], rights[i:i + chunk])
     assert out["tracking_ok"]
     assert sys_.backend.num_keyframes >= 6
     # phase 2: a blackout chunk (featureless frames) arms the pending
     # relocalization; blank features cannot verify, so none yet
     blanks = torch.zeros_like(lefts[:chunk])
-    out = sys_.process_chunk(blanks, blanks, draws=draws[8:12])
+    out = sys_.process_chunk(blanks, blanks)
     assert not out["tracking_ok"]
     assert sys_._reloc_pending
     assert sys_.num_relocs == 0
@@ -110,7 +85,7 @@ def test_chunk_mode_relocalization_after_blackout():
     # phase 3: revisit a known view -> the chunk-path relocalization relocks
     l2, r2, _ = synthetic.render_stereo_trajectory(
         np.stack([poses[1]] * chunk), cfg.rig, device="cpu")
-    out = sys_.process_chunk(l2, r2, draws=draws[12:16])
+    out = sys_.process_chunk(l2, r2)
     assert sys_.num_relocs >= 1
     assert not sys_._reloc_pending
     err = np.linalg.norm(np.asarray(out["T_wc"])[:3, 3] - poses[1][:3, 3])

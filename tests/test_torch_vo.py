@@ -80,7 +80,7 @@ def ref():
     disp0 = [np.asarray(x) for x in sd(*(_jf(f) for f in feats[0]))]
     return dict(cfg=cfg, pcfg=convert.config_from_dict(dataclasses.asdict(cfg)),
                 poses=poses, lefts=lefts, rights=rights, feats=feats,
-                disp0=disp0,
+                disp0=disp0, stereo_disparities=sd, quads={},
                 T_pred=(np.linalg.inv(poses[1]) @ poses[0]).astype(np.float32))
 
 
@@ -104,8 +104,7 @@ def test_match_stereo_and_disparities(ref):
     got = pm.match_stereo(_pf(fl), _pf(fr), ref["pcfg"].frontend).numpy()
     assert (got >= 0).sum() > 50
     assert _agree(want, got) >= 0.99
-    dj = jax.jit(lambda a, b: jm.stereo_disparities(a, b, fc))(_jf(fl),
-                                                               _jf(fr))
+    dj = ref["stereo_disparities"](_jf(fl), _jf(fr))
     dp = pm.stereo_disparities(_pf(fl), _pf(fr), torch.tensor(want))
     for a, b in zip(dj, dp):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
@@ -113,7 +112,14 @@ def test_match_stereo_and_disparities(ref):
 
 
 def _quads(ref, prior):
-    """JAX's and the port's quad_match of frame 1 against frame 0."""
+    """JAX's and the port's quad_match of frame 1 against frame 0, made
+    once a module for each `prior` (the tests below only read them)."""
+    if prior not in ref["quads"]:
+        ref["quads"][prior] = _make_quads(ref, prior)
+    return ref["quads"][prior]
+
+
+def _make_quads(ref, prior):
     cfg, fc = ref["cfg"], ref["cfg"].frontend
     (fl0, fr0), (fl1, fr1) = ref["feats"]
     if prior:
@@ -202,7 +208,11 @@ def drive(ref):
     """JAX vo_step jitted, frame by frame, with the draws its key gives."""
     cfg = ref["cfg"]
     step = jax.jit(lambda st, l, r: jfe.vo_step(st, l, r, cfg))
-    st = jax.tree.map(lambda x: x.astype(x.dtype), jfe.init_frontend(cfg))
+    # JAX's fresh state holds disp_l weakly typed and disp_r strongly, as
+    # its step returns them, once disp_l is strong: the same values, in the
+    # step's own types from the start, compile the step once
+    st = jfe.init_frontend(cfg)
+    st = st._replace(disp_l=jnp.asarray(np.asarray(st.disp_l)))
     states, outs, draws = [st], [], []
     for i in range(N):
         draws.append(np.asarray(jax.random.randint(
