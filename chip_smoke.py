@@ -117,7 +117,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    >= 99.9% of pixels; then a spilled submap through each
                    spill (sync compacted, async, delta) and a restore, bit
                    for bit with the device copy before it.
- 14. frame         the per-frame path: the drive's first 64 frames one at
+ 14. frame         the per-frame path: the drive's first 32 frames one at
                    a time through SLAMSystem.process_frame, ba_every=4,
                    loop_every=2, the RANSAC budget pinned at
                    FRAME_PD_SCALE, then again with the backend off; launch
@@ -192,8 +192,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    seed at 1226x370: card against CPU within 1e-4, the
                    card's ms.
  23. cli           the command line (denseslam_tpu_torch.main.main, in
-                   process) on the first 64 frames of the flagship loop
-                   drive, written by io/make_dataset.py into build/cli/ in
+                   process) on the first 32 of the 64 frames of the
+                   flagship loop drive that io/make_dataset.py writes
+                   into build/cli/ in
                    KITTI layout (8-bit PNGs under the drive's gain ramp and
                    noise): per frame through SLAMSystem.process_frame at
                    the drive's map flags with --sampler pallas
@@ -202,7 +203,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    launch identity (B1 = fused + 2 x re-fused + purged, B3 =
                    3 x fused, the tail = fused), tracking >= 95%, ATE <=
                    FRAME_ATE_M, overflow 0, trajectories and memory log of
-                   64 lines, a mesh of >= 1e4 triangles, one raycast PNG per
+                   32 lines, a mesh of >= 1e4 triangles, one raycast PNG per
                    fused keyframe reading back to its render, the JAX
                    summary's keys; frames/s, mean_fusion_ms and the TIMERS
                    report printed.
@@ -239,14 +240,46 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    half size (the disparities halved); the command line on
                    the copy's first 8 frames: the launch identity,
                    tracking on every frame.
- 30. vo_drift      A4's drift golden (tests/test_vo_numerics.py:185) at
+ 30. experiments   (after tools) the experiment tools of tools/ in process,
+                   each run of the command line instrumented
+                   (tools/common.py run_main): the card's
+                   memory_allocated back within 1% of the run's map bytes
+                   after every run, no kernel launched but on the odo run.
+                   (a) run_demo at the JAX defaults into build/demo (20
+                   frames, 320x240): both score files finite, ATE <= 2x
+                   and d1.25 >= the JAX demo's CPU scores less 0.02
+                   (DEMO_*); (b) tracking_exp on the cli sequence, 64
+                   frames at 1226x370, the CLI's decay defaults (30, 2):
+                   none, decay, slide, decay_slide, each with tracking >=
+                   95% and ATE <= FRAME_ATE_M, 4 memory logs of 64 lines,
+                   the none curve never falling, final blocks decay <
+                   none, decay_slide <= decay, slide <= none; (c)
+                   memory_draw of the 4 logs into build/exp/memory.png:
+                   decoded equal to the figure, its size, each curve's
+                   colour inside the plot area; (d) odo_exp
+                   --compute_depth over 32 frames: per fused keyframe 3 of
+                   B3 and 1 of the tail, no B1 (the gather sampler), ATE
+                   <= FRAME_VO_ATE_M, RPE and the KITTI errors in
+                   odo_summary.json; (e) lowfreq_exp --ks 1 4 and
+                   decay_exp at (30, 2) and its baseline over 32 frames:
+                   k=4 fuses ceil(k1 / 4), the decay run ends with fewer
+                   blocks; eval_raycast_depth of raycast_k1 against the
+                   ground-truth depth this phase writes (poses_gt.txt,
+                   depth_gt/) equal to eval/depth_metrics.py in process;
+                   (f) contact_sheet of the cli run's checkpoint: its size,
+                   the colour pane equal bit for bit to render_preview of
+                   raycast_view at the last pose, shrunk to the pane by
+                   nearest resampling; (g) prepare_dataset validate 0 on
+                   both sequences. Frames/s, blocks and MB of each run,
+                   the demo's scores and each tool's seconds printed.
+ 31. vo_drift      A4's drift golden (tests/test_vo_numerics.py:185) at
                    its size and on its data: 96 frames of the loop at
                    1226x370 under its noise, with the JAX frontend's RANSAC
                    draws (both made on the card by utils/threefry.py),
                    through open-loop vo_step: KITTI t_err < 0.6% and end
                    error < 0.8% of the path; every estimate_gain call of
                    the drive recomputed on the CPU equal bit for bit.
- 31. sharded       the sharded map (parallel/) on this one card: 4 ranks
+ 32. sharded       the sharded map (parallel/) on this one card: 4 ranks
                    spawned on cuda:0 over gloo (its collectives staged
                    through the host), each fusing the slice's 40 frames
                    (its SGM depths, the bench_full.py configuration) into
@@ -258,7 +291,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    hash defect) and every rank counts the same decayed
                    blocks; then the dry run (tools/dryrun_multichip.py) in
                    the same ranks. Fused frames/s of the 4 ranks.
- 32. throughput    frames/s of stereo + fusion, of the fusion tail alone
+ 33. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
@@ -309,10 +342,10 @@ SYSTEM_CHUNK = 64
 EVAL_EVERY = 25          # scripts/long_drive_eval.py --depth-eval-every
 SUBMAP_THRESHOLD = 0.3   # scripts/long_drive_eval.py --submap-threshold
 SUBMAP_BUDGET_MB = 400.0  # and --map-budget-mb of the submaps record
-# the per-frame phase: the drive's first chunk (it ran two until the mono,
-# ORB and mesh phases came; cut to keep the script within half its time
-# limit)
-FRAME_FRAMES = 64
+# the per-frame phase: the first half of the drive's first chunk (it ran
+# two chunks until the mono, ORB and mesh phases came, one until the
+# experiments phase came; cut to keep the script within its time)
+FRAME_FRAMES = 32
 FRAME_WARMUP = 16        # frames/s counts the frames after these
 # the live-PD window after the drive: FRAME_WINDOW_WARM frames, then
 # FRAME_WINDOW under the profiler (4 keyframes: one local BA and two loop
@@ -2316,8 +2349,8 @@ def timer_syncs(run, lefts, rights, out=None):
 
 
 def run_frame(cfg, dev, gpu, out=None):
-    """The per-frame path: the flagship drive's first 64 frames (its
-    first chunk, the same frames and noise) one at a time through
+    """The per-frame path: the flagship drive's first FRAME_FRAMES frames
+    (the same frames and noise) one at a time through
     SLAMSystem.process_frame at 1226x370, ba_every=4, loop_every=2, the
     RANSAC budget pinned at FRAME_PD_SCALE; then the same frames with the
     backend off (ba_every=0, loop_every=0): the VO and fusion alone; then,
@@ -3016,10 +3049,16 @@ def run_tracks(cfg, dev, gpu):
 CLI_DIR = os.path.join(ROOT, "build", "cli")
 # the KITTI-layout sequence: the flagship loop drive's first frames
 CLI_FRAMES = 64
+CLI_RUN_FRAMES = 32       # cli: the sequence's first frames (cut from 64
+# when the experiments phase came, to keep the script within its time)
 CLI_RESUME_FRAMES = 32    # cli_resume: the sequence's first frames, whole
 CLI_RESUME_AT = 16        # ... and resumed at this frame
 CLI_RGBD_FRAMES = 48
 CLI_CPU_FRAMES = 5
+# io/make_dataset.py's arguments of the KITTI-layout sequence
+CLI_KITTI_ARGS = ["--frames", str(CLI_FRAMES), "--width", "1226", "--height",
+                  "370", "--scene", "loop", "--fx", "707.09", "--baseline",
+                  "0.537", "--gain", "0.15", "--noise", "2.0", "--seed", "3"]
 # the keys of the JAX package's summary (denseslam_tpu/main.py:428-439)
 SUMMARY_KEYS = ("frames", "fps", "mean_fusion_ms", "final_blocks",
                 "final_memory_mb", "num_submaps", "num_device_submaps",
@@ -3048,11 +3087,7 @@ def cli_datasets():
 
     from denseslam_tpu_torch.io.make_dataset import make_dataset
     shutil.rmtree(CLI_DIR, ignore_errors=True)
-    kitti = make_dataset([
-        os.path.join(CLI_DIR, "kitti"), "--frames", str(CLI_FRAMES),
-        "--width", "1226", "--height", "370", "--scene", "loop",
-        "--fx", "707.09", "--baseline", "0.537", "--gain", "0.15",
-        "--noise", "2.0", "--seed", "3"])
+    kitti = make_dataset([os.path.join(CLI_DIR, "kitti")] + CLI_KITTI_ARGS)
     tum = make_dataset([
         os.path.join(CLI_DIR, "tum"), "--frames", str(CLI_RGBD_FRAMES),
         "--layout", "tum", "--scene", "default", "--step_m", "-0.1",
@@ -3184,13 +3219,13 @@ def jax_checkpoint_keys(n_submaps: int = 1) -> set:
 
 
 def run_cli(dev, gpu, kitti):
-    """The command line on the KITTI-layout loop drive: CLI_FRAMES frames
+    """The command line on the KITTI-layout loop drive: CLI_RUN_FRAMES frames
     one at a time through SLAMSystem.process_frame (the drive's map flags,
     --sampler pallas --compute_depth --enable_backend --voxel_decay
     --slide_window --online_correction, the PD controller live) with every
     output. Gates: the launch identity, tracking >= 95%, ATE <= FRAME_ATE_M
     against the drive's poses, overflow 0, the TUM and KITTI trajectories
-    and the memory log of CLI_FRAMES lines, a mesh of >= 1e4 triangles, one
+    and the memory log of CLI_RUN_FRAMES lines, a mesh of >= 1e4 triangles, one
     raycast PNG per fused keyframe reading back (io/png.py) to its render,
     and every key of the JAX summary."""
     from denseslam_tpu_torch.eval import traj_metrics
@@ -3199,7 +3234,7 @@ def run_cli(dev, gpu, kitti):
 
     out = os.path.join(CLI_DIR, "out_cli")
     rdir = os.path.join(out, "raycast")
-    argv = (["--dataset_root", kitti, "--frame_limit", str(CLI_FRAMES)]
+    argv = (["--dataset_root", kitti, "--frame_limit", str(CLI_RUN_FRAMES)]
             + cli_map_flags()
             + ["--sampler", "pallas", "--compute_depth", "--enable_backend",
                "--online_correction",
@@ -3224,7 +3259,8 @@ def run_cli(dev, gpu, kitti):
     if system.backend.num_keyframes + system.num_culled != fused:
         raise AssertionError("a fused keyframe did not reach the backend")
 
-    gt = trajectory.load_kitti(os.path.join(kitti, "poses.txt"))
+    gt = trajectory.load_kitti(os.path.join(kitti, "poses.txt"))[
+        :CLI_RUN_FRAMES]
     tum = trajectory.load_tum(os.path.join(out, "traj.txt"))
     est = trajectory.load_kitti(os.path.join(out, "kitti.txt"))
     mem = read_text(os.path.join(out, "memory.txt")).splitlines()
@@ -3251,11 +3287,11 @@ def run_cli(dev, gpu, kitti):
               seconds=seconds, summary=summary, timers=timers, gpu=gpu))
     gates = dict(tracking=track >= 0.95, ate=ate <= FRAME_ATE_M,
                  overflow=overflow == 0,
-                 trajectories=len(tum) == len(est) == CLI_FRAMES,
-                 memory_log=len(mem) == CLI_FRAMES,
+                 trajectories=len(tum) == len(est) == CLI_RUN_FRAMES,
+                 memory_log=len(mem) == CLI_RUN_FRAMES,
                  mesh=tris >= 10_000, raycast_pngs=png_ok,
                  summary=set(SUMMARY_KEYS) <= set(summary)
-                 and summary["frames"] == CLI_FRAMES)
+                 and summary["frames"] == CLI_RUN_FRAMES)
     if not all(gates.values()):
         raise AssertionError(f"cli gates failed: {gates}")
     return dict(launches=launches, seconds=seconds)
@@ -3571,7 +3607,7 @@ def run_viewer(dev, gpu, kitti, cli_rec):
                 if client.record and client.record.get("path") else None)
     chunks, index = avi_chunks(rec_path) if rec_path else ([], [])
     recorded = client.stopped["frames"] if client.stopped else 0
-    cli_s_frame = cli_rec["seconds"] / CLI_FRAMES
+    cli_s_frame = cli_rec["seconds"] / CLI_RUN_FRAMES
     emit(dict(phase="viewer", frames=len(outs), fused=fused, refused=refused,
               launches=launches, tracking_ok_share=track, states=client.states,
               panes=client.panes, recording=rec_path, recorded_frames=recorded,
@@ -3667,6 +3703,355 @@ def run_tools(dev, gpu, kitti):
                  tracking=all(o["tracking_ok"] for o in outs[1:]))
     if not all(gates.values()):
         raise AssertionError(f"tools gates failed: {gates}")
+    return dict(launches=launches)
+
+
+EXP_DIR = os.path.join(ROOT, "build", "exp")
+DEMO_DIR = os.path.join(ROOT, "build", "demo")
+EXP_SHORT = 32           # the odo, lowfreq and decay runs: the first frames
+# the JAX demo's own scores: scripts/run_demo.py at its defaults (20
+# frames, 320x240), run unmodified on the CPU (PERF.md section 6);
+# the card's demo is held within twice its ATE and 0.02 of its d1.25
+DEMO_JAX_ATE_M = 0.004860936510476883
+DEMO_JAX_D125 = 0.9557889955424533
+DEMO_ATE_M = 2 * DEMO_JAX_ATE_M
+DEMO_D125 = DEMO_JAX_D125 - 0.02
+
+
+class ToolRuns:
+    """Instruments the experiment tools' runs of the command line
+    (tools/common.py `run_main`): for each run, its argv, each frame's
+    tracking flag and whether it fused (DenseSLAM.process_frame), its
+    launches (the counts set to 0 just before the run and read just
+    after), its seconds, and torch.cuda.memory_allocated before it and
+    after it (after the tool has freed the run's map; before it, after a
+    collection of what earlier phases left). It keeps no reference to a
+    run's objects."""
+
+    def __enter__(self):
+        import gc
+
+        from denseslam_tpu_torch import kernels
+        from denseslam_tpu_torch.models import dense_slam as ds
+        from denseslam_tpu_torch.tools import common
+
+        self.runs, frames = [], []
+        self._orig = orig_run, orig_pf = (common.run_main,
+                                          ds.DenseSLAM.process_frame)
+        runs = self.runs
+
+        def process_frame(s, *a, **kw):
+            out = orig_pf(s, *a, **kw)
+            frames.append((bool(out["tracking_ok"]), bool(out["fused"])))
+            return out
+
+        def run_main(argv, device=None):
+            frames.clear()
+            gc.collect()         # what earlier phases left for the collector
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            kernels.reset_counts()
+            t0 = time.perf_counter()
+            rc = orig_run(argv, device)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = dict(kernels.launch_counts)
+            runs.append(dict(argv=list(argv), rc=rc,
+                             tracking=[f[0] for f in frames],
+                             fused=sum(f[1] for f in frames),
+                             launches=launches, seconds=seconds,
+                             before=before,
+                             after=torch.cuda.memory_allocated()))
+            return rc
+
+        common.run_main = run_main
+        ds.DenseSLAM.process_frame = process_frame
+        return self
+
+    def __exit__(self, *exc):
+        from denseslam_tpu_torch.models import dense_slam as ds
+        from denseslam_tpu_torch.tools import common
+        common.run_main, ds.DenseSLAM.process_frame = self._orig
+
+
+def tool_call(runs: ToolRuns, name: str, argv, tool_s: dict):
+    """`denseslam_tpu_torch.tools.<name>.main(argv)` under `runs`, timed;
+    returns the runs it made."""
+    import importlib
+
+    mod = importlib.import_module(f"denseslam_tpu_torch.tools.{name}")
+    k = len(runs.runs)
+    t0 = time.perf_counter()
+    rc = mod.main(argv)
+    tool_s[name] = tool_s.get(name, 0.0) + time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{name} returned {rc}: {argv}")
+    return runs.runs[k:]
+
+
+def write_ground_truth(kitti: str, dev, frames: int):
+    """What the scoring tools read beside the `cli` sequence: poses_gt.txt
+    (its poses.txt) and depth_gt/ for its first `frames` frames (depth x
+    256 as 16-bit PNGs, rendered by io/synthetic.py at the true poses)."""
+    import shutil
+
+    from denseslam_tpu_torch.io import datasets, png, synthetic
+    from denseslam_tpu_torch.io.make_dataset import (poses_and_scene,
+                                                     write_depth_gt)
+
+    shutil.copyfile(os.path.join(kitti, "poses.txt"),
+                    os.path.join(kitti, "poses_gt.txt"))
+    poses, scene = poses_and_scene(["unused"] + CLI_KITTI_ARGS)
+    h, w = png.read_png(os.path.join(kitti, "image_0", "000000.png")).shape
+    intr, _ = datasets.read_kitti_calib(os.path.join(kitti, "calib.txt"))
+    intr = intr._replace(width=w, height=h)
+    _, depth = synthetic.render_trajectory(poses[:frames], intr, scene,
+                                           device=dev)
+    gtdir = os.path.join(kitti, "depth_gt")
+    os.makedirs(gtdir, exist_ok=True)
+    for i in range(frames):
+        write_depth_gt(os.path.join(gtdir, f"{i:06d}.png"),
+                       depth[i].cpu().numpy())
+    return gtdir
+
+
+def run_experiments(dev, gpu, kitti):
+    """The experiment tools (denseslam_tpu_torch/tools/) on the card, in
+    process, each run of the command line instrumented by ToolRuns: the
+    demo; the four-profile regularisation sweep (tracking_exp) over the
+    `cli` sequence's 64 frames at the CLI's decay defaults; memory_draw
+    over its four logs; odo_exp --compute_depth over 32 frames (the
+    phase's kernel path); lowfreq_exp at k = 1 and 4 and decay_exp at one
+    point and its baseline, over 32 frames, and eval_raycast_depth on
+    raycast_k1 against the ground truth this phase writes; contact_sheet
+    on the `cli` run's checkpoint; prepare_dataset validate on both
+    sequences. Gates in the docstring's phase list."""
+    import gc
+    import math
+    import shutil
+
+    from denseslam_tpu_torch.eval import depth_metrics, traj_metrics
+    from denseslam_tpu_torch.io import plot, png, trajectory
+    from denseslam_tpu_torch.tools import contact_sheet, memory_draw
+
+    shutil.rmtree(EXP_DIR, ignore_errors=True)
+    shutil.rmtree(DEMO_DIR, ignore_errors=True)
+    os.makedirs(EXP_DIR)
+    tool_s = {}
+    gtdir = write_ground_truth(kitti, dev, EXP_SHORT)
+    gt = trajectory.load_kitti(os.path.join(kitti, "poses_gt.txt"))
+    gates, rec = {}, dict(phase="experiments")
+
+    def metrics(path):
+        return json.loads(read_text(path))
+
+    def run_rec(run, m):
+        return dict(frames=len(run["tracking"]), fused=run["fused"],
+                    tracking_ok_share=float(np.mean(run["tracking"][1:])),
+                    fps=m["fps"], final_blocks=m["final_blocks"],
+                    final_memory_mb=m["final_memory_mb"],
+                    device_memory_mb=m["device_memory_mb"],
+                    seconds=run["seconds"],
+                    memory_kept_bytes=run["after"] - run["before"])
+
+    def freed(run, m):
+        return abs(run["after"] - run["before"]) <= 0.01 * (
+            m["device_memory_mb"] * 1e6)
+
+    with ToolRuns() as runs:
+        # (a) the demo at the JAX defaults
+        demo_runs = tool_call(runs, "run_demo", ["--workdir", DEMO_DIR],
+                              tool_s)
+        out = os.path.join(DEMO_DIR, "out")
+        ts = metrics(os.path.join(out, "trajectory_scores.json"))
+        ds_ = metrics(os.path.join(out, "depth_scores.json"))["raycast"]
+        rec["demo"] = dict(trajectory=ts, depth=ds_,
+                           jax_cpu=dict(ate_rmse_m=DEMO_JAX_ATE_M,
+                                        d1_25=DEMO_JAX_D125),
+                           launches=demo_runs[0]["launches"])
+        gates["demo"] = (len(demo_runs) == 1
+                         and all(math.isfinite(v) for v in ts.values())
+                         and all(math.isfinite(v) for v in ds_.values())
+                         and ts["ate_rmse_m"] <= DEMO_ATE_M
+                         and ds_["d1_25"] >= DEMO_D125)
+
+        # (b) the four profiles at full width
+        tdir = os.path.join(EXP_DIR, "tracking")
+        from denseslam_tpu_torch.tools.tracking_exp import PROFILES
+        trk = tool_call(runs, "tracking_exp", [
+            kitti, "--out", tdir, "--dataset_type", "kitti_odometry",
+            "--frames", str(CLI_FRAMES), "--min_decay_age", "30",
+            "--max_decay_weight", "2"], tool_s)
+        sweep = metrics(os.path.join(tdir, "sweep.json"))
+        logs = [os.path.join(tdir, f"memory_kitti_{p}.txt") for p in PROFILES]
+        curves = {p: [float(v) for v in read_text(lg).split()]
+                  for p, lg in zip(PROFILES, logs)}
+        blocks = {m["profile"]: m["final_blocks"] for m in sweep}
+        profiles = {}
+        for p, run, m in zip(PROFILES, trk, sweep):
+            est = trajectory.load_kitti(os.path.join(tdir,
+                                                     f"kitti_{p}_traj.txt"))
+            profiles[p] = dict(run_rec(run, m),
+                               ate_rmse_m=traj_metrics.ate_rmse(
+                                   est, gt[:len(est)]),
+                               launches=run["launches"], freed=freed(run, m))
+        rec["tracking"] = profiles
+        gates["tracking_runs"] = [m["profile"] for m in sweep] == list(
+            PROFILES) and len(trk) == 4
+        gates["memory_logs"] = all(len(c) == CLI_FRAMES
+                                   for c in curves.values())
+        gates["tracking"] = all(v["tracking_ok_share"] >= 0.95
+                                and v["ate_rmse_m"] <= FRAME_ATE_M
+                                for v in profiles.values())
+        gates["none_never_falls"] = bool(np.all(np.diff(curves["none"])
+                                                >= 0))
+        gates["blocks_order"] = (blocks["decay"] < blocks["none"]
+                                 and blocks["decay_slide"] <= blocks["decay"]
+                                 and blocks["slide"] <= blocks["none"])
+
+        # (c) the figure
+        fig = os.path.join(EXP_DIR, "memory.png")
+        t0 = time.perf_counter()
+        if memory_draw.main([fig] + logs) != 0:
+            raise AssertionError("memory_draw returned non-zero")
+        tool_s["memory_draw"] = time.perf_counter() - t0
+        img = plot.read_rgb(fig)
+        want, (x0, y0, x1, y1) = memory_draw.figure(logs)
+        inside = img[y0 + 1:y1, x0 + 1:x1]
+        colours = [bool((inside == c).all(-1).any())
+                   for c in plot.TAB10[:len(logs)]]
+        rec["figure"] = dict(path=os.path.relpath(fig, ROOT),
+                             shape=list(img.shape), colours_inside=colours)
+        gates["figure"] = (img.shape == (memory_draw.FIG_H,
+                                         memory_draw.FIG_W, 3)
+                           and np.array_equal(img, want) and all(colours))
+
+        # (d) the kernel path: SGM on every fused frame
+        odir = os.path.join(EXP_DIR, "odo")
+        odo = tool_call(runs, "odo_exp", [kitti, "--out", odir, "--frames",
+                                          str(EXP_SHORT), "--compute_depth"],
+                        tool_s)
+        entry = metrics(os.path.join(odir, "odo_summary.json"))["kitti"]
+        fused = odo[0]["fused"]
+        want_l = dict(tile_sample=0, tile_sample_rgb=0, sgm_path=3 * fused,
+                      sgm_final=fused)
+        rec["odo"] = dict(entry, fused=fused, launches=odo[0]["launches"],
+                          tracking_ok_share=float(np.mean(
+                              odo[0]["tracking"][1:])),
+                          seconds=odo[0]["seconds"])
+        gates["odo_launches"] = fused > 0 and odo[0]["launches"] == want_l
+        gates["odo_summary"] = ({"ate_rmse_m", "rpe_trans_rmse",
+                                 "rpe_rot_rmse", "kitti_t_err_pct",
+                                 "kitti_r_err_deg_per_m"} <= set(entry)
+                                and entry["ate_rmse_m"] <= FRAME_VO_ATE_M)
+
+        # (e) the other two sweeps, cut in depth
+        ldir = os.path.join(EXP_DIR, "lowfreq")
+        low = tool_call(runs, "lowfreq_exp", [kitti, ldir, "--ks", "1", "4",
+                                              "--frames", str(EXP_SHORT)],
+                        tool_s)
+        lsweep = metrics(os.path.join(ldir, "lowfreq_sweep.json"))
+        rec["lowfreq"] = {f"k{m['keyframe_every']}": run_rec(run, m)
+                          for run, m in zip(low, lsweep)}
+        k1 = os.path.join(ldir, "raycast_k1")
+        gates["lowfreq"] = (
+            len(low) == 2 and low[1]["fused"] == -(-low[0]["fused"] // 4)
+            and len(os.listdir(k1)) == low[0]["fused"]
+            and all(len(r["tracking"]) == EXP_SHORT for r in low))
+        ddir = os.path.join(EXP_DIR, "decay")
+        dec = tool_call(runs, "decay_exp", [kitti, ddir, "--ages", "30",
+                                            "--weights", "2", "--frames",
+                                            str(EXP_SHORT)], tool_s)
+        dm = metrics(os.path.join(ddir, "sweep.json"))[0]
+        base = metrics(os.path.join(ddir, "baseline.json"))
+        rec["decay"] = dict(decay_a30_w2=run_rec(dec[0], dm),
+                            baseline=run_rec(dec[1], base))
+        gates["decay"] = (len(dec) == 2
+                          and dm["final_blocks"] < base["final_blocks"])
+        eval_json = os.path.join(EXP_DIR, "raycast_k1_depth.json")
+        t0 = time.perf_counter()
+        from denseslam_tpu_torch.tools import eval_raycast_depth
+        if eval_raycast_depth.main([k1, gtdir, "--out", eval_json]) != 0:
+            raise AssertionError("eval_raycast_depth returned non-zero")
+        tool_s["eval_raycast_depth"] = time.perf_counter() - t0
+        names = sorted(n for n in os.listdir(k1)
+                       if os.path.exists(os.path.join(gtdir, n)))
+        accs = [depth_metrics.depth_metrics(
+            png.read_png(os.path.join(k1, n)).astype(np.float32) / 256.0,
+            png.read_png(os.path.join(gtdir, n)).astype(np.float32) / 256.0,
+            crop=True) for n in names]
+        direct = {"raycast": dict(
+            {k: float(np.nanmean([a[k] for a in accs]))
+             for k in accs[0] if k != "n"}, frames=len(accs))}
+        rec["raycast_k1_depth"] = direct["raycast"]
+        gates["eval_raycast_depth"] = (
+            len(names) == low[0]["fused"]
+            and read_text(eval_json) == json.dumps(direct, indent=2))
+        runs_all = list(runs.runs)
+
+    # (f) the contact sheet of the `cli` run's map
+    ckpt = os.path.join(CLI_DIR, "out_cli", "ckpt.npz")
+    sheet_png = os.path.join(EXP_DIR, "sheet.png")
+    h, w = png.read_png(os.path.join(kitti, "image_0", "000000.png")).shape
+    sargs = [ckpt, sheet_png, "--memory-log",
+             os.path.join(CLI_DIR, "out_cli", "memory.txt"), "--width",
+             str(w), "--height", str(h), "--voxel-size", "0.06",
+             "--table-log2", "17", "--max-depth", "40"]
+    t0 = time.perf_counter()
+    if contact_sheet.main(sargs) != 0:
+        raise AssertionError("contact_sheet returned non-zero")
+    tool_s["contact_sheet"] = time.perf_counter() - t0
+    sheet = plot.read_rgb(sheet_png)
+    rects = contact_sheet.layout(w, h)
+    from denseslam_tpu_torch.config import tiny_test_config
+    from denseslam_tpu_torch.io.checkpoint import load_slam_checkpoint
+    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.ops import raycast as rc_ops
+    scfg = tiny_test_config(width=w, height=h, baseline_m=0.3)
+    scfg = dataclasses.replace(scfg, tsdf=dataclasses.replace(
+        scfg.tsdf, voxel_size_m=0.06, trunc_dist_m=0.06 * 4,
+        table_slots=1 << 17, max_visible_blocks=1 << 15,
+        max_alloc_per_frame=1 << 15, max_depth_m=40.0))
+    slam = DenseSLAM(scfg, device=dev)
+    load_slam_checkpoint(ckpt, slam)
+    color = rc_ops.render_preview(slam.raycast_view(np.asarray(
+        slam.pose_history[-1][1], np.float32)), "color").cpu().numpy()
+    x, y, w, h = rects["color"]
+    color = png.resize_nearest(color, (w, h))
+    pane = sheet[y:y + h, x:x + w]
+    rec["sheet"] = dict(path=os.path.relpath(sheet_png, ROOT),
+                        shape=list(sheet.shape), color_pane=[w, h],
+                        pane_pixels_equal=float((pane == color).all(-1)
+                                                .mean()),
+                        frames=slam.frame)
+    gates["sheet"] = bool(sheet.shape == (rects["sheet"][3],
+                                          rects["sheet"][2], 3)
+                          and np.array_equal(pane, color) and color.any())
+    del slam
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (g) the dataset checks
+    from denseslam_tpu_torch.tools import prepare_dataset
+    rcs = [prepare_dataset.main(["validate", d])
+           for d in (kitti, os.path.join(DEMO_DIR, "data"))]
+    gates["validate"] = rcs == [0, 0]
+
+    # every run: the card freed after it (its map's bytes from its own
+    # summary); kernels only on the odo run
+    mem = [r["after"] - r["before"] for r in runs_all]
+    gates["memory_freed"] = all(
+        freed(r, metrics(r["argv"][r["argv"].index("--metrics_json") + 1]))
+        for r in runs_all)
+    gates["kernels_only_on_odo"] = all(
+        not any(r["launches"].values()) for r in runs_all
+        if r is not odo[0])
+    launches = dict(odo[0]["launches"])
+    rec.update(runs=len(runs_all), memory_kept_bytes=mem,
+               tool_seconds=tool_s, launches=launches, gpu=gpu)
+    emit(rec)
+    if not all(gates.values()):
+        raise AssertionError(f"experiments gates failed: {gates}")
     return dict(launches=launches)
 
 
@@ -4174,6 +4559,7 @@ def main(argv=None) -> int:
     timed("cli_cpu_reference", run_cli_cpu_reference, dev, gpu, kitti)
     viewer = timed("viewer", run_viewer, dev, gpu, kitti, cli)
     tools = timed("tools", run_tools, dev, gpu, kitti)
+    experiments = timed("experiments", run_experiments, dev, gpu, kitti)
     timed("vo_drift", run_vo_drift, dev, gpu)
     paths = dict(slice=run["launches"], rgbd=rgbd["launches"],
                  stereo=stereo["launches"], system=system["launches"],
@@ -4185,7 +4571,9 @@ def main(argv=None) -> int:
                  cli_chunk=cli_chunk["launches"],
                  cli_resume=cli_resume["launches"],
                  cli_rgbd=cli_rgbd["launches"], viewer=viewer["launches"],
-                 tools=tools["launches"], sharded=sharded["launches"])
+                 tools=tools["launches"],
+                 experiments=experiments["launches"],
+                 sharded=sharded["launches"])
     for rec in recs:
         rec["launches_by_path"] = {k: v[rec["name"]] for k, v in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -77,12 +77,34 @@ def _trajectory(args):
     return poses, scene
 
 
+def poses_and_scene(argv):
+    """The true poses and the scene of the sequence that `argv` (the
+    command line's arguments) describes, without rendering it."""
+    return _trajectory(_args(argv))
+
+
 def _nuisance(img: np.ndarray, t: int, args, rng) -> np.ndarray:
     """Gain ramp and photometric noise, then 8-bit truncation."""
     img = img * (1.0 + args.gain * np.sin(2 * np.pi * t / 150.0))
     if args.noise:
         img = img + args.noise * rng.standard_normal(img.shape)
     return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_calib(path: str, intr, baseline_m: float) -> None:
+    """KITTI's calib.txt with the rectified pair's P0 and P1 rows."""
+    with open(path, "w") as f:
+        f.write(f"P0: {intr.fx} 0 {intr.cx} 0  0 {intr.fy} {intr.cy} 0  "
+                "0 0 1 0\n")
+        f.write(f"P1: {intr.fx} 0 {intr.cx} {-intr.fx * baseline_m}  "
+                f"0 {intr.fy} {intr.cy} 0  0 0 1 0\n")
+
+
+def write_depth_gt(path: str, depth_m: np.ndarray) -> None:
+    """Ground-truth depth as a 16-bit PNG of depth x 256, clipped, as
+    scripts/make_synthetic_dataset.py writes it for the depth scorer."""
+    from .png import write_png
+    write_png(path, np.clip(depth_m * 256.0, 0, 65535).astype(np.uint16))
 
 
 def _write_gt(out: str, poses: np.ndarray, stamps) -> None:
@@ -152,10 +174,7 @@ def make_dataset(argv=None) -> str:
         disp = np.where(d > 0, fx * args.baseline / np.maximum(d, 1e-6), 0)
         write_pfm(os.path.join(out, ds.depth_folder, name + ".pfm"),
                   disp.astype(np.float32))
-    with open(os.path.join(out, "calib.txt"), "w") as f:
-        f.write(f"P0: {fx} 0 {intr.cx} 0  0 {fx} {intr.cy} 0  0 0 1 0\n")
-        f.write(f"P1: {fx} 0 {intr.cx} {-fx * args.baseline}  "
-                f"0 {fx} {intr.cy} 0  0 0 1 0\n")
+    write_calib(os.path.join(out, "calib.txt"), intr, args.baseline)
     _write_gt(out, poses, [float(t) for t in range(args.frames)])
     return out
 
