@@ -9,8 +9,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   1. env / build   card name and power limit, torch and CUDA versions; the
                    kernel sources of denseslam_tpu_torch/csrc/ compiled by
                    nvcc, all at once (B1 and B2 share one source).
-  2. kernels       B1, B3 and the fused SGM tail (P1/P2) against their
-                   plain PyTorch versions at the shapes of the slice: the
+  2. kernels       B1, B3, the fused SGM tail (P1/P2) and the cost volume
+                   (CV) against their plain PyTorch versions at the
+                   shapes of the slice: the
                    fusion sampler on the (u, v, z) of a KITTI-scale street
                    frame (V = 8192 blocks), exact; the SGM aggregation on a
                    370x1226x128 cost volume and the fused tail on sums B3
@@ -18,8 +19,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    backends, and compute_depth through them equal to the
                    unfused sequence; then both SGM kernels bit for bit at
                    ragged shapes (7x37x32, 33x130x64, 5x300x256) on volumes
-                   with negative costs, +-0, subnormals and BIG. Times of
-                   kernel, plain version and library call, and of each SGM
+                   with negative costs, +-0, subnormals and BIG; CV bit
+                   for bit in f32 and bf16 on the street's frame 0 at
+                   370x1226x128 and on random pairs at CV_RAGGED_SHAPES.
+                   Times of kernel, plain version and library call (CV:
+                   the torch.cumsum volume it replaced), and of each SGM
                    launch of the main path alone (bytes, bound, ns per
                    step, GB/s).
   3. slice         stereo depth + fuse_sequence over 4 chunks of 10 frames
@@ -57,11 +61,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    against the rendered depth, d1.25 > 0.8, coverage > 0.3.
   8. stereo_cpu_reference  frames 0-4 rerun on the card and on the CPU
                    with the same draws: VO poses within 1 mm / 1e-4 rad;
-                   SGM + WTA of each keyframe's card cost volume equal on
-                   both devices; compute_depth's validity and depth
-                   (within 0.1%) agreeing on >= 99.95% of pixels; the CPU
-                   fusing the card's keyframe depth at the card's poses
-                   gives the card's keys, weights and tsdf.
+                   every call of describe, _gn_jacobian and _zssd in the
+                   card's run recomputed on the CPU from its inputs, bit
+                   for bit; each keyframe's cost volume equal on both
+                   devices on every element, SGM + WTA of the card's
+                   volume equal on both; compute_depth's depth and
+                   validity equal on every pixel; the CPU fusing the
+                   card's keyframe depth at the card's poses gives the
+                   card's keys, weights and tsdf.
   9. render        both renderers on the stereo phase's final map at its
                    last fused keyframe's estimated pose through
                    DenseSLAM.raycast_view (the splat renderer, the
@@ -303,7 +310,7 @@ the tables of the render and per-frame profiles).
 
 Then a line of each phase's seconds. The line before the last two holds
 every kernel with its numbers (its launches summed over the paths, and
-by path); the line before the last is the card's name and power limit as
+by path; CV's equal to P1's on every path, or the script fails); the line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is the result.
 """
 
@@ -793,7 +800,8 @@ def run_stereo(cfg, fr):
 
     fused = int(stats["fused"].sum())
     want = dict(tile_sample=fused, tile_sample_rgb=0, sgm_path=3 * fused,
-                sgm_final=fused)
+                sgm_final=fused,
+                cost_volume=fused)
     if fused == 0 or launches != want:
         raise AssertionError(f"launches {launches} for {fused} fused "
                              f"keyframes, want {want}")
@@ -825,56 +833,66 @@ def run_stereo(cfg, fr):
 
 def check_stereo_against_cpu(cfg, dev, fr):
     """Frames 0-4 rerun on the card and on the CPU with the same draws: the
-    VO poses agree; on each fused keyframe SGM + WTA of the card's cost
-    volume gives equal disparity and validity on both devices, and the
-    whole of compute_depth agrees on both; the CPU fusing the card's
-    keyframe depth at the card's poses rebuilds the card's map."""
+    VO poses agree; the three VO ops that used to round differently on
+    the two devices (describe's norm, _gn_jacobian's product, _zssd),
+    every call of the card's run recomputed on the CPU from its inputs,
+    equal bit for bit; on each fused keyframe the cost volumes equal on
+    every element, SGM + WTA of the card's volume equal on both devices,
+    and compute_depth's depth and validity equal on every pixel; the CPU
+    fusing the card's keyframe depth at the card's poses rebuilds the
+    card's map."""
     from denseslam_tpu_torch.models import dense_slam
     from denseslam_tpu_torch.ops import stereo
     from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+    from denseslam_tpu_torch.tools import device_trace
+    from denseslam_tpu_torch.utils.camera import disparity_to_depth
 
     n = N_CPU_FRAMES
     cpu = torch.device("cpu")
     sub = {k: v[:n] for k, v in fr.items()}
-    mg, sg, _ = drive_stereo(cfg, sub)
+    with device_trace.OpRecorder(device_trace.VO_OPS) as rec:
+        mg, sg, _ = drive_stereo(cfg, sub)
+    vo_ops = rec.recheck()
     sub_cpu = {k: (v.to(cpu) if isinstance(v, torch.Tensor) else v)
                for k, v in sub.items()}
     _, sc, cpu_s = drive_stereo(cfg, sub_cpu)
     t_err, r_err = pose_errors(sg["T_wc"], sc["T_wc"])
     if not torch.equal(sg["fused"].cpu(), sc["fused"]):
         raise AssertionError("card and CPU fused different keyframes")
-    # SGM + WTA of the card's cost volume on both devices: equal
+    if len(vo_ops) != len(device_trace.VO_OPS) or any(
+            r["equal"] != r["calls"] for r in vo_ops.values()):
+        raise AssertionError(f"VO ops card vs CPU from equal inputs: {vo_ops}")
+    # each keyframe's cost volume on both devices, SGM + WTA of each, and
+    # compute_depth's depth (the same steps as compute_depth) on both
     stc = cfg.stereo
     wdt = torch.bfloat16 if stc.cost_dtype == "bfloat16" else torch.float32
     kf = torch.nonzero(sg["fused"]).flatten().tolist()
     if not kf:
         raise AssertionError("no keyframe fused in the CPU rerun's frames")
+    cost_equal, dc = [], []
     for i in kf:
-        cg = stereo.cost_volume(sub["lefts"][i], sub["rights"][i], stc)
-        got = stereo.disparity(cg.to(wdt), stc)
-        want = stereo.disparity(cg.to(wdt).cpu(), stc)
+        cg = stereo.cost_volume(sub["lefts"][i], sub["rights"][i], stc, wdt)
+        cc = stereo.cost_volume(sub_cpu["lefts"][i], sub_cpu["rights"][i],
+                                stc, wdt)
+        cost_equal.append(float((cg.cpu() == cc).float().mean()))
+        got = stereo.disparity(cg, stc)
+        want = stereo.disparity(cc, stc)
         for name, a, b in zip(("disp", "valid"), got, want):
             if not torch.equal(a.cpu(), b):
                 raise AssertionError(f"SGM + WTA of frame {i}'s cost volume: "
                                      f"{name} differs between card and CPU")
-    cc = stereo.cost_volume(sub_cpu["lefts"][kf[-1]],
-                            sub_cpu["rights"][kf[-1]], stc)
-    cost_diff = (cg.cpu() - cc).abs()
-
-    # compute_depth end to end: the cost volume's box-filter cumsums add in
-    # another order on the two devices (cost_volume_* below), which moves
-    # the subpixel parabola and can flip a near-tie of the WTA
+        dc.append(disparity_to_depth(want[0], cfg.rig, 0.05, 60.0))
+    del cg, cc
+    if min(cost_equal) < 1.0:
+        raise AssertionError(f"cost volume card vs CPU: equal shares "
+                             f"{cost_equal}")
     _, dg = keyframe_depths(cfg, sub, sg)
-    _, dc = keyframe_depths(cfg, sub_cpu, sc)
-    dg = dg.cpu()
+    dg, dc = dg.cpu(), torch.stack(dc)
     equal = float((dg == dc).float().mean())
     agree = float(((dg > 0) == (dc > 0)).float().mean())
-    both = (dg > 0) & (dc > 0)
-    close = float(((dg[both] - dc[both]).abs() <= 1e-3 * dc[both])
-                  .float().mean())
-    if agree < 0.9995 or close < 0.9995:
-        raise AssertionError(f"stereo card vs CPU: valid {agree}, "
-                             f"close {close}")
+    if equal < 1.0 or agree < 1.0:
+        raise AssertionError(f"stereo card vs CPU: depth equal {equal}, "
+                             f"valid {agree}")
 
     mc = tsdf_ops.make_map(cfg.tsdf, device=cpu)
     db = dense_slam.make_fusion_db(cfg, device=cpu)
@@ -891,13 +909,12 @@ def check_stereo_against_cpu(cfg, dev, fr):
         raise AssertionError(f"tsdf card vs CPU: {tsdf_err}")
     emit(dict(phase="stereo_cpu_reference", frames=n, fused=len(kf),
               vo_pos_err_m=t_err, vo_rot_err_rad=r_err,
-              sgm_wta_equal=True,
-              cost_volume_equal_share=float((cost_diff == 0).float().mean()),
-              cost_volume_max_abs_diff=float(cost_diff.max()),
+              vo_ops_equal={k: f"{r['equal']}/{r['calls']}"
+                            for k, r in vo_ops.items()},
+              sgm_wta_equal=True, cost_volume_equal_share=min(cost_equal),
               depth_equal_share=equal, depth_valid_agree=agree,
-              depth_close_share=close, tables_equal=True,
-              weights_equal=True, tsdf_max_abs_err=tsdf_err,
-              cpu_seconds=cpu_s))
+              tables_equal=True, weights_equal=True,
+              tsdf_max_abs_err=tsdf_err, cpu_seconds=cpu_s))
 
 
 def check_sampler(cfg, dev, gpu):
@@ -1250,6 +1267,105 @@ def drive(cfg, dev, run):
     return m, torch.cat(depths), time.perf_counter() - t0
 
 
+CV_RAGGED_SHAPES = ((7, 37, 16), (33, 130, 64), (5, 300, 256), (260, 45, 8))
+
+
+def cost_volume_cumsum(left, right, sc):
+    """The cost volume as the port computed it before kernel CV: box
+    filters by `torch.cumsum` (not XLA's order), `/ area`; timed beside
+    the kernel, used nowhere in the port."""
+    h, w = left.shape
+    r, nd = sc.patch_radius, sc.max_disparity
+    area = (2 * r + 1) ** 2
+
+    def box_along(x, dim):
+        n = x.shape[dim]
+        c = torch.cumsum(x, dim=dim)
+        upper = torch.cat([c] + [c.narrow(dim, n - 1, 1)] * r,
+                          dim=dim).narrow(dim, r, n)
+        zshape = list(c.shape)
+        zshape[dim] = r + 1
+        lower = torch.cat([c.new_zeros(zshape), c], dim=dim).narrow(dim, 0, n)
+        return upper - lower
+
+    def box(x):
+        return box_along(box_along(x, -1), -2)
+
+    lm = left - box(left) / area
+    rm = right - box(right) / area
+    shifted = rm.new_zeros((nd, h, w))
+    for d in range(min(nd, w)):
+        shifted[d, :, d:] = rm[:, :w - d]
+    c = box(torch.abs(lm[None] - shifted)) / area
+    invalid = (torch.arange(w, device=left.device)[None, None, :]
+               < torch.arange(nd, device=left.device)[:, None, None])
+    return c.masked_fill(invalid, 1e4).permute(1, 2, 0).contiguous()
+
+
+def check_cost_volume(cfg, dev, gpu):
+    """Kernel CV against its plain version on the card, bit for bit: the
+    street's frame 0 at 370x1226x128 in f32 and bf16, and random pairs at
+    CV_RAGGED_SHAPES (lengths not multiples of 16; W = 300 and H = 260
+    take two levels of block totals) in both dtypes. Times of the kernel
+    in the main path's cost dtype, its plain version and the torch.cumsum
+    volume it replaced."""
+    from denseslam_tpu_torch.io import synthetic
+    from denseslam_tpu_torch.ops import stereo
+
+    sc = cfg.stereo
+    pose = synthetic.make_trajectory(1)
+    left, right, _ = synthetic.render_stereo_trajectory(
+        pose, cfg.rig, synthetic.street_scene(), device=dev)
+    left, right = left[0].contiguous(), right[0].contiguous()
+    gen = torch.Generator().manual_seed(13)
+    cases = [((left, right), sc)]
+    for h, w, d in CV_RAGGED_SHAPES:
+        pair = [(torch.rand((h, w), generator=gen) * 255.0).to(dev)
+                for _ in range(2)]
+        cases.append((pair, dataclasses.replace(sc, max_disparity=d)))
+    err = 0.0
+    for (lt, rt), scc in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            got = stereo.cost_volume(lt, rt, scc, dtype)
+            want = stereo.cost_volume_plain(lt, rt, scc, dtype)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            if got.dtype != dtype or not torch.equal(got, want):
+                raise AssertionError(f"cost_volume {tuple(want.shape)} "
+                                     f"{dtype} differs from plain")
+    torch.cuda.synchronize()
+    wdt = torch.bfloat16 if sc.cost_dtype == "bfloat16" else torch.float32
+    ms = cuda_ms(lambda: stereo.cost_volume(left, right, sc, wdt), 20)
+    ms_f32 = cuda_ms(lambda: stereo.cost_volume(left, right, sc), 20)
+    wrapper_us = host_us(lambda: stereo.cost_volume(left, right, sc, wdt), 20)
+    plain_ms = cuda_ms(lambda: stereo.cost_volume_plain(left, right, sc, wdt),
+                       2, warm=1)
+    cumsum_ms = cuda_ms(lambda: cost_volume_cumsum(left, right, sc).to(wdt),
+                        5, warm=1)
+    h, w = left.shape
+    n = h * w * sc.max_disparity
+    # per output element: the difference and its absolute value; per box
+    # pass the block add, the carry add and the window subtraction; the
+    # multiply by 1 / area and the invalid select
+    bnd, by = bound_ms(2 * h * w * 4 + n * torch.finfo(wdt).bits // 8,
+                       10 * n)
+    bnd_f32 = bound_ms(2 * h * w * 4 + n * 4, 10 * n)[0]
+    rec = dict(name="cost_volume", route="cuda",
+               source="denseslam_tpu_torch/csrc/cost_volume.cu",
+               replaces="denseslam_tpu/ops/stereo.py:61 (jitted XLA "
+                        "cost_volume; no Pallas kernel)",
+               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+               bound_by=by, library_ms=None)
+    emit(dict(phase="kernel", name=rec["name"], shape=[h, w,
+                                                      sc.max_disparity],
+              dtype=str(wdt), exact_f32_bf16=True,
+              ragged_shapes=[list(x) for x in CV_RAGGED_SHAPES],
+              kernel_ms=ms, kernel_f32_ms=ms_f32, bound_f32_ms=bnd_f32,
+              plain_ms=plain_ms, cumsum_version_ms=cumsum_ms,
+              library_ms=None, bound_ms=bnd, bound_by=by,
+              wrapper_host_us=wrapper_us, gpu=gpu))
+    return rec
+
+
 def run_slice(cfg, dev):
     """The main path: 40 street frames through stereo + fusion, with the
     launch counts set to 0 just before and read just after."""
@@ -1279,7 +1395,8 @@ def run_slice(cfg, dev):
         raise AssertionError("no blocks allocated")
     # per frame: B3 for three directions, the fused tail for the fourth
     # and the WTA maps, B1 for the fusion
-    want = dict(tile_sample=n, tile_sample_rgb=0, sgm_path=3 * n, sgm_final=n)
+    want = dict(tile_sample=n, tile_sample_rgb=0, sgm_path=3 * n, sgm_final=n,
+                cost_volume=n)
     if launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     dn = depth.cpu().numpy()
@@ -1677,7 +1794,8 @@ def run_system(cfg, dev, gpu):
     n_eval = len(evals)
     want = dict(tile_sample=fused + 2 * refused + purged[0],
                 tile_sample_rgb=0, sgm_path=3 * (fused + n_eval),
-                sgm_final=fused + n_eval)
+                sgm_final=fused + n_eval,
+                cost_volume=fused + n_eval)
     if fused == 0 or launches != want:
         raise AssertionError(f"launches {launches}, want {want} ({fused} "
                              f"fused, {refused} re-fused, {purged[0]} "
@@ -1924,7 +2042,8 @@ def run_submaps(cfg, dev, gpu, ref):
     n_eval = len(d["evals"])
     want = dict(tile_sample=fused + 2 * refused + purged[0]
                 + 2 * replayed[0], tile_sample_rgb=0,
-                sgm_path=3 * (fused + n_eval), sgm_final=fused + n_eval)
+                sgm_path=3 * (fused + n_eval), sgm_final=fused + n_eval,
+                cost_volume=fused + n_eval)
     if fused == 0 or launches != want:
         raise AssertionError(f"launches {launches}, want {want} ({fused} "
                              f"fused, {refused} re-fused, {purged[0]} "
@@ -2216,7 +2335,8 @@ def frame_stats(run, gt) -> dict:
     fused = sum(o["fused"] for o in outs)
     refused = system.num_corrections
     want = dict(tile_sample=fused + 2 * refused + run["purged"],
-                tile_sample_rgb=0, sgm_path=3 * fused, sgm_final=fused)
+                tile_sample_rgb=0, sgm_path=3 * fused, sgm_final=fused,
+                cost_volume=fused)
     if fused == 0 or run["launches"] != want:
         raise AssertionError(f"launches {run['launches']}, want {want} "
                              f"({fused} fused, {refused} re-fused, "
@@ -2452,7 +2572,7 @@ def run_icp(cfg, dev, gpu):
     launches = dict(kernels.launch_counts)
     fused = [o["frame"] for o in outs if o["fused"]]
     if launches != dict(tile_sample=0, tile_sample_rgb=len(fused),
-                        sgm_path=0, sgm_final=0):
+                        sgm_path=0, sgm_final=0, cost_volume=0):
         raise AssertionError(f"launches {launches} for {len(fused)} fused")
     est = np.stack([o["T_wc"] for o in outs])
     gt = fr["poses"]
@@ -2593,7 +2713,7 @@ def run_mono(cfg, dev, gpu):
     fused = be.num_keyframes + system.num_culled
     refused = system.num_corrections
     want = dict(tile_sample=fused + 2 * refused + purged[0],
-                tile_sample_rgb=0, sgm_path=0, sgm_final=0)
+                tile_sample_rgb=0, sgm_path=0, sgm_final=0, cost_volume=0)
     if fused == 0 or launches != want:
         raise AssertionError(f"launches {launches}, want {want} ({fused} "
                              f"fused, {refused} re-fused, {purged[0]} "
@@ -2745,7 +2865,8 @@ def run_mono_frame(cfg, dev, gpu):
     launches = dict(kernels.launch_counts)
     fused = [o["fused"] for o in outs]
     want = dict(tile_sample=sum(fused), tile_sample_rgb=0, sgm_path=0,
-                sgm_final=0)
+                sgm_final=0,
+                cost_volume=0)
     if not any(fused) or launches != want:
         raise AssertionError(f"launches {launches}, want {want}")
     _, stats = drive_mono(cfg, fr)
@@ -2818,7 +2939,8 @@ def run_orb(cfg, dev, fr, gpu):
     launches = dict(kernels.launch_counts)
     fused = int(stats["fused"].sum())
     want = dict(tile_sample=fused, tile_sample_rgb=0, sgm_path=3 * fused,
-                sgm_final=fused)
+                sgm_final=fused,
+                cost_volume=fused)
     if fused == 0 or launches != want:
         raise AssertionError(f"launches {launches} for {fused} fused "
                              f"keyframes, want {want}")
@@ -3196,7 +3318,8 @@ def cli_launch_check(cap, launches, fused):
     once per purged DB entry; never B2."""
     refused = sum(s.num_corrections for s in cap.systems)
     want = dict(tile_sample=fused + 2 * refused + cap.purged,
-                tile_sample_rgb=0, sgm_path=3 * fused, sgm_final=fused)
+                tile_sample_rgb=0, sgm_path=3 * fused, sgm_final=fused,
+                cost_volume=fused)
     if fused == 0 or launches != want:
         raise AssertionError(f"launches {launches}, want {want} ({fused} "
                              f"fused, {refused} re-fused, {cap.purged} "
@@ -3410,7 +3533,8 @@ def run_cli_rgbd(dev, gpu, tum):
             "--save_trajectory", os.path.join(out, "traj.txt")]
     cap, launches, seconds = cli_run(argv)
     fused = sum(o["fused"] for o in cap.outs)
-    want = dict(tile_sample=fused, tile_sample_rgb=0, sgm_path=0, sgm_final=0)
+    want = dict(tile_sample=fused, tile_sample_rgb=0, sgm_path=0, sgm_final=0,
+                cost_volume=0)
     if fused == 0 or launches != want:
         raise AssertionError(f"cli_rgbd launches {launches}, want {want}")
     track = float(np.mean([o["tracking_ok"] for o in cap.outs[1:]]))
@@ -3934,7 +4058,8 @@ def run_experiments(dev, gpu, kitti):
         entry = metrics(os.path.join(odir, "odo_summary.json"))["kitti"]
         fused = odo[0]["fused"]
         want_l = dict(tile_sample=0, tile_sample_rgb=0, sgm_path=3 * fused,
-                      sgm_final=fused)
+                      sgm_final=fused,
+                      cost_volume=fused)
         rec["odo"] = dict(entry, fused=fused, launches=odo[0]["launches"],
                           tracking_ok_share=float(np.mean(
                               odo[0]["tracking"][1:])),
@@ -4516,6 +4641,7 @@ def main(argv=None) -> int:
     final, recs[1]["per_launch"] = timed("kernel_P1", check_sgm_final, cfg,
                                          dev, gpu)
     timed("kernels_ragged", check_sgm_ragged, cfg, dev)
+    recs.append(timed("kernel_CV", check_cost_volume, cfg, dev, gpu))
     run = timed("slice", run_slice, cfg, dev)
     timed("slice_cpu_reference", check_against_cpu, cfg, dev, run)
     sharded = timed("sharded", run_sharded, dev, gpu, run)
@@ -4574,6 +4700,12 @@ def main(argv=None) -> int:
                  tools=tools["launches"],
                  experiments=experiments["launches"],
                  sharded=sharded["launches"])
+    # kernel CV makes the volume of every SGM: as many launches as P1's
+    cv_off = {k: (v["cost_volume"], v["sgm_final"]) for k, v in paths.items()
+              if v["cost_volume"] != v["sgm_final"]}
+    if cv_off:
+        raise AssertionError(f"cost_volume launches differ from sgm_final's "
+                             f"(path: cost_volume, sgm_final): {cv_off}")
     for rec in recs:
         rec["launches_by_path"] = {k: v[rec["name"]] for k, v in paths.items()}
         rec["launches"] = sum(rec["launches_by_path"].values())

@@ -14,7 +14,7 @@ not lower the cost is rejected with `torch.where`.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -89,7 +89,7 @@ def _huber_w(r, delta):
 
 
 def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig,
-          mesh=None) -> BAResult:
+          mesh=None, steps: Optional[list] = None) -> BAResult:
     """Damped GN with Schur elimination; a chi2 pass at half-time drops
     observations still gross after the first half of the iterations.
 
@@ -97,7 +97,10 @@ def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig,
     of the landmarks, and every camera-side sum (U, the gradient, the
     Schur complement, the costs and the counts) is summed over the ranks
     by all-reduce; the landmark blocks stay on their rank and the reduced
-    camera solve is the same on every rank (parallel/ba.py)."""
+    camera solve is the same on every rank (parallel/ba.py).
+
+    steps: when given, a list that receives each damped step's accept
+    decision (a bool tensor, in order)."""
     K = problem.T_wc.shape[0]
     allsum = ((lambda x: mesh.all_reduce(x)) if mesh is not None
               else (lambda x: x))
@@ -176,6 +179,8 @@ def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig,
             pts_new = pts + dx_p
             cost1 = cost_of(T_cw_new, pts_new, mask)[0]
             better = cost1 < cost0
+            if steps is not None:
+                steps.append(better)
             T_cw = torch.where(better, T_cw_new, T_cw)
             pts = torch.where(better, pts_new, pts)
             lm_damp = torch.clamp(torch.where(better, lm_damp * 0.5,

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import FrontendConfig
+from ..utils import numerics
 
 # 4 feature classes (blob max/min, corner max/min); class equality gates
 # matching
@@ -253,7 +254,9 @@ def _detect_gradient(gray: torch.Tensor, cfg: FrontendConfig) -> Features:
 
 def describe(du: torch.Tensor, dv: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """The 32-dim gradient descriptor at integer (truncated) feature
-    locations, L2-normalised."""
+    locations, L2-normalised. The squares are summed as jitted XLA sums
+    them (a chain of FMAs, `numerics.fma_dot`) and the root is correctly
+    rounded, so every device gives JAX's descriptor."""
     h, w = du.shape
     offs = _desc_offsets(du.device)
     ui = torch.clamp(uv[:, 0].to(torch.int32), 0, w - 1)
@@ -261,7 +264,7 @@ def describe(du: torch.Tensor, dv: torch.Tensor, uv: torch.Tensor) -> torch.Tens
     us = torch.clamp(ui[:, None] + offs[None, :, 1], 0, w - 1).long()
     vs = torch.clamp(vi[:, None] + offs[None, :, 0], 0, h - 1).long()
     desc = torch.cat([du[vs, us], dv[vs, us]], dim=-1)    # (N, 32)
-    n = torch.sqrt((desc * desc).sum(dim=-1, keepdim=True))
+    n = numerics.sqrt(numerics.fma_dot(desc, desc))[:, None]
     return desc / torch.clamp(n, min=1e-6)
 
 

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import FrontendConfig
-from ..utils.numerics import true_div
+from ..utils.numerics import fma_dot, sum_seq, true_div
 from .features import Features
 
 _INF = 1e9
@@ -219,12 +219,24 @@ def _bilinear_patches(img: torch.Tensor, uv: torch.Tensor, half: int,
             + p10 * (1 - fu) * fv + p11 * fu * fv)
 
 
+def _patch_mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean over the trailing (S, S) dims as jitted XLA takes it: the
+    S*S values summed left to right in row-major order, times
+    float32(1 / S^2)."""
+    rcp = float(torch.ones(()) / float(x.shape[-2] * x.shape[-1]))
+    return sum_seq(x.flatten(-2)) * rcp
+
+
 def _zssd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Zero-mean SSD over the trailing (S, S) dims -> (M,)."""
-    am = a - a.mean(dim=(-2, -1), keepdim=True)
-    bm = b - b.mean(dim=(-2, -1), keepdim=True)
-    d = am - bm
-    return (d * d).sum(dim=(-2, -1))
+    """Zero-mean SSD of patches a (M, S, S) against b (..., M, S, S) ->
+    (..., M), in jitted XLA's order (the means by `_patch_mean`, taken
+    for a and every b in one pass; the squares summed by a chain of
+    FMAs), so every device gives JAX's cost."""
+    means = _patch_mean(torch.cat([a[None], b.reshape(-1, *a.shape)]))
+    am = a - means[0][:, None, None]
+    bm = b - means[1:].reshape(b.shape[:-2])[..., None, None]
+    d = (am - bm).flatten(-2)
+    return fma_dot(d, d)
 
 
 def _parabolic(c_m, c_0, c_p):
@@ -242,13 +254,11 @@ def _refine_leg(anchor: torch.Tensor, img: torch.Tensor, uv: torch.Tensor,
     s = 2 * half + 1
     ext = _bilinear_patches(img, uv, half, ext=r, ext_v=0 if du_only else r)
     n_dv = 1 if du_only else (2 * r + 1)
-    costs = []
-    for dy in range(n_dv):
-        yy = 0 if du_only else dy
-        row = [_zssd(anchor, ext[:, yy:yy + s, dx:dx + s])
-               for dx in range(2 * r + 1)]
-        costs.append(torch.stack(row, dim=-1))          # (M, 2r+1)
-    c = torch.stack(costs, dim=-2)                      # (M, n_dv, 2r+1)
+    # every shift's window at once: (n_dv, 2r+1, M, S, S)
+    wins = torch.stack([torch.stack([ext[:, dy:dy + s, dx:dx + s]
+                                     for dx in range(2 * r + 1)])
+                        for dy in range(n_dv)])
+    c = _zssd(anchor, wins).permute(2, 0, 1)            # (M, n_dv, 2r+1)
     m = c.shape[0]
     flatc = c.reshape(m, -1)
     best = torch.argmin(flatc, dim=-1)

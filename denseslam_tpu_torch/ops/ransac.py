@@ -24,7 +24,7 @@ import torch
 from ..config import FrontendConfig
 from ..utils import lie, threefry
 from ..utils.camera import StereoRig
-from ..utils.numerics import true_div
+from ..utils.numerics import fma_dot, true_div
 from .matching import QuadMatches
 from .smallsolve import solve_spd6
 
@@ -78,7 +78,9 @@ def _reproject_residuals(T, pts_prev, obs_l, obs_r, rig: StereoRig):
 
 def _gn_jacobian(p, rig: StereoRig):
     """Analytic Jacobian of the 4 residuals w.r.t. the left-multiplied
-    twist [v, w]: (..., N, 4, 6)."""
+    twist [v, w]: (..., N, 4, 6). J_p @ dp_dxi is written out in jitted
+    XLA:CPU's order, so every device rounds it alike (a batched matmul
+    goes to cuBLAS on the card)."""
     intr = rig.intr
     x, y, z = p[..., 0], p[..., 1], p[..., 2]
     z = torch.clamp(z, min=1e-6)
@@ -102,7 +104,9 @@ def _gn_jacobian(p, rig: StereoRig):
     ], dim=-2)                                            # (..., N, 3, 3)
     eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(px.shape)
     dp_dxi = torch.cat([eye, px], dim=-1)                # (..., N, 3, 6)
-    return J_p @ dp_dxi                                  # (..., N, 4, 6)
+    # the product as jitted XLA forms it: per entry a chain of 3 FMAs
+    return fma_dot(J_p[..., :, :, None], dp_dxi[..., None, :, :],
+                   dim=-2)                               # (..., N, 4, 6)
 
 
 def _gn_refine(T0, pts_prev, obs_l, obs_r, weights, rig, iters: int):

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.numerics import sqrt
+
 
 def solve_spd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched 6x6 symmetric-positive-definite solve via unrolled Cholesky.
@@ -20,7 +22,7 @@ def solve_spd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         s = A[..., j, j]
         for k in range(j):
             s = s - L[j][k] * L[j][k]
-        d = torch.sqrt(torch.clamp(s, min=1e-20))
+        d = sqrt(torch.clamp(s, min=1e-20))       # correctly rounded
         L[j][j] = d
         inv = 1.0 / d
         for i2 in range(j + 1, n):

@@ -101,31 +101,41 @@ def is_coordinator() -> bool:
             or dist.get_rank() == 0)
 
 
-def _local_rank(rank, fn, nprocs, port, backend, device, args, results):
-    init_distributed(f"127.0.0.1:{port}", nprocs, rank, backend=backend,
-                     device=device)
+def _local_rank(local, fn, nprocs, coordinator, backend, device, args,
+                results, nnodes, node_rank):
+    init_distributed(coordinator, nprocs * nnodes, node_rank * nprocs + local,
+                     backend=backend,
+                     device=f"cuda:{local}" if device is None else device)
     try:
-        results.put((rank, fn(global_map_mesh(), *args)))
+        results.put((local, fn(global_map_mesh(), *args)))
     finally:
         shutdown_distributed()
 
 
-def run_local(fn, nprocs: int, *args, backend: str = "gloo",
-              device="cpu") -> list:
+def run_local(fn, nprocs: int, *args, backend: Optional[str] = None,
+              device=None, coordinator: Optional[str] = None,
+              nnodes: int = 1, node_rank: int = 0) -> list:
     """Run `fn(mesh, *args)` in `nprocs` spawned processes of this host,
-    one rank each over `backend` on `device` ("cuda:0" for ranks that
-    share one card, None for cuda:RANK), and return the ranks' results
+    one rank each over `backend` (default NCCL, gloo for the CPU) on
+    `device`: None for cuda:LOCAL_RANK, "cuda:0" for ranks that share one
+    card, "cpu" for the CPU. Returns this host's ranks' results
     (picklable; tensors on the host) in rank order. A rank that fails
-    fails the run."""
+    fails the run. Several hosts (or launchers of one host) join as
+    `nnodes` groups of `nprocs` ranks: each calls this with the same
+    `coordinator` ("host:port" of node 0) and its own `node_rank`."""
     import socket
     import torch.multiprocessing as mp
 
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    if coordinator is None:
+        if nnodes != 1:
+            raise ValueError("ranks of several nodes need a coordinator")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            coordinator = f"127.0.0.1:{s.getsockname()[1]}"
     results = mp.get_context("spawn").SimpleQueue()
-    ctx = mp.start_processes(_local_rank, args=(fn, nprocs, port, backend,
-                                                device, args, results),
+    ctx = mp.start_processes(_local_rank, args=(fn, nprocs, coordinator,
+                                                backend, device, args,
+                                                results, nnodes, node_rank),
                              nprocs=nprocs, start_method="spawn", join=False)
     out, done = {}, False
     # drain while the ranks run: a large result fills the pipe, and its

@@ -48,3 +48,54 @@ def sqrt(x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu" and x.dtype == torch.float32:
         return torch.sqrt(x.double()).to(torch.float32)
     return torch.sqrt(x)
+
+
+def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c for float32 tensors, rounded once (CUDA's `__fmaf_rn`, and
+    the FMAs jitted XLA:CPU contracts a multiply and an add into), alike on
+    every device. In float64 the product is exact (24 + 24 bits) and the
+    sum's rounding error is recovered exactly (two-sum); the sum is then
+    rounded to odd (moved to its odd neighbour toward the error where it is
+    inexact and even), which with 29 spare bits makes the final rounding
+    to float32 correct: plain float64 arithmetic would round twice and
+    part from the FMA on values near a float32 midpoint."""
+    a, b, c = torch.broadcast_tensors(a.double(), b.double(), c.double())
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, _scalar(float("inf"), s),
+                         _scalar(float("-inf"), s))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def fma_dot(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The float32 sum of a * b along `dim` (broadcast), as jitted XLA:CPU
+    reduces a product (a row reduce of x * x, a small batched matmul): from
+    0, one FMA per term in order, acc = a_k * b_k + acc. Each step adds
+    the exact float64 product and rounds to float32 in one launch, the
+    same arithmetic on every device. That rounds twice, so it parts from
+    a true FMA (`fma`) only where the float64 sum lands exactly on a
+    float32 midpoint without being exact, which needs a product within
+    2^-29 of half a float32 ulp of the sum."""
+    p = a.double() * b
+    dim = dim % p.dim()
+    acc = torch.zeros(p.shape[:dim] + p.shape[dim + 1:], dtype=torch.float32,
+                      device=p.device)
+    for k in range(p.shape[dim]):
+        torch.add(p.select(dim, k), acc, out=acc)
+    return acc
+
+
+def sum_seq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The float32 sum of `x` along `dim` from 0, left to right, one add a
+    term: the order of jitted XLA:CPU's reduce of a short row (the ZSSD
+    patch means)."""
+    dim = dim % x.dim()
+    acc = torch.zeros(x.shape[:dim] + x.shape[dim + 1:], dtype=x.dtype,
+                      device=x.device)
+    for k in range(x.shape[dim]):
+        acc = acc + x.select(dim, k)
+    return acc

@@ -120,7 +120,7 @@ def ranks():
 
     inp = _inputs()
     jax_cfg = inp.pop("jax_cfg")
-    recs = launch.run_local(worker.scenarios, RANKS, inp)
+    recs = launch.run_local(worker.scenarios, RANKS, inp, device="cpu")
     inp["jax_cfg"] = jax_cfg
     return recs, inp
 

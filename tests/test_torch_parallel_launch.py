@@ -3,7 +3,8 @@ supertile owner hash bit for bit against JAX's `owner_of` and balanced over
 2, 4 and 8 ranks, and the single-process launch (no torchrun environment:
 a no-op of rank 0 whose map axis has size 1 and runs every collective as
 the identity; with no device named, the card, as every entry point of the
-port). The sharded map itself is tests/test_torch_parallel.py."""
+port), and one cell of tools/bench_scaling.py's scaling matrices. The
+sharded map itself is tests/test_torch_parallel.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,3 +45,17 @@ def test_launch_single_process_is_a_noop(monkeypatch):
     x = torch.arange(4.0)
     assert torch.equal(mesh.all_reduce(x, "min"), x)
     assert torch.equal(mesh.all_to_all(x[None]), x[None])
+
+
+def test_bench_scaling_matrix_cell(tmp_path):
+    """One cell of tools/bench_scaling.py's matrices, as the matrices run it:
+    a launcher subprocess of one gloo rank on the CPU at 1/8 size; its
+    record is the scaling bench's, for one rank."""
+    from denseslam_tpu_torch.tools import bench_scaling
+
+    log = tmp_path / "cell.log"
+    rec = bench_scaling.run_cell(1, 1, str(log), extra=["--scale", "0.125"])
+    assert rec["metric"] == "sharded_fused_frames_per_s_per_chip"
+    assert (rec["n_chips"], rec["frames"], rec["backend"]) == (1, 1, "gloo")
+    assert rec["value"] > 0 and rec["blocks"] > 0 and rec["overflow"] == 0
+    assert log.read_text().strip().endswith("}")
