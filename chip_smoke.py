@@ -21,9 +21,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    ragged shapes (7x37x32, 33x130x64, 5x300x256) on volumes
                    with negative costs, +-0, subnormals and BIG; CV bit
                    for bit in f32 and bf16 on the street's frame 0 at
-                   370x1226x128 and on random pairs at CV_RAGGED_SHAPES.
+                   370x1226x128 and on random pairs at CV_RAGGED_SHAPES
+                   and CV_EDGE_SHAPES (its tiles' edges, radii 0-31).
                    Times of kernel, plain version and library call (CV:
-                   the torch.cumsum volume it replaced), and of each SGM
+                   the torch.cumsum volume it replaced, and its launches
+                   one by one under torch.profiler), and of each SGM
                    launch of the main path alone (bytes, bound, ns per
                    step, GB/s).
   3. slice         stereo depth + fuse_sequence over 4 chunks of 10 frames
@@ -61,9 +63,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    against the rendered depth, d1.25 > 0.8, coverage > 0.3.
   8. stereo_cpu_reference  frames 0-4 rerun on the card and on the CPU
                    with the same draws: VO poses within 1 mm / 1e-4 rad;
-                   every call of describe, _gn_jacobian and _zssd in the
-                   card's run recomputed on the CPU from its inputs, bit
-                   for bit; each keyframe's cost volume equal on both
+                   every call of describe, _gn_jacobian, _zssd,
+                   _reproject_residuals and _gn_refine in the card's run
+                   recomputed on the CPU from its inputs, bit for bit;
+                   each keyframe's cost volume equal on both
                    devices on every element, SGM + WTA of the card's
                    volume equal on both; compute_depth's depth and
                    validity equal on every pixel; the CPU fusing the
@@ -833,10 +836,11 @@ def run_stereo(cfg, fr):
 
 def check_stereo_against_cpu(cfg, dev, fr):
     """Frames 0-4 rerun on the card and on the CPU with the same draws: the
-    VO poses agree; the three VO ops that used to round differently on
-    the two devices (describe's norm, _gn_jacobian's product, _zssd),
-    every call of the card's run recomputed on the CPU from its inputs,
-    equal bit for bit; on each fused keyframe the cost volumes equal on
+    VO poses agree; the five VO ops that used to round differently on
+    the two devices (describe's norm, _gn_jacobian's product, _zssd,
+    _reproject_residuals' transform, _gn_refine's sums and update), every
+    call of the card's run recomputed on the CPU from its inputs, equal
+    bit for bit; on each fused keyframe the cost volumes equal on
     every element, SGM + WTA of the card's volume equal on both devices,
     and compute_depth's depth and validity equal on every pixel; the CPU
     fusing the card's keyframe depth at the card's poses rebuilds the
@@ -1268,6 +1272,15 @@ def drive(cfg, dev, run):
 
 
 CV_RAGGED_SHAPES = ((7, 37, 16), (33, 130, 64), (5, 300, 256), (260, 45, 8))
+# (H, W, D, radius) at the edges of kernel CV's tiles (32-column strips of
+# 16 disparities, a halo of the blocks that hold x - r - 1 and x + r): a
+# width off the strip, a last strip narrower than the halo, an image
+# narrower than the window, D off the chunk, r = 0, r = 7 and r = 31 (two
+# halo blocks a side), a 4096-wide line and a 4096-tall column (the
+# longest lines, two levels of block totals)
+CV_EDGE_SHAPES = ((21, 100, 16, 3), (19, 67, 16, 3), (9, 5, 4, 7),
+                  (18, 90, 40, 3), (23, 77, 24, 0), (40, 150, 32, 7),
+                  (70, 300, 8, 31), (4, 4096, 32, 3), (4096, 20, 8, 3))
 
 
 def cost_volume_cumsum(left, right, sc):
@@ -1302,13 +1315,39 @@ def cost_volume_cumsum(left, right, sc):
     return c.masked_fill(invalid, 1e4).permute(1, 2, 0).contiguous()
 
 
+def cv_launch_split(fn, reps: int = 20) -> dict:
+    """Device ms per call of kernel CV's launches, from torch.profiler over
+    `reps` calls of `fn`: the images' four (their row and column carries
+    and windows), the volume's carries, the volume's fused pass."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = dict(images=0.0, carries=0.0, fused=0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if "cv_lines" in e.key or "cv_carries<false" in e.key:
+            split["images"] += us / 1e3 / reps
+        elif "cv_carries" in e.key:
+            split["carries"] += us / 1e3 / reps
+        elif "cv_fused" in e.key:
+            split["fused"] += us / 1e3 / reps
+    return split
+
+
 def check_cost_volume(cfg, dev, gpu):
     """Kernel CV against its plain version on the card, bit for bit: the
-    street's frame 0 at 370x1226x128 in f32 and bf16, and random pairs at
+    street's frame 0 at 370x1226x128 in f32 and bf16, random pairs at
     CV_RAGGED_SHAPES (lengths not multiples of 16; W = 300 and H = 260
-    take two levels of block totals) in both dtypes. Times of the kernel
-    in the main path's cost dtype, its plain version and the torch.cumsum
-    volume it replaced."""
+    take two levels of block totals) and at CV_EDGE_SHAPES (the tiles'
+    edges, other radii) in both dtypes. Times of the kernel in the main
+    path's cost dtype, its launches one by one, its plain version and the
+    torch.cumsum volume it replaced."""
     from denseslam_tpu_torch.io import synthetic
     from denseslam_tpu_torch.ops import stereo
 
@@ -1319,10 +1358,12 @@ def check_cost_volume(cfg, dev, gpu):
     left, right = left[0].contiguous(), right[0].contiguous()
     gen = torch.Generator().manual_seed(13)
     cases = [((left, right), sc)]
-    for h, w, d in CV_RAGGED_SHAPES:
+    shapes = [(h, w, d, sc.patch_radius) for h, w, d in CV_RAGGED_SHAPES]
+    for h, w, d, r in shapes + list(CV_EDGE_SHAPES):
         pair = [(torch.rand((h, w), generator=gen) * 255.0).to(dev)
                 for _ in range(2)]
-        cases.append((pair, dataclasses.replace(sc, max_disparity=d)))
+        cases.append((pair, dataclasses.replace(sc, max_disparity=d,
+                                                patch_radius=r)))
     err = 0.0
     for (lt, rt), scc in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1330,12 +1371,15 @@ def check_cost_volume(cfg, dev, gpu):
             want = stereo.cost_volume_plain(lt, rt, scc, dtype)
             err = max(err, float((got.float() - want.float()).abs().max()))
             if got.dtype != dtype or not torch.equal(got, want):
-                raise AssertionError(f"cost_volume {tuple(want.shape)} "
-                                     f"{dtype} differs from plain")
+                raise AssertionError(
+                    f"cost_volume {tuple(want.shape)} radius "
+                    f"{scc.patch_radius} {dtype} differs from plain")
     torch.cuda.synchronize()
     wdt = torch.bfloat16 if sc.cost_dtype == "bfloat16" else torch.float32
     ms = cuda_ms(lambda: stereo.cost_volume(left, right, sc, wdt), 20)
     ms_f32 = cuda_ms(lambda: stereo.cost_volume(left, right, sc), 20)
+    split = cv_launch_split(lambda: stereo.cost_volume(left, right, sc, wdt))
+    split_f32 = cv_launch_split(lambda: stereo.cost_volume(left, right, sc))
     wrapper_us = host_us(lambda: stereo.cost_volume(left, right, sc, wdt), 20)
     plain_ms = cuda_ms(lambda: stereo.cost_volume_plain(left, right, sc, wdt),
                        2, warm=1)
@@ -1359,7 +1403,9 @@ def check_cost_volume(cfg, dev, gpu):
                                                       sc.max_disparity],
               dtype=str(wdt), exact_f32_bf16=True,
               ragged_shapes=[list(x) for x in CV_RAGGED_SHAPES],
-              kernel_ms=ms, kernel_f32_ms=ms_f32, bound_f32_ms=bnd_f32,
+              edge_shapes=[list(x) for x in CV_EDGE_SHAPES],
+              kernel_ms=ms, launch_split_ms=split, kernel_f32_ms=ms_f32,
+              launch_split_f32_ms=split_f32, bound_f32_ms=bnd_f32,
               plain_ms=plain_ms, cumsum_version_ms=cumsum_ms,
               library_ms=None, bound_ms=bnd, bound_by=by,
               wrapper_host_us=wrapper_us, gpu=gpu))

@@ -46,7 +46,8 @@ KERNELS = {
                         "ppiiiipppipppp"),
     "sgm_path": ("sgm.cu", "sgm_path_launch", "ppppiiiiiiffi"),
     "sgm_final": ("sgm_final.cu", "sgm_final_launch", "ppppppppppiiiffi"),
-    "cost_volume": ("cost_volume.cu", "cost_volume_launch", "ppppppiiiifi"),
+    "cost_volume": ("cost_volume.cu", "cost_volume_launch",
+                    "pppppppiiiifi"),
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}

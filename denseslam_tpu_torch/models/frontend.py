@@ -22,7 +22,7 @@ from ..device import resolve_device
 from ..ops import features as feat_ops
 from ..ops import matching, mono, ransac
 from ..utils import lie, threefry
-from ..utils.numerics import sqrt, true_div
+from ..utils.numerics import fma_dot, sqrt, true_div
 
 
 class FrontendState(NamedTuple):
@@ -113,7 +113,10 @@ def _advance(state: FrontendState, uv_prev: torch.Tensor,
     T_delta = torch.where(use_est, res.T_delta, state.T_delta_prev)
     T_delta = torch.where(state.initialized, T_delta,
                           torch.eye(4, dtype=torch.float32, device=dev))
-    T_wc = state.T_wc @ lie.inv_T(T_delta)
+    # a chain of 4 FMAs an entry, as jitted XLA:CPU forms the 4x4 product
+    # (a matmul goes to cuBLAS on the card and rounds otherwise)
+    T_wc = fma_dot(state.T_wc[:, :, None], lie.inv_T(T_delta)[None, :, :],
+                   dim=-2)
     new_state = FrontendState(
         T_wc=T_wc, T_delta_prev=T_delta,
         initialized=torch.ones((), dtype=torch.bool, device=dev),

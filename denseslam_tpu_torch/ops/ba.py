@@ -3,7 +3,9 @@
 
 The observation set is a dense (L, K) grid with a validity mask: every
 per-observation quantity (residuals, 2x6 / 2x3 Jacobians, Huber weights)
-is one batched einsum, the landmark blocks are inverted in closed form
+is one batched einsum (the normal equations and the Schur solve in
+float64, so that every device lands on the same step), the landmark
+blocks are inverted in closed form
 (ops/smallsolve.py `inv3x3`), and the reduced (6K, 6K) camera system is
 one dense `torch.linalg.solve_ex` without its error check (which would
 read a value back to the host; a singular system gives non-finite
@@ -139,6 +141,13 @@ def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig,
 
             J_pt = torch.einsum("lkab,kbc->lkac", J_pm, T_cw[:, :3, :3])
             wm = (w * mask * pv[:, None])[..., None, None]
+            # the normal equations and their Schur solve in float64, the
+            # step rounded once to float32: in float32 the library sums
+            # over the landmarks put the CPU's solve of the drive's first
+            # window 2.95 mm from its float64 oracle and the card's
+            # 0.07-0.31 mm; in float64 both land within 2e-6 m of it
+            # (tools/device_trace.py ba)
+            J_cam, J_pt, r = J_cam.double(), J_pt.double(), r.double()
             Jc_w = J_cam * wm
             Jp_w = J_pt * wm
             U = allsum(torch.einsum("lkai,lkaj->kij", Jc_w, J_cam))
@@ -168,12 +177,13 @@ def solve(problem: BAProblem, rig: StereoRig, cfg: BackendConfig,
 
             S_dense = S.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
             dx_c = -torch.linalg.solve_ex(
-                S_dense + 1e-8 * torch.eye(6 * K, dtype=dt, device=dev),
+                S_dense + 1e-8 * torch.eye(6 * K, dtype=S.dtype, device=dev),
                 rhs.reshape(-1), check_errors=False)[0].reshape(K, 6)
             # back-substitute landmarks: dx_p = -Vinv (b_p + W^T dx_c)
             Wt_dxc = torch.einsum("lkij,ki->lj", W, dx_c)
             dx_p = -torch.einsum("lij,lj->li", Vinv, b_p + Wt_dxc)
             dx_p = torch.where(pv[:, None], dx_p, 0.0)
+            dx_c, dx_p = dx_c.to(dt), dx_p.to(dt)
 
             T_cw_new = lie.se3_exp(dx_c) @ T_cw
             pts_new = pts + dx_p

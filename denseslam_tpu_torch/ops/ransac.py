@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from ..config import FrontendConfig
-from ..utils import lie, threefry
+from ..utils import lie, numerics, threefry
 from ..utils.camera import StereoRig
-from ..utils.numerics import fma_dot, true_div
+from ..utils.numerics import fma_dot, fma_twice, tree_sum, true_div
 from .matching import QuadMatches
 from .smallsolve import solve_spd6
 
@@ -62,18 +62,41 @@ def triangulate_prev(q: QuadMatches, rig: StereoRig):
     return pts, ok
 
 
+def _f32(x: float) -> float:
+    """x rounded to float32: the constant jitted JAX computes with."""
+    return float(np.float32(x))
+
+
+def _transform(T, pts):
+    """R p + t of (..., 4, 4) T and (..., N, 3) points as jitted XLA:CPU
+    computes `lie.transform_points` here: each coordinate a chain of 3
+    FMAs from 0 (`fma_dot`), then + t. A batched matmul would go to cuBLAS
+    on the card and sum otherwise than the CPU."""
+    R = T[..., :3, :3]
+    return (fma_dot(pts[..., :, None, :], R[..., None, :, :], dim=-1)
+            + T[..., None, :3, 3])
+
+
 def _reproject_residuals(T, pts_prev, obs_l, obs_r, rig: StereoRig):
     """4-way reprojection residuals (..., N, 4): left u, v + right u, v.
-    T (..., 4, 4) and pts_prev (..., N, 3) broadcast."""
+    T (..., 4, 4) and pts_prev (..., N, 3) broadcast. Rounded as jitted
+    XLA:CPU rounds the JAX version (`_transform`, and each `q * f + c` one
+    FMA: `fma_twice`), alike on every device."""
     intr = rig.intr
-    p = lie.transform_points(T, pts_prev)
+    p = _transform(T, pts_prev)
     z = torch.clamp(p[..., 2], min=1e-6)
-    ul = p[..., 0] / z * intr.fx + intr.cx
-    vl = p[..., 1] / z * intr.fy + intr.cy
-    ur = (p[..., 0] - rig.baseline_m) / z * intr.fx + intr.cx
-    vr = vl
-    return torch.stack([ul - obs_l[..., 0], vl - obs_l[..., 1],
-                        ur - obs_r[..., 0], vr - obs_r[..., 1]], dim=-1), p
+    # (x, y, x - B) / z, then u_l, v_l, u_r together
+    q = torch.stack([p[..., 0], p[..., 1], p[..., 0] - rig.baseline_m],
+                    dim=-1) / z[..., None]
+    f64 = (torch.float64, q.device)
+    scale = numerics.constant((_f32(intr.fx), _f32(intr.fy), _f32(intr.fx)),
+                              *f64)
+    shift = numerics.constant((_f32(intr.cx), _f32(intr.cy), _f32(intr.cx)),
+                              *f64)
+    uvu = fma_twice(q, scale, shift)
+    # u_l - obs_l.u, v_l - obs_l.v, u_r - obs_r.u, v_l - obs_r.v (v_r = v_l)
+    return (torch.cat([uvu, uvu[..., 1:2]], dim=-1)
+            - torch.cat([obs_l, obs_r], dim=-1)), p
 
 
 def _gn_jacobian(p, rig: StereoRig):
@@ -111,19 +134,34 @@ def _gn_jacobian(p, rig: StereoRig):
 
 def _gn_refine(T0, pts_prev, obs_l, obs_r, weights, rig, iters: int):
     """Masked Gauss-Newton, batched over leading dims: T0 (..., 4, 4),
-    pts_prev / obs (..., N, 3|2), weights (..., N)."""
+    pts_prev / obs (..., N, 3|2), weights (..., N). Every sum is in one
+    fixed order, so the card and the CPU round each step alike. The
+    normal equations A = J^T W J and b = J^T W r are one (6, 7) product of
+    4N terms, each exact in float64, that a halving tree adds in float64
+    (`tree_sum`) and rounds once to float32: the float32 rounding of the
+    exact sum but within about log2(4N) float64 ulps of a rounding
+    boundary. Jitted XLA:CPU emits both einsums as chains of FMAs whose
+    tiling depends on the shape (4N = 8192: two blocks of 4096 in four
+    lanes for A, eight lanes for b), one launch a term here; the exact
+    sum is as near to them as any cheap order, and the distance to jitted
+    JAX is then JAX's own rounding (tests/test_torch_vo_order.py). The
+    damping's trace is a tree too, and the update exp(xi) T is
+    `lie.se3_exp_apply`."""
     T = T0
     eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
     for _ in range(iters):
         r, p = _reproject_residuals(T, pts_prev, obs_l, obs_r, rig)
         J = _gn_jacobian(p, rig)
         JTw = J * weights[..., None, None]
-        A = torch.einsum("...nri,...nrj->...ij", JTw, J)
-        b = torch.einsum("...nri,...nr->...i", JTw, r)
-        damp = 1e-6 * torch.diagonal(A, dim1=-2, dim2=-1).sum(-1) + 1e-9
+        M = torch.cat([J, r[..., None]], dim=-1)             # (..., N, 4, 7)
+        # the products exact in float64, their sum rounded once
+        terms = (JTw[..., :, None].double() * M[..., None, :]).flatten(-4, -3)
+        S = tree_sum(terms, dim=-3).float()                  # (..., 6, 7)
+        A, b = S[..., :6], S[..., 6]
+        damp = 1e-6 * tree_sum(torch.diagonal(A, dim1=-2, dim2=-1)) + 1e-9
         xi = -solve_spd6(A + damp[..., None, None] * eye6, b)
         xi = torch.clamp(xi, -0.5, 0.5)           # guard divergent steps
-        T = lie.se3_exp(xi) @ T
+        T = lie.se3_exp_apply(xi, T)
     return T
 
 

@@ -15,33 +15,37 @@ from ..utils.numerics import sqrt
 def solve_spd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Batched 6x6 symmetric-positive-definite solve via unrolled Cholesky.
 
-    A: (..., 6, 6) SPD (GN normal equations + damping), b: (..., 6)."""
+    A: (..., 6, 6) SPD (GN normal equations + damping), b: (..., 6).
+
+    Every entry is formed by the JAX version's operations in its order;
+    the ops that are independent of each other run together: a column of
+    L is one tensor (its diagonal entry and the entries below it take the
+    same subtractions), and the forward substitution subtracts each solved
+    y_k from all later rows at once (each row still subtracts in k order).
+    That keeps the bits and launches about half the kernels."""
     n = 6
-    L = [[None] * n for _ in range(n)]
+    low = []                            # low[k]: L[k+1:, k], (..., 5 - k)
+    diag = []                           # L[k][k], (...,)
     for j in range(n):
-        s = A[..., j, j]
+        v = A[..., j:, j]               # rows j.. of column j
         for k in range(j):
-            s = s - L[j][k] * L[j][k]
-        d = sqrt(torch.clamp(s, min=1e-20))       # correctly rounded
-        L[j][j] = d
-        inv = 1.0 / d
-        for i2 in range(j + 1, n):
-            s2 = A[..., i2, j]
-            for k in range(j):
-                s2 = s2 - L[i2][k] * L[j][k]
-            L[i2][j] = s2 * inv
+            lk = low[k][..., j - k - 1:]             # L[j:, k]
+            v = v - lk * lk[..., :1]                 # - L[i][k] * L[j][k]
+        d = sqrt(torch.clamp(v[..., 0], min=1e-20))  # correctly rounded
+        diag.append(d)
+        low.append(v[..., 1:] * torch.reciprocal(d)[..., None])
     y = [None] * n                      # forward: L y = b
-    for i2 in range(n):
-        s = b[..., i2]
-        for k in range(i2):
-            s = s - L[i2][k] * y[k]
-        y[i2] = s / L[i2][i2]
+    s = b
+    for k in range(n):
+        y[k] = s[..., 0] / diag[k]
+        if k + 1 < n:
+            s = s[..., 1:] - low[k] * y[k][..., None]
     x = [None] * n                      # backward: L^T x = y
     for i2 in reversed(range(n)):
         s = y[i2]
         for k in range(i2 + 1, n):
-            s = s - L[k][i2] * x[k]
-        x[i2] = s / L[i2][i2]
+            s = s - low[i2][..., k - i2 - 1] * x[k]
+        x[i2] = s / diag[i2]
     return torch.stack(x, dim=-1)
 
 

@@ -28,8 +28,8 @@ from .sgm import _BIG, WtaMaps, sgm_wta, wta_maps
 from .sgm import sgm_aggregate as _sgm_aggregate
 
 _BASE = 16
-# kernel CV keeps a line's block totals and a ring of 2r + 2 sums in
-# local memory (csrc/cost_volume.cu)
+# kernel CV scans the block totals of a line in two levels of 16 and keeps
+# a ring of 2r + 2 sums a column in shared memory (csrc/cost_volume.cu)
 _CV_MAX_LINE = _BASE * 256
 _CV_MAX_RADIUS = 31
 
@@ -132,12 +132,18 @@ def cost_volume(left: torch.Tensor, right: torch.Tensor, cfg: StereoConfig,
     dev = left.device
     kernels.check_tensor(left, "left", torch.float32, (h, w))
     kernels.check_tensor(right, "right", torch.float32, (h, w), dev)
-    hb = torch.empty((2, h, w), dtype=torch.float32, device=dev)
-    lmrm = torch.empty_like(hb)
-    tmp = torch.empty((h, w, nd), dtype=torch.float32, device=dev)
+    m1 = -(-w // _BASE)
+    f32 = dict(dtype=torch.float32, device=dev)
+    lmrm = torch.empty((2, h, w), **f32)
+    # the images' row box sums, transposed (each column a row of it)
+    rowbox = torch.empty((2, w, h), **f32)
+    # the block carries along the images' rows, then along their columns
+    # (one buffer for both), and along the volume's rows
+    icar = torch.empty((max(h * m1, w * -(-h // _BASE)), 2), **f32)
+    vcar = torch.empty((h, m1, nd), **f32)
     out = torch.empty((h, w, nd), dtype=dtype, device=dev)
-    kernels.launch("cost_volume", dev, left, right, hb, lmrm, tmp, out, h, w,
-                   nd, r, _reciprocal_area(r),
+    kernels.launch("cost_volume", dev, left, right, lmrm, rowbox, icar, vcar,
+                   out, h, w, nd, r, _reciprocal_area(r),
                    int(dtype == torch.bfloat16))
     return out
 

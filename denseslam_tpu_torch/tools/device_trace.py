@@ -59,9 +59,11 @@ TRACED = (
     ("ransac", "_gn_jacobian"), ("ransac", "_reproject_residuals"),
     ("ransac", "_gn_refine"), ("ransac", "solve_spd6"),
 )
-# the three ops that used to part (ROADMAP.md Queue C 4)
+# the ops that used to part (ROADMAP.md Queue C): the three of C 4, then
+# the reprojection's transform and the Gauss-Newton's sums of C 1
 VO_OPS = (("features", "describe"), ("ransac", "_gn_jacobian"),
-          ("matching", "_zssd"))
+          ("matching", "_zssd"), ("ransac", "_reproject_residuals"),
+          ("ransac", "_gn_refine"))
 
 
 def _to(x, device):

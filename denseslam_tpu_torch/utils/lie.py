@@ -7,7 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .numerics import true_div
+from .numerics import fma_dot, fma_twice, sqrt, true_div
 
 _EPS = 1e-8
 # below theta^2 = 1e-4 the closed forms cancel in float32; the Taylor
@@ -95,6 +95,33 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     V = eye + b * W + c * W2
     t = (V @ v[..., None])[..., 0]
     return make_T(R, t)
+
+
+def se3_exp_apply(xi: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+    """se3_exp(xi) @ T for (..., 6) xi and (..., 4, 4) T in se3_exp's
+    arithmetic, every sum in one fixed order so that every device rounds
+    it alike: each small product a chain of FMAs from 0 (`fma_dot`, jitted
+    XLA:CPU's order; a matmul goes to cuBLAS on the card), the root
+    correctly rounded (`sqrt`), sin and cos rounded once from float64 (the
+    CPU's float32 ones are not correctly rounded)."""
+    v, w = xi[..., :3], xi[..., 3:]
+    theta2 = fma_dot(w, w)[..., None, None]
+    theta = sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    W = hat(w)
+    W2 = fma_dot(W[..., :, :, None], W[..., None, :, :], dim=-2)
+    small = theta2 < _SMALL2
+    t64 = theta.double()
+    sin, cos = torch.sin(t64).to(xi.dtype), torch.cos(t64).to(xi.dtype)
+    a = torch.where(small, 1.0 - true_div(theta2, 6.0), sin / theta)
+    b = torch.where(small, 0.5 - true_div(theta2, 24.0),
+                    (1.0 - cos) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - true_div(theta2, 120.0),
+                    (theta - sin) / (theta2 * theta))
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
+    R = eye + a * W + b * W2
+    V = eye + b * W + c * W2
+    E = make_T(R, fma_dot(V, v[..., None, :], dim=-1))
+    return fma_dot(E[..., :, :, None], T[..., None, :, :], dim=-2)
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
@@ -207,12 +234,6 @@ def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom], dim=-2)
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """f32 fused multiply-add: the f32 product is exact in f64, so one f64
-    add and one rounding back to f32 reproduce fma(a, b, c)."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 def inv_T(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a rigid transform (orthonormal R).
 
@@ -224,6 +245,6 @@ def inv_T(T: torch.Tensor) -> torch.Tensor:
     t = T[..., :3, 3]
     Rt = R.transpose(-1, -2)
     acc = Rt[..., :, 0] * t[..., None, 0]
-    acc = _fma_f32(Rt[..., :, 1], t[..., None, 1], acc)
-    acc = _fma_f32(Rt[..., :, 2], t[..., None, 2], acc)
+    acc = fma_twice(Rt[..., :, 1], t[..., None, 1], acc)
+    acc = fma_twice(Rt[..., :, 2], t[..., None, 2], acc)
     return make_T(Rt, -acc)

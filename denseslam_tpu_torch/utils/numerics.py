@@ -30,6 +30,18 @@ def _scalar(x, like: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def constant(x, dtype: torch.dtype, device) -> torch.Tensor:
+    """The numbers x as a 1-d tensor of `dtype` on `device`, made once
+    from fills on the device (a copy from the host would wait for the
+    card)."""
+    key = (tuple(x), dtype, torch.device(device))
+    t = _SCALARS.get(key)
+    if t is None:
+        like = torch.empty((), dtype=dtype, device=device)
+        t = _SCALARS[key] = torch.stack([_scalar(v, like) for v in x])
+    return t
+
+
 def true_div(a, b) -> torch.Tensor:
     """a / b, one of them a tensor and the other a tensor or a Python
     number, rounded once."""
@@ -82,11 +94,42 @@ def fma_dot(a: torch.Tensor, b: torch.Tensor, dim: int = -1) -> torch.Tensor:
     2^-29 of half a float32 ulp of the sum."""
     p = a.double() * b
     dim = dim % p.dim()
-    acc = torch.zeros(p.shape[:dim] + p.shape[dim + 1:], dtype=torch.float32,
+    acc = torch.empty(p.shape[:dim] + p.shape[dim + 1:], dtype=torch.float32,
                       device=p.device)
-    for k in range(p.shape[dim]):
+    torch.add(p.select(dim, 0), 0.0, out=acc)           # 0 + a_0 b_0
+    for k in range(1, p.shape[dim]):
         torch.add(p.select(dim, k), acc, out=acc)
     return acc
+
+
+def fma_twice(a: torch.Tensor, b, c) -> torch.Tensor:
+    """a * b + c for a float32 tensor and float32 tensors or constants b,
+    c, as `fma_dot` rounds a step: the exact float64 product plus c,
+    rounded to float64 and then to float32, in four launches (`fma`
+    takes about fifteen); forward-mode AD goes through it. Alike on every
+    device; it parts from a true FMA only where the float64 sum lands
+    exactly on a float32 midpoint without being exact (a chance of about
+    2^-29 a value)."""
+    return (a.double() * b + c).to(torch.float32)
+
+
+def tree_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """The sum of `x` along `dim` in x's dtype by a halving tree:
+    zero-padded to a power of two, then the upper half added onto the
+    lower half until one term is left, one launch a level. Elementwise
+    adds only, so every device rounds it alike, in about log2(n) launches
+    (a library's reduction or matmul sums in an order of its own, which
+    differs between the card and the CPU)."""
+    dim = dim % x.dim()
+    n = x.shape[dim]
+    m = 1 << max(n - 1, 0).bit_length()
+    if m > n:
+        pad = [0, 0] * (x.dim() - 1 - dim) + [0, m - n]
+        x = torch.nn.functional.pad(x, pad)
+    while m > 1:
+        m //= 2
+        x = x.narrow(dim, 0, m) + x.narrow(dim, m, m)
+    return x.squeeze(dim)
 
 
 def sum_seq(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
