@@ -201,7 +201,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
  22. tracks        triangulate_tracks on 4096 tracks x 8 views made from a
                    seed at 1226x370: card against CPU within 1e-4, the
                    card's ms.
- 23. cli           the command line (denseslam_tpu_torch.main.main, in
+ 23. jax_golden    the stereo main path held to the JAX package at full
+                   width: the cli sequence's 64 pairs (written by
+                   cli_datasets, decoded once by io/png.py for this phase
+                   and cli_chunk) through process_sequence in one call at
+                   the stereo drive configuration, the RANSAC draws from
+                   the frontend's key, against
+                   tests/golden/stereo_chunk_jax.npz (made by the JAX
+                   package's jitted process_sequence on the CPU from the
+                   same PNGs, tests/_torch_golden.py; tools/golden.py):
+                   inputs equal (checked first), tracking, fused and
+                   inlier counts equal, poses within 1e-4 m / 1e-5, each
+                   keyframe's mm depth equal, map counters equal; the
+                   keyframes fused anew at the golden's poses: every block
+                   key, slot and stamp equal, per block weight sums equal
+                   and tsdf sums within 512 x 5e-5 on >= 99% of blocks;
+                   the drive's own map: keys on >= 99.9%, sums on >= 90%
+                   (documented tie tolerances: jitted XLA's FMAs in the
+                   voxel projection, poses apart by up to 6.7e-5 m);
+                   launches per fused keyframe CV 1, B3 3, the tail 1, B1
+                   1.
+ 24. cli           the command line (denseslam_tpu_torch.main.main, in
                    process) on the first 32 of the 64 frames of the
                    flagship loop drive that io/make_dataset.py writes
                    into build/cli/ in
@@ -217,24 +237,25 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    fused keyframe reading back to its render, the JAX
                    summary's keys; frames/s, mean_fusion_ms and the TIMERS
                    report printed.
- 24. cli_chunk     the same sequence with --chunk 64: the launch identity,
+ 25. cli_chunk     the same sequence with --chunk 64: the launch identity,
                    tracking >= 95%, poses equal bit for bit to
                    SLAMSystem.process_chunk called directly on the decoded
                    frames.
- 25. cli_resume    the sequence's first 32 frames per frame without the
-                   backend, whole and as frames 0-15, a checkpoint, and
-                   16-31 resumed from it:
+ 26. cli_resume    the sequence's first 16 frames per frame without the
+                   backend, whole and as frames 0-7, a checkpoint, and
+                   8-15 resumed from it (32 frames and 16 until the
+                   jax_golden phase came):
                    poses and final state equal bit for bit, the checkpoint's
                    keys the JAX layout's (the frontend's key among them).
- 26. cli_rgbd      48 frames in TUM layout (640x480, the rgbd phase's sensor
+ 27. cli_rgbd      48 frames in TUM layout (640x480, the rgbd phase's sensor
                    model) with --sensor rgbd --sampler pallas --use_color:
                    the RGB-D VO branch of DenseSLAM.process_frame; tracking
                    >= 95%, B1 once per fused keyframe, the final position
                    within 3% of the distance travelled.
- 27. cli_cpu_reference  the cli command's first 5 frames on the card and
+ 28. cli_cpu_reference  the cli command's first 5 frames on the card and
                    with --device cpu (and --profile_dir): poses within 1 mm
                    / 1e-4 rad.
- 28. viewer        the cli command's first 16 frames with --live_viewer on
+ 29. viewer        the cli command's first 16 frames with --live_viewer on
                    a free port and --viewer_every 4, a client thread
                    polling /state, fetching and decoding every pane
                    (io/png.py), moving the free camera and recording its
@@ -245,12 +266,12 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    `00dc` JPEG chunks (FFD8 ... FFD9); the viewer's added
                    seconds a frame (the same frames run without it just
                    before) printed.
- 29. tools         tools/scale_sequence.py --scale 0.5 on the cli sequence:
+ 30. tools         tools/scale_sequence.py --scale 0.5 on the cli sequence:
                    calib.txt's P rows halved, images and disparities at
                    half size (the disparities halved); the command line on
                    the copy's first 8 frames: the launch identity,
                    tracking on every frame.
- 30. experiments   (after tools) the experiment tools of tools/ in process,
+ 31. experiments   (after tools) the experiment tools of tools/ in process,
                    each run of the command line instrumented
                    (tools/common.py run_main): the card's
                    memory_allocated back within 1% of the run's map bytes
@@ -282,14 +303,14 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    nearest resampling; (g) prepare_dataset validate 0 on
                    both sequences. Frames/s, blocks and MB of each run,
                    the demo's scores and each tool's seconds printed.
- 31. vo_drift      A4's drift golden (tests/test_vo_numerics.py:185) at
+ 32. vo_drift      A4's drift golden (tests/test_vo_numerics.py:185) at
                    its size and on its data: 96 frames of the loop at
                    1226x370 under its noise, with the JAX frontend's RANSAC
                    draws (both made on the card by utils/threefry.py),
                    through open-loop vo_step: KITTI t_err < 0.6% and end
                    error < 0.8% of the path; every estimate_gain call of
                    the drive recomputed on the CPU equal bit for bit.
- 32. sharded       the sharded map (parallel/) on this one card: 4 ranks
+ 33. sharded       the sharded map (parallel/) on this one card: 4 ranks
                    spawned on cuda:0 over gloo (its collectives staged
                    through the host), each fusing the slice's 40 frames
                    (its SGM depths, the bench_full.py configuration) into
@@ -301,7 +322,7 @@ Phases, one JSON line each; any failure raises and exits non-zero:
                    hash defect) and every rank counts the same decayed
                    blocks; then the dry run (tools/dryrun_multichip.py) in
                    the same ranks. Fused frames/s of the 4 ranks.
- 33. throughput    frames/s of stereo + fusion, of the fusion tail alone
+ 34. throughput    frames/s of stereo + fusion, of the fusion tail alone
                    (the bench.py workload), of the RGB-D path and of the
                    stereo main path, host clock around work that ends in a
                    synchronize; the median of --reps samples.
@@ -3219,8 +3240,9 @@ CLI_DIR = os.path.join(ROOT, "build", "cli")
 CLI_FRAMES = 64
 CLI_RUN_FRAMES = 32       # cli: the sequence's first frames (cut from 64
 # when the experiments phase came, to keep the script within its time)
-CLI_RESUME_FRAMES = 32    # cli_resume: the sequence's first frames, whole
-CLI_RESUME_AT = 16        # ... and resumed at this frame
+CLI_RESUME_FRAMES = 16    # cli_resume: the sequence's first frames, whole
+CLI_RESUME_AT = 8         # ... and resumed at this frame (32 and 16,
+# cut to pay for the jax_golden phase)
 CLI_RGBD_FRAMES = 48
 CLI_CPU_FRAMES = 5
 # io/make_dataset.py's arguments of the KITTI-layout sequence
@@ -3262,6 +3284,105 @@ def cli_datasets():
         "--yaw_rate", "0.003", "--gain", "0.15", "--noise", "2.0",
         "--depth_noise", "0.01", "--holes", "0.05", "--seed", "4"])
     return kitti, tum
+
+
+GOLDEN = os.path.join(ROOT, "tests", "golden", "stereo_chunk_jax.npz")
+
+
+def decode_kitti(kitti: str, dev):
+    """The KITTI sequence's first CLI_FRAMES pairs as the port's reader
+    decodes them: (lefts, rights) float32 (N, H, W) on `dev`."""
+    from denseslam_tpu_torch.io import datasets
+    frames = list(datasets.Input(kitti, datasets.kitti_odometry_config(),
+                                 frame_limit=CLI_FRAMES))
+    return (torch.stack([torch.as_tensor(f["left"]) for f in frames]).to(dev),
+            torch.stack([torch.as_tensor(f["right"])
+                         for f in frames]).to(dev))
+
+
+def run_jax_golden(dev, gpu, frames):
+    """The stereo main path held to the JAX package at full width: the
+    cli sequence's 64 decoded pairs (`frames`, the flagship loop drive's
+    first frames) through process_sequence in one call at
+    drive_config("stereo"), the RANSAC draws from the frontend's key, held
+    to tests/golden/stereo_chunk_jax.npz, which the JAX package's jitted
+    process_sequence made on the CPU from the same PNGs
+    (tests/_torch_golden.py). Gates (tools/golden.py `check`, the
+    tolerances of tests/test_torch_stereo_path.py): the decoded inputs
+    equal the golden's (checked before the drive); the configuration and
+    the dataset's arguments the golden's; tracking, fused and inlier
+    counts equal on every frame; poses within 1e-4 m and 1e-5 in rotation
+    entries; the same keyframes, each one's mm depth in the fusion DB
+    equal; the map's counters equal. Then the run's keyframes fused anew
+    at the golden's poses (`replay_map`): every block key, slot and stamp
+    the golden's, and per block the weight sum equal and the tsdf sum
+    within 512 x 5e-5 on >= 99% of the blocks; and the drive's own map,
+    fused at poses that part from JAX's by up to 6.7e-5 m: keys, slots and
+    stamps on >= 99.9% of the blocks, the per-block sums on >= 90%. The
+    shares are documented tie tolerances in place of 99.9% (tools/golden.py:
+    jitted XLA contracts the voxel projection into FMAs and sums the VO's
+    normal equations in another order, and a voxel within the last bits of
+    a pixel edge samples the other pixel; observed 99.491% of the replay's
+    blocks, 9831 of the drive's 9832 blocks at the golden's keys and
+    94.447% within). Launch identity per fused keyframe: CV 1, B3 3, the
+    tail 1, B1 1, B2 0, with the counts set to 0 just before the drive and
+    read just after (the replay's B1 launches come after the read)."""
+    from denseslam_tpu_torch import kernels
+    from denseslam_tpu_torch.io import convert
+    from denseslam_tpu_torch.models import dense_slam, frontend
+    from denseslam_tpu_torch.ops import tsdf as tsdf_ops
+    from denseslam_tpu_torch.tools import golden
+
+    g = golden.load(GOLDEN)
+    lefts, rights = frames
+    inputs = golden.input_digest(lefts.cpu().numpy(), rights.cpu().numpy())
+    if not np.array_equal(inputs, g["inputs"]):
+        off = np.flatnonzero((inputs != g["inputs"]).any(axis=1))
+        raise AssertionError("jax_golden: inputs differ from the golden's "
+                             f"(frames {off.tolist()})")
+    cfg = drive_config("stereo")
+    if (golden.config_json(convert.config_from_dict(g["meta"]["config"]))
+            != golden.config_json(cfg)
+            or g["meta"]["kitti_args"] != CLI_KITTI_ARGS):
+        raise AssertionError("jax_golden: the golden was made for another "
+                             "configuration or sequence")
+    st = frontend.init_frontend(cfg, device=dev)
+    m = tsdf_ops.make_map(cfg.tsdf, device=dev)
+    db = dense_slam.make_fusion_db(cfg, device=dev)
+    fids = torch.arange(lefts.shape[0], dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    _, m, db, stats = dense_slam.process_sequence(st, m, db, lefts, rights,
+                                                  fids, cfg)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.launch_counts)
+    fused = int(stats["fused"].sum())
+    want = dict(tile_sample=fused, tile_sample_rgb=0, sgm_path=3 * fused,
+                sgm_final=fused, cost_volume=fused)
+    rec = golden.run_record(
+        {k: v.cpu().numpy() for k, v in stats.items()
+         if k in ("T_wc", "tracking_ok", "fused", "num_inliers")},
+        convert.map_state_to_numpy(m), convert.fusion_db_to_numpy(db),
+        inputs)
+    del m
+    replay = golden.replay_map(db, lefts, g["T_wc"], cfg)
+    rec.update({"replay_" + k: v for k, v in golden.map_digest(
+        convert.map_state_to_numpy(replay)).items()})
+    del replay
+    try:
+        report, failed = golden.check(g, rec), []
+    except golden.GoldenMismatch as e:
+        report, failed = e.report, e.failed
+    emit(dict(phase="jax_golden", frames=len(fids), fused=fused,
+              launches=launches, launches_want=want, **report,
+              golden_commit=g["meta"]["commit"], seconds=secs, gpu=gpu))
+    if fused == 0 or launches != want:
+        raise AssertionError(f"jax_golden: launches {launches}, want {want}")
+    if failed:
+        raise AssertionError(f"jax_golden: gates failed: {failed}")
+    return dict(launches=launches)
 
 
 def cli_map_flags():
@@ -3466,12 +3587,12 @@ def run_cli(dev, gpu, kitti):
     return dict(launches=launches, seconds=seconds)
 
 
-def run_cli_chunk(dev, gpu, kitti):
+def run_cli_chunk(dev, gpu, kitti, frames):
     """The same sequence through the command line's chunk path (--chunk 64
     --compute_depth --sampler pallas: one SLAMSystem.process_chunk); the
     launch identity of `cli`, tracking >= 95%, and the poses equal bit for
     bit to SLAMSystem.process_chunk called directly, with the same seed,
-    on the frames the dataset reader decodes."""
+    on the frames the dataset reader decodes (`frames`, decode_kitti's)."""
     from denseslam_tpu_torch import main as cli
     from denseslam_tpu_torch.io import datasets
     from denseslam_tpu_torch.models.system import SLAMSystem
@@ -3491,10 +3612,7 @@ def run_cli_chunk(dev, gpu, kitti):
     inp = datasets.Input(kitti, datasets.kitti_odometry_config(),
                          frame_limit=CLI_FRAMES)
     cfg = cli.build_config(cli.build_parser().parse_args(argv), inp.rig)
-    frames = list(inp)
-    lefts = torch.stack([torch.as_tensor(f["left"]) for f in frames]).to(dev)
-    rights = torch.stack([torch.as_tensor(f["right"])
-                          for f in frames]).to(dev)
+    lefts, rights = frames
     direct = SLAMSystem(cfg, device=dev)
     direct.process_chunk(lefts, rights)
     direct_T = np.stack([T for _, T in direct.trajectory()])
@@ -3515,8 +3633,9 @@ def run_cli_chunk(dev, gpu, kitti):
 def run_cli_resume(dev, gpu, kitti):
     """The sequence per frame without the backend (--sampler pallas
     --compute_depth, no --voxel_decay): its first CLI_RESUME_FRAMES frames
-    uninterrupted, and as frames 0-15 with --checkpoint_out, then 16-31
-    resumed with --checkpoint_in --frame_offset 16. Gates: the launch
+    uninterrupted, and as its first CLI_RESUME_AT frames with
+    --checkpoint_out, then the rest resumed with --checkpoint_in
+    --frame_offset CLI_RESUME_AT. Gates: the launch
     identity of the uninterrupted run (no re-fused or purged keyframes),
     its poses and final checkpoint (map, DB, frontend with its key,
     history) equal to the resumed run's bit for bit, and the checkpoint's
@@ -4724,8 +4843,12 @@ def main(argv=None) -> int:
     bilinear = timed("bilinear", run_bilinear, cfg, dev, run)
     timed("tracks", run_tracks, scfg, dev, gpu)
     kitti, tum = timed("cli_datasets", cli_datasets)
+    kitti_frames = timed("kitti_decode", decode_kitti, kitti, dev)
+    jax_golden = timed("jax_golden", run_jax_golden, dev, gpu, kitti_frames)
     cli = timed("cli", run_cli, dev, gpu, kitti)
-    cli_chunk = timed("cli_chunk", run_cli_chunk, dev, gpu, kitti)
+    cli_chunk = timed("cli_chunk", run_cli_chunk, dev, gpu, kitti,
+                      kitti_frames)
+    del kitti_frames
     cli_resume = timed("cli_resume", run_cli_resume, dev, gpu, kitti)
     cli_rgbd = timed("cli_rgbd", run_cli_rgbd, dev, gpu, tum)
     timed("cli_cpu_reference", run_cli_cpu_reference, dev, gpu, kitti)
@@ -4743,6 +4866,7 @@ def main(argv=None) -> int:
                  cli_chunk=cli_chunk["launches"],
                  cli_resume=cli_resume["launches"],
                  cli_rgbd=cli_rgbd["launches"], viewer=viewer["launches"],
+                 jax_golden=jax_golden["launches"],
                  tools=tools["launches"],
                  experiments=experiments["launches"],
                  sharded=sharded["launches"])

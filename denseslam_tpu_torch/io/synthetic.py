@@ -5,7 +5,12 @@ an aperiodic world-anchored value-noise texture. Gives the port
 KITTI-scale inputs without JAX.
 
 Rendering is batched over the pose axis and runs on the device of the
-poses tensor (or `device`, for numpy poses)."""
+poses tensor (or `device`, for numpy poses). The card and the CPU render
+the same bits: square roots are correctly rounded on both
+(utils/numerics.py `sqrt`; the CPU's `torch.sqrt` is not), and a division
+by a constant is a product with the constant's float32 reciprocal on
+both, which is how the card divides a tensor by a Python number
+(`_div`)."""
 
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 from ..device import resolve_device
 from ..ops.hash import wrap_i32
 from ..utils import lie
+from ..utils.numerics import sqrt
 from ..utils.camera import Intrinsics, StereoRig
 
 
@@ -116,7 +122,7 @@ def _ray_scene_depth(ox, oy, oz, dx, dy, dz, centers, radii, plane_y,
         cc = ocx * ocx + ocy * ocy + ocz * ocz - radii[i] * radii[i]
         disc = b * b - a * cc
         hit = disc > 0
-        sq = torch.sqrt(torch.clamp(disc, min=0.0))
+        sq = sqrt(torch.clamp(disc, min=0.0))
         t = (-b - sq) / a
         t = torch.where(hit & (t > 1e-3), t, big)
         t_best = torch.minimum(t_best, t)
@@ -134,6 +140,12 @@ def _ray_scene_depth(ox, oy, oz, dx, dy, dz, centers, radii, plane_y,
     return torch.where(t_best < big * 0.5, t_best, 0.0)
 
 
+def _div(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d for a float32 tensor and a Python number, as x times d's
+    float32 reciprocal on every device."""
+    return x * float(np.float32(1.0) / np.float32(d))
+
+
 def _hash3(cx, cy, cz):
     """Integer lattice hash with int32 wrap-around -> [-1, 1]."""
     h = wrap_i32(wrap_i32(cx.long() * 374761393).long()
@@ -141,7 +153,7 @@ def _hash3(cx, cy, cz):
                  + wrap_i32(cz.long() * 1274126177).long())
     h = wrap_i32((h ^ (h >> 13)).long() * 1103515245)
     h = h ^ (h >> 16)
-    return ((h & 0x7FFF).to(torch.float32) / 16383.5) - 1.0
+    return _div((h & 0x7FFF).to(torch.float32), 16383.5) - 1.0
 
 
 def _value_noise(px, py, pz, freq: float):
@@ -180,8 +192,8 @@ def _render_batch(T_wc: torch.Tensor, intr: Intrinsics, scene: Scene):
     h, w = intr.height, intr.width
     v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    dcx = (u - intr.cx) / intr.fx
-    dcy = (v - intr.cy) / intr.fy
+    dcx = _div(u - intr.cx, intr.fx)
+    dcy = _div(v - intr.cy, intr.fy)
     R = T_wc[:, :3, :3, None, None]
     t = T_wc[:, :3, 3, None, None]
     dwx = R[:, 0, 0] * dcx + R[:, 0, 1] * dcy + R[:, 0, 2]

@@ -31,7 +31,6 @@ and --device.
 import json
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,7 +39,6 @@ import torch
 from denseslam_tpu_torch.io import png
 from denseslam_tpu_torch.io.make_dataset import make_dataset
 from denseslam_tpu_torch.io.trajectory import load_kitti, load_tum, save_kitti
-from denseslam_tpu_torch.ops import ransac as pransac
 
 N = 6
 PARITY_FRAMES = N        # frames held to 1e-4 m: all of them
@@ -250,29 +248,6 @@ def test_cli_resume_equals_uninterrupted_run(runs, tmp_path):
     assert a.keys() == b.keys()
     for k in a:
         assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), k
-
-
-def test_checkpoint_restores_the_generator(tmp_path):
-    """The frontend's threefry key travels in the checkpoint: a resumed
-    DenseSLAM draws what an uninterrupted one would, and the key is the
-    JAX package's (PRNGKey(5) split once)."""
-    from denseslam_tpu_torch.config import tiny_test_config
-    from denseslam_tpu_torch.io.checkpoint import (load_slam_checkpoint,
-                                                   save_slam_checkpoint)
-    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
-    from denseslam_tpu_torch.utils import threefry
-
-    cfg = tiny_test_config()
-    a = DenseSLAM(cfg, device="cpu", seed=5)
-    a.fe_state = a.fe_state._replace(key=threefry.split(a.fe_state.key)[0])
-    save_slam_checkpoint(str(tmp_path / "g.npz"), a)
-    b = DenseSLAM(cfg, device="cpu", seed=0)
-    load_slam_checkpoint(str(tmp_path / "g.npz"), b)
-    np.testing.assert_array_equal(
-        b.fe_state.key.numpy(),
-        np.asarray(jax.random.split(jax.random.PRNGKey(5))[0]))
-    assert torch.equal(pransac.draw_hypotheses(b.fe_state.key, 8),
-                       pransac.draw_hypotheses(a.fe_state.key, 8))
 
 
 def test_cli_chunk_equals_process_chunk(runs, tmp_path):

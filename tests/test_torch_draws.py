@@ -18,7 +18,9 @@ nothing handed in (utils/threefry.py):
     the right image, as scripts/long_drive_eval.py:386-387 does: an
     inherited defect, named here. With --sensor rgbd --chunk 0 both
     packages raise "rgbd VO needs a depth image"; with mono the depth
-    image goes to SGM as a right view and the drive fuses nothing.
+    image goes to SGM as a right view and the drive fuses nothing;
+  * the frontend's key travels in a checkpoint (moved here from
+    tests/test_torch_cli.py, whose module fixture it does not use).
 """
 
 import dataclasses
@@ -34,6 +36,7 @@ from denseslam_tpu_torch.io import convert
 from denseslam_tpu_torch.models import dense_slam as pd
 from denseslam_tpu_torch.models import frontend as pfe
 from denseslam_tpu_torch.models.backend import Backend
+from denseslam_tpu_torch.ops import ransac as pransac
 from denseslam_tpu_torch.tools import long_drive_eval as ptool
 from denseslam_tpu_torch.utils import threefry
 
@@ -169,3 +172,26 @@ def test_depth_sensor_per_frame_branch_is_inherited(tmp_path):
     import json
     rec = json.loads(out.read_text())
     assert rec["keyframes"] >= 1 and rec["final_map_mb"] == 0.0
+
+
+def test_checkpoint_restores_the_generator(tmp_path):
+    """The frontend's threefry key travels in the checkpoint: a resumed
+    DenseSLAM draws what an uninterrupted one would, and the key is the
+    JAX package's (PRNGKey(5) split once)."""
+    from denseslam_tpu_torch.config import tiny_test_config
+    from denseslam_tpu_torch.io.checkpoint import (load_slam_checkpoint,
+                                                   save_slam_checkpoint)
+    from denseslam_tpu_torch.models.dense_slam import DenseSLAM
+    from denseslam_tpu_torch.utils import threefry
+
+    cfg = tiny_test_config()
+    a = DenseSLAM(cfg, device="cpu", seed=5)
+    a.fe_state = a.fe_state._replace(key=threefry.split(a.fe_state.key)[0])
+    save_slam_checkpoint(str(tmp_path / "g.npz"), a)
+    b = DenseSLAM(cfg, device="cpu", seed=0)
+    load_slam_checkpoint(str(tmp_path / "g.npz"), b)
+    np.testing.assert_array_equal(
+        b.fe_state.key.numpy(),
+        np.asarray(jax.random.split(jax.random.PRNGKey(5))[0]))
+    assert torch.equal(pransac.draw_hypotheses(b.fe_state.key, 8),
+                       pransac.draw_hypotheses(a.fe_state.key, 8))

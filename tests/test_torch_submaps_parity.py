@@ -1,9 +1,6 @@
 """The port's submaps against the JAX package on the same numpy inputs, on
-the CPU: the block-row transfer (`gather_block_rows` /
-`rebuild_from_rows`), the composite merge, the host-side frustum filter
-`_inview_slots`, the state carried across (`io/convert.py`), and a short
-per-frame drive through both packages' `DenseSLAM` with the new-submap
-policy and a memory budget: spawns, spills, deferred corrections, the
+the CPU: a short per-frame drive through both packages' `DenseSLAM` with
+the new-submap policy and a memory budget: spawns, spills, deferred corrections, the
 inter-submap alignment, a ghost composite with a restore, the delta
 respill and the sequence-end flush.
 
@@ -33,9 +30,10 @@ to the truth. JAX runs jitted, as its DenseSLAM does. Tolerances, and why:
     port's part on 2.3% of the pixels (FMA-contracted projections pick
     another voxel at a depth edge); op by op the renders are bit for bit
     (tests/test_torch_render.py).
-The ops: bit for bit (the row gathers run op by op, the composite merge
-against its jitted JAX form), and `_inview_slots` the same slot set from
-the same state (float64 numpy on both sides).
+The drive is made once a test run (tests/_torch_shared.py) and shared
+with tests/test_torch_submaps_parity_state.py: the state carried across
+(`io/convert.py`), the block-row transfer, the composite merge and the
+host-side frustum filter `_inview_slots`.
 """
 
 import dataclasses
@@ -49,13 +47,10 @@ import torch
 from denseslam_tpu.config import OnlineCorrectionParams, tiny_test_config
 from denseslam_tpu.io import synthetic as js
 from denseslam_tpu.models import dense_slam as jd
-from denseslam_tpu.ops import raycast as jrc
-from denseslam_tpu.ops import tsdf as jt
 from denseslam_tpu.utils import lie as jl
 from denseslam_tpu_torch.io import convert
 from denseslam_tpu_torch.models import dense_slam as pd
-from denseslam_tpu_torch.ops import raycast as prc
-from denseslam_tpu_torch.ops import tsdf as pt
+from _torch_shared import shared
 
 N = 9
 SPAWN_FRAMES = [0, 2, 5]
@@ -122,8 +117,11 @@ def _snapshot(jslam, pslam):
                 pstate=convert.slam_state_to_numpy(pslam))
 
 
-@pytest.fixture(scope="module")
-def drive():
+def _drive():
+    """The drive's stages, each package's state at each, and the frustum
+    filter of every submap from the final JAX state at three poses (JAX's
+    and the port's, from that state loaded into it): plain values, which
+    tests/test_torch_submaps_parity_state.py shares."""
     cfg = _config()
     pcfg = convert.config_from_dict(dataclasses.asdict(cfg))
     jcfg = _with_budget(cfg, jd.DenseSLAM(cfg).submaps.submap_device_bytes(0))
@@ -178,7 +176,18 @@ def drive():
     flushed = (jslam.flush_deferred_corrections(),
                pslam.flush_deferred_corrections())
     stages["flushed"] = dict(_snapshot(jslam, pslam), flushed=flushed)
-    return dict(stages=stages, jslam=jslam, pslam=pslam, gt=gt)
+    loaded = pd.DenseSLAM(pcfg, device="cpu")
+    convert.slam_state_from_numpy(_jax_state(jslam), loaded)
+    inview = [(np.asarray(jslam._inview_slots(idx, jnp.asarray(T))),
+               loaded._inview_slots(idx, T))
+              for T in gt[[0, 4, 8]]
+              for idx in range(jslam.submaps.num_local_maps)]
+    return dict(stages=stages, pcfg=pcfg, gt=gt, inview=inview)
+
+
+@pytest.fixture(scope="module")
+def drive(tmp_path_factory):
+    return shared("submaps_parity_drive", _drive, tmp_path_factory)
 
 
 STAGES = ["two_submaps", "drive", "updates", "composite", "enforced",
@@ -237,103 +246,3 @@ def test_composite_depth_matches_jax(drive, stage):
     assert diff.max() < 0.05
 
 
-@pytest.mark.parametrize("stage", ["two_submaps", "updates"])
-def test_state_round_trip_from_jax(drive, stage):
-    """A JAX multi-submap state (submaps on the host and on the device,
-    deferred corrections) loaded into the port and read back, bit for
-    bit."""
-    want = drive["stages"][stage]["jstate"]
-    pslam = pd.DenseSLAM(drive["pslam"].cfg, device="cpu")
-    convert.slam_state_from_numpy(want, pslam)
-    assert any(pslam.submaps.is_on_host(i)
-               for i in range(pslam.submaps.num_local_maps))
-    got = convert.slam_state_to_numpy(pslam)
-    assert len(got["submaps"]) == len(want["submaps"]) >= 2
-    for a, b in zip(want["submaps"], got["submaps"]):
-        for x, y in zip(a["map"] + a["db"], b["map"] + b["db"]):
-            assert x.dtype == y.dtype
-            np.testing.assert_array_equal(y, x)
-        for k in ("on_host", "anchor_frame", "dirty"):
-            assert a[k] == b[k]
-        for k in ("global_pose", "spawn_pose"):
-            np.testing.assert_array_equal(b[k], a[k])
-        assert sorted(a["pending"]) == sorted(b["pending"])
-        for f, (T, e) in a["pending"].items():
-            np.testing.assert_array_equal(b["pending"][f][0], T)
-            assert b["pending"][f][1] == e
-    for x, y in zip(want["fe_state"], got["fe_state"]):
-        np.testing.assert_array_equal(y, x)
-
-
-def test_block_rows_match_jax(drive):
-    """gather_block_rows and rebuild_from_rows on the same map and slots,
-    bit for bit."""
-    leaves = drive["stages"]["drive"]["jstate"]["submaps"][0]["map"]
-    jm = jax.tree.unflatten(jax.tree.structure(jt.make_map(
-        _config().tsdf)), [jnp.asarray(x) for x in leaves])
-    pm = convert.map_state_from_numpy(leaves, "cpu")
-    keys = leaves[0]
-    slots = np.flatnonzero(keys != 2 ** 30).astype(np.int32)
-    n, s = slots.size, keys.size
-    npad = n + 7
-    pad = np.zeros(npad, np.int32)
-    pad[:n] = slots
-    rj = jt.gather_block_rows(jm, jnp.asarray(pad))
-    rp = pt.gather_block_rows(pm, torch.tensor(pad))
-    for a, b in zip(rj, rp):
-        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
-    inv = np.full(s, npad, np.int32)
-    inv[slots] = np.arange(n, dtype=np.int32)
-    scal = (leaves[6], leaves[7], leaves[8])
-    bj = jt.rebuild_from_rows(jnp.asarray(inv), *rj, *scal)
-    bp = pt.rebuild_from_rows(torch.tensor(inv), *rp, *(torch.tensor(x)
-                                                       for x in scal))
-    for a, b in zip(jax.tree.leaves(bj), convert.map_state_to_numpy(bp)):
-        np.testing.assert_array_equal(b, np.asarray(a))
-    for a, b in zip(leaves, convert.map_state_to_numpy(bp)):
-        np.testing.assert_array_equal(b, a)
-
-
-def _raycast_pair(rng, h=12, w=16):
-    depth = rng.uniform(0.5, 5.0, (h, w)).astype(np.float32)
-    mask = rng.uniform(size=(h, w)) < 0.7
-    depth[~mask] = 0.0
-    pts = rng.normal(0, 3, (h, w, 3)).astype(np.float32)
-    nrm = rng.normal(0, 1, (h, w, 3)).astype(np.float32)
-    col = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
-    arrs = (depth, pts, nrm, mask, col)
-    return (jrc.Raycast(*(jnp.asarray(a) for a in arrs)),
-            prc.Raycast(*(torch.tensor(a) for a in arrs)))
-
-
-def test_composite_merge_matches_jax():
-    """_composite_transform and _composite_merge against the JAX functions
-    jitted, as the JAX DenseSLAM runs them: bit for bit. (Its 3x3 dots are
-    an FMA chain there, as in torch's CPU matmul; run op by op, XLA:CPU's
-    dot rounds the three-term sums another way, on about half of them.)"""
-    rng = np.random.default_rng(2)
-    bj, bp = _raycast_pair(rng)
-    rj, rp = _raycast_pair(rng)
-    D = jl.se3_exp_np(np.array([0.3, -0.1, 0.2, 0.05, -0.2, 0.1]))
-    fj = jax.jit(jd._composite_transform)(bj, jnp.asarray(D))
-    mj = jax.jit(jd._composite_merge)(fj, rj, jnp.asarray(D))
-    fp = pd._composite_transform(bp, torch.tensor(D))
-    mp = pd._composite_merge(fp, rp, torch.tensor(D))
-    for a, b in zip(tuple(fj) + tuple(mj), tuple(fp) + tuple(mp)):
-        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
-
-
-def test_inview_slots_match_jax(drive):
-    """The frustum filter of every submap from the same state (the JAX
-    drive's, loaded into the port), at three poses: the same slots."""
-    jslam = drive["jslam"]
-    pslam = pd.DenseSLAM(drive["pslam"].cfg, device="cpu")
-    convert.slam_state_from_numpy(_jax_state(jslam), pslam)
-    hits = 0
-    for T in drive["gt"][[0, 4, 8]]:
-        for idx in range(jslam.submaps.num_local_maps):
-            want = jslam._inview_slots(idx, jnp.asarray(T))
-            got = pslam._inview_slots(idx, T)
-            np.testing.assert_array_equal(got, want)
-            hits += want.size
-    assert hits > 0
