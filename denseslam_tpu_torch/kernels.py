@@ -48,6 +48,10 @@ KERNELS = {
     "sgm_final": ("sgm_final.cu", "sgm_final_launch", "ppppppppppiiiffi"),
     "cost_volume": ("cost_volume.cu", "cost_volume_launch",
                     "pppppppiiiifi"),
+    "gn_normal": ("gn_normal.cu", "gn_normal_launch", "ppppiii"),
+    "gn_update": ("gn_update.cu", "gn_update_launch", "pppii"),
+    "fusion_geometry": ("fusion_geometry.cu", "fusion_geometry_launch",
+                        "ppppppifffff"),
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import FrontendConfig
-from ..utils.numerics import fma_dot, sum_seq, true_div
+from ..utils.numerics import fma, fma_dot, recip, sum_seq, true_div
 from .features import Features
 
 _INF = 1e9
@@ -196,14 +196,14 @@ def _bilinear_patches(img: torch.Tensor, uv: torch.Tensor, half: int,
         p01 = sup[:, :-1, 1:]
         p10 = sup[:, 1:, :-1]
         p11 = sup[:, 1:, 1:]
-        return (p00 * (1 - fu) * (1 - fv) + p01 * fu * (1 - fv)
-                + p10 * (1 - fu) * fv + p11 * fu * fv)
+        return _bilinear_sum(p00, p01, p10, p11, fu, fv)
     offs = torch.arange(-(half + ext), half + ext + 1, dtype=torch.float32,
                         device=dev)
     sc = scale[:, None, None]
     n = offs.numel()
-    su = (uv[:, 0, None, None] + sc * offs[None, None, :]).expand(-1, n, n)
-    sv = (uv[:, 1, None, None] + sc * offs[None, :, None]).expand(-1, n, n)
+    # uv + sc * offs, one FMA as jitted XLA:CPU contracts it
+    su = fma(sc, offs[None, None, :], uv[:, 0, None, None]).expand(-1, n, n)
+    sv = fma(sc, offs[None, :, None], uv[:, 1, None, None]).expand(-1, n, n)
     su = torch.clamp(su, 0.0, w - 1.001)    # border samples degrade to clamp
     sv = torch.clamp(sv, 0.0, h - 1.001)
     u0 = torch.floor(su).to(torch.int32)
@@ -215,8 +215,24 @@ def _bilinear_patches(img: torch.Tensor, uv: torch.Tensor, half: int,
     p01 = flat[idx + 1]
     p10 = flat[idx + w]
     p11 = flat[idx + w + 1]
-    return (p00 * (1 - fu) * (1 - fv) + p01 * fu * (1 - fv)
-            + p10 * (1 - fu) * fv + p11 * fu * fv)
+    return _bilinear_sum(p00, p01, p10, p11, fu, fv, scaled=True)
+
+
+def _bilinear_sum(p00, p01, p10, p11, fu, fv, scaled: bool = False):
+    """p00 (1 - fu)(1 - fv) + p01 fu (1 - fv) + p10 (1 - fu) fv + p11 fu fv
+    as jitted XLA:CPU contracts it: each "+ a * b" an FMA over the rounded
+    first factor; of the first two terms LLVM folds the first on the unit
+    grid, fma(p00 (1 - fu), 1 - fv, p01 fu (1 - fv)), and the second on
+    the scaled one. Each FMA is an exact `fma`: on these integer-valued
+    images a float64 sum rounded to float32 (`fma_twice`) meets float32
+    midpoints often enough to part the 160x120 golden's poses."""
+    a0, b0 = p00 * (1 - fu), 1 - fv
+    a1, b1 = p01 * fu, 1 - fv
+    if scaled:
+        a0, b0, a1, b1 = a1, b1, a0, b0
+    val = fma(a0, b0, a1 * b1)
+    val = fma(p10 * (1 - fu), fv, val)
+    return fma(p11 * fu, fv, val)
 
 
 def _patch_mean(x: torch.Tensor) -> torch.Tensor:
@@ -227,16 +243,45 @@ def _patch_mean(x: torch.Tensor) -> torch.Tensor:
     return sum_seq(x.flatten(-2)) * rcp
 
 
+# the patch size whose summation order was read from the golden's program
+ROW_ORDER_PATCH = 9
+
+
 def _zssd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Zero-mean SSD of patches a (M, S, S) against b (..., M, S, S) ->
     (..., M), in jitted XLA's order (the means by `_patch_mean`, taken
-    for a and every b in one pass; the squares summed by a chain of
-    FMAs), so every device gives JAX's cost."""
+    for a and every b in one pass), so every device gives JAX's cost. The
+    squares are summed as `process_sequence`'s refinement sums them at
+    S = 9 (`_row_vector_ssd`, read from `tests/_torch_golden.py --dump`;
+    the 160x120 golden holds it). That order depends on S (the row's
+    lanes), and no other size's was read: there the squares go in one
+    chain of FMAs, the order of `_zssd` jitted alone."""
     means = _patch_mean(torch.cat([a[None], b.reshape(-1, *a.shape)]))
     am = a - means[0][:, None, None]
     bm = b - means[1:].reshape(b.shape[:-2])[..., None, None]
+    if a.shape[-1] == ROW_ORDER_PATCH:
+        return _row_vector_ssd(am - bm)
     d = (am - bm).flatten(-2)
     return fma_dot(d, d)
+
+
+def _row_vector_ssd(d: torch.Tensor) -> torch.Tensor:
+    """The sum of d^2 over the trailing (9, 9) dims as the refinement's
+    fused reduction in `process_sequence` has it (the reduction is marked
+    reassociable and LLVM vectorizes each row in eight lanes): row by row,
+    lane 0 a chain of FMAs from the total of the rows before over the
+    row's columns 0 and 8, lanes 1-7 the squares of columns 1-7, then the
+    lanes halved (l + 4, l + 2, l + 1) into the new total."""
+    total = torch.zeros(d.shape[:-2], dtype=d.dtype, device=d.device)
+    for row in d.unbind(-2):
+        sq = row[..., 1:8] * row[..., 1:8]
+        lane0 = fma(row[..., 0], row[..., 0], total)
+        lane0 = fma(row[..., 8], row[..., 8], lane0)
+        lanes = torch.cat([lane0[..., None], sq], dim=-1)
+        lanes = lanes[..., :4] + lanes[..., 4:]
+        lanes = lanes[..., :2] + lanes[..., 2:]
+        total = lanes[..., 0] + lanes[..., 1]
+    return total
 
 
 def _parabolic(c_m, c_0, c_p):
@@ -301,11 +346,13 @@ def _pred_scale(uv: torch.Tensor, disp: torch.Tensor, T_pred: torch.Tensor,
     prior, clipped to [0.75, 1.3]: the anchor is resampled at it
     (forward-motion compensation)."""
     intr = rig.intr
+    # as jitted XLA:CPU has it: / fx a multiply by its float32 reciprocal,
+    # and the row of T_pred two FMAs over its first product, then + t
     z_p = true_div(intr.fx * rig.baseline_m, disp)
-    x_p = true_div(uv[:, 0] - intr.cx, intr.fx) * z_p
-    y_p = true_div(uv[:, 1] - intr.cy, intr.fy) * z_p
-    z_c = (T_pred[2, 0] * x_p + T_pred[2, 1] * y_p
-           + T_pred[2, 2] * z_p + T_pred[2, 3])
+    x_p = (uv[:, 0] - intr.cx) * recip(intr.fx) * z_p
+    y_p = (uv[:, 1] - intr.cy) * recip(intr.fy) * z_p
+    z_c = fma(T_pred[2, 2], z_p, fma(T_pred[2, 0], x_p, T_pred[2, 1] * y_p))
+    z_c = z_c + T_pred[2, 3]
     return torch.clamp(z_c / torch.clamp(z_p, min=0.5), 0.75, 1.3)
 
 

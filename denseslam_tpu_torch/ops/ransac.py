@@ -21,10 +21,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import FrontendConfig
 from ..utils import lie, numerics, threefry
 from ..utils.camera import StereoRig
-from ..utils.numerics import fma_dot, fma_twice, tree_sum, true_div
+from ..utils.numerics import fma_dot, fma_twice, true_div
 from .matching import QuadMatches
 from .smallsolve import solve_spd6
 
@@ -132,36 +133,84 @@ def _gn_jacobian(p, rig: StereoRig):
                    dim=-2)                               # (..., N, 4, 6)
 
 
-def _gn_refine(T0, pts_prev, obs_l, obs_r, weights, rig, iters: int):
+def gn_normal(J: torch.Tensor, r: torch.Tensor, w: torch.Tensor
+              ) -> torch.Tensor:
+    """S = [A | b] (..., 6, 7) of the Gauss-Newton step: A = (J w)^T J and
+    b = (J w)^T r over the 4N rows of J (..., N, 4, 6), r (..., N, 4), w
+    (..., N), in jitted XLA:CPU's order (`numerics.gn_normal`). Kernel GN
+    (csrc/gn_normal.cu) for CUDA tensors, one launch for the whole batch;
+    the plain version for CPU ones."""
+    if J.device.type == "cpu":
+        return numerics.gn_normal(J, r, w)
+    lead, n = J.shape[:-3], J.shape[-3]
+    batch = math.prod(lead)
+    dev = J.device
+    kernels.check_tensor(J, "J", torch.float32, lead + (n, 4, 6))
+    kernels.check_tensor(r, "r", torch.float32, lead + (n, 4), dev)
+    kernels.check_tensor(w, "w", torch.float32, lead + (n,), dev)
+    S = torch.empty(lead + (6, 7), dtype=torch.float32, device=dev)
+    kernels.launch("gn_normal", dev, J, r, w, S, batch, n,
+                   int(numerics.gn_fused_b(lead, n)))
+    return S
+
+
+def gn_update_plain(S: torch.Tensor, T: torch.Tensor,
+                    shared: bool = False) -> torch.Tensor:
+    """Kernel GU's plain version: the Gauss-Newton step after the normal
+    equations S = [A | b] (..., 6, 7), in jitted XLA:CPU's order: the
+    damping 1e-6 tr(A) + 1e-9 one FMA (`numerics.fma`) over the trace summed
+    left to right, the solve `solve_spd6`, the step clipped to [-0.5, 0.5]
+    and the update exp(xi) T `lie.se3_exp_apply` (T (..., 4, 4), or with
+    `shared` one pose expanded over the batch)."""
+    A, b = S[..., :6], S[..., 6]
+    eye6 = torch.eye(6, dtype=S.dtype, device=S.device)
+    tr = numerics.sum_seq(torch.diagonal(A, dim1=-2, dim2=-1))
+    damp = numerics.fma(tr, torch.full_like(tr, _f32(1e-6)),
+                        torch.full_like(tr, _f32(1e-9)))
+    xi = -solve_spd6(A + damp[..., None, None] * eye6, b)
+    xi = torch.clamp(xi, -0.5, 0.5)               # guard divergent steps
+    return lie.se3_exp_apply(xi, T, shared=shared)
+
+
+def gn_update(S: torch.Tensor, T: torch.Tensor,
+              shared: bool = False) -> torch.Tensor:
+    """The pose after one Gauss-Newton step from S (..., 6, 7) at T
+    (`gn_update_plain`): kernel GU (csrc/gn_update.cu) for CUDA tensors,
+    one launch for the whole batch, where the plain version is about 420
+    small launches; the plain version for CPU ones."""
+    if S.device.type == "cpu":
+        return gn_update_plain(S, T, shared)
+    lead = S.shape[:-2]
+    dev = S.device
+    kernels.check_tensor(S, "S", torch.float32, lead + (6, 7))
+    if shared:
+        T = T.reshape(-1, 4, 4)[0].contiguous()
+        kernels.check_tensor(T, "T", torch.float32, (4, 4), dev)
+    else:
+        T = T.contiguous()
+        kernels.check_tensor(T, "T", torch.float32, lead + (4, 4), dev)
+    out = torch.empty(lead + (4, 4), dtype=torch.float32, device=dev)
+    kernels.launch("gn_update", dev, S, T, out, math.prod(lead), int(shared))
+    return out
+
+
+def _gn_refine(T0, pts_prev, obs_l, obs_r, weights, rig, iters: int,
+               shared_T0: bool = False):
     """Masked Gauss-Newton, batched over leading dims: T0 (..., 4, 4),
-    pts_prev / obs (..., N, 3|2), weights (..., N). Every sum is in one
-    fixed order, so the card and the CPU round each step alike. The
-    normal equations A = J^T W J and b = J^T W r are one (6, 7) product of
-    4N terms, each exact in float64, that a halving tree adds in float64
-    (`tree_sum`) and rounds once to float32: the float32 rounding of the
-    exact sum but within about log2(4N) float64 ulps of a rounding
-    boundary. Jitted XLA:CPU emits both einsums as chains of FMAs whose
-    tiling depends on the shape (4N = 8192: two blocks of 4096 in four
-    lanes for A, eight lanes for b), one launch a term here; the exact
-    sum is as near to them as any cheap order, and the distance to jitted
-    JAX is then JAX's own rounding (tests/test_torch_vo_order.py). The
-    damping's trace is a tree too, and the update exp(xi) T is
-    `lie.se3_exp_apply`."""
+    pts_prev / obs (..., N, 3|2), weights (..., N). Every step in jitted
+    XLA:CPU's order, alike on every device: the normal equations by
+    `gn_normal` (kernel GN), the rest of the step by `gn_update` (kernel
+    GU; tests/test_torch_gn_normal.py holds each op).
+    `shared_T0`: T0 is one pose expanded over the batch (the hypotheses,
+    whose JAX T0 is unbatched under vmap): the first update's product
+    then takes XLA's order for one shared pose."""
     T = T0
-    eye6 = torch.eye(6, dtype=T0.dtype, device=T0.device)
-    for _ in range(iters):
+    for it in range(iters):
         r, p = _reproject_residuals(T, pts_prev, obs_l, obs_r, rig)
         J = _gn_jacobian(p, rig)
-        JTw = J * weights[..., None, None]
-        M = torch.cat([J, r[..., None]], dim=-1)             # (..., N, 4, 7)
-        # the products exact in float64, their sum rounded once
-        terms = (JTw[..., :, None].double() * M[..., None, :]).flatten(-4, -3)
-        S = tree_sum(terms, dim=-3).float()                  # (..., 6, 7)
-        A, b = S[..., :6], S[..., 6]
-        damp = 1e-6 * tree_sum(torch.diagonal(A, dim1=-2, dim2=-1)) + 1e-9
-        xi = -solve_spd6(A + damp[..., None, None] * eye6, b)
-        xi = torch.clamp(xi, -0.5, 0.5)           # guard divergent steps
-        T = lie.se3_exp_apply(xi, T)
+        S = gn_normal(J.contiguous(), r.contiguous(),
+                      weights.expand(J.shape[:-2]).contiguous())
+        T = gn_update(S, T, shared=shared_T0 and it == 0)
     return T
 
 
@@ -202,7 +251,8 @@ def estimate_stereo_motion(q: QuadMatches, rig: StereoRig,
     T0 = eye if T_init is None else T_init
     w3 = torch.ones((k, 3), dtype=torch.float32, device=dev)
     T_hyp = _gn_refine(T0.expand(k, 4, 4), pts_prev[sel], obs_l[sel],
-                       obs_r[sel], w3, rig, cfg.gn_iters)      # (K, 4, 4)
+                       obs_r[sel], w3, rig, cfg.gn_iters,
+                       shared_T0=True)                          # (K, 4, 4)
 
     def count(T):
         r, _ = _reproject_residuals(T, pts_prev, obs_l, obs_r, rig)
@@ -223,7 +273,10 @@ def estimate_stereo_motion(q: QuadMatches, rig: StereoRig,
     if cfg.edge_reweighting:
         # features near the horizontal image centre weigh more in the refit
         cu = rig.intr.cx
-        w = w / (true_div((obs_l[:, 0] - cu).abs(), abs(cu)) + 0.05)
+        # as jitted XLA:CPU has it: / |cu| a multiply by its float32
+        # reciprocal, contracted with + 0.05 into one FMA
+        w = w / fma_twice((obs_l[:, 0] - cu).abs(), numerics.recip(abs(cu)),
+                          _f32(0.05))
     T_refined = _gn_refine(best_T, pts_prev, obs_l, obs_r, w, rig,
                            cfg.refine_iters)
     num, final_inliers = count(T_refined)

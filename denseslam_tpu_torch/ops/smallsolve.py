@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.numerics import sqrt
+from ..utils.numerics import fma, sqrt
 
 
 def solve_spd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -17,11 +17,18 @@ def solve_spd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
     A: (..., 6, 6) SPD (GN normal equations + damping), b: (..., 6).
 
-    Every entry is formed by the JAX version's operations in its order;
-    the ops that are independent of each other run together: a column of
-    L is one tensor (its diagonal entry and the entries below it take the
-    same subtractions), and the forward substitution subtracts each solved
-    y_k from all later rows at once (each row still subtracts in k order).
+    Every entry is formed by the JAX version's operations in its order,
+    rounded as jitted XLA:CPU rounds them: it contracts each
+    `s - L[i][k] * L[j][k]` (and `s - L * y`, `s - L * x`) into one FMA
+    (read from `tests/_torch_golden.py --dump`: `vfnmadd` in the solve's
+    fusions), here `fma` (rounded once, alike on every device), and its
+    simplifier turns the last unknown, x5 = (s5 / L55) / L55 with
+    L55 = sqrt(max(m, 1e-20)), into s5 / max(m, 1e-20), which the other
+    unknowns then use. The ops
+    that are independent of each other run together: a column of L is one
+    tensor (its diagonal entry and the entries below it take the same
+    subtractions), and the forward substitution subtracts each solved y_k
+    from all later rows at once (each row still subtracts in k order).
     That keeps the bits and launches about half the kernels."""
     n = 6
     low = []                            # low[k]: L[k+1:, k], (..., 5 - k)
@@ -30,21 +37,22 @@ def solve_spd6(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         v = A[..., j:, j]               # rows j.. of column j
         for k in range(j):
             lk = low[k][..., j - k - 1:]             # L[j:, k]
-            v = v - lk * lk[..., :1]                 # - L[i][k] * L[j][k]
-        d = sqrt(torch.clamp(v[..., 0], min=1e-20))  # correctly rounded
+            v = fma(-lk, lk[..., :1], v)             # - L[i][k] * L[j][k]
+        m = torch.clamp(v[..., 0], min=1e-20)
+        d = sqrt(m)                                  # correctly rounded
         diag.append(d)
         low.append(v[..., 1:] * torch.reciprocal(d)[..., None])
     y = [None] * n                      # forward: L y = b
     s = b
-    for k in range(n):
+    for k in range(n - 1):
         y[k] = s[..., 0] / diag[k]
-        if k + 1 < n:
-            s = s[..., 1:] - low[k] * y[k][..., None]
+        s = fma(-low[k], y[k][..., None], s[..., 1:])
     x = [None] * n                      # backward: L^T x = y
-    for i2 in reversed(range(n)):
+    x[n - 1] = s[..., 0] / m            # (s5 / L55) / L55, simplified
+    for i2 in reversed(range(n - 1)):
         s = y[i2]
         for k in range(i2 + 1, n):
-            s = s - low[i2][..., k - i2 - 1] * x[k]
+            s = fma(-low[i2][..., k - i2 - 1], x[k], s)
         x[i2] = s / diag[i2]
     return torch.stack(x, dim=-1)
 

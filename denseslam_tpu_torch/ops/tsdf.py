@@ -21,8 +21,9 @@ import torch
 
 from ..config import TsdfConfig
 from ..device import resolve_device
-from ..utils import image, lie
-from ..utils.numerics import true_div
+from .. import kernels
+from ..utils import image, lie, numerics
+from ..utils.numerics import fma, true_div
 from ..utils.camera import Intrinsics
 from . import hash as vhash
 from . import sampling
@@ -224,29 +225,80 @@ def allocate_keys(m: MapState, uniq: torch.Tensor, umask: torch.Tensor,
 # Integrate / de-integrate
 # ---------------------------------------------------------------------------
 
+def _f32(x: float) -> float:
+    """x rounded to float32: the constant jitted JAX computes with."""
+    return float(torch.tensor(x, dtype=torch.float32))
+
+
+def fusion_geometry_plain(bkeys: torch.Tensor, R: torch.Tensor,
+                          t: torch.Tensor, vsz: float, intr: Intrinsics):
+    """Kernel PJ's plain version: (u, v, z) of every voxel of the blocks
+    `bkeys` (V,) seen from the camera (R, t) = T_cw, each (V, 512), in the
+    order jitted XLA:CPU computes the JAX version (`process_sequence`'s
+    scan, read from `tests/_torch_golden.py --dump`): its simplifier
+    folds the voxel size into the rotation, a_ij = R_ij vsz (rounded),
+    over the exact voxel centres h = (8 b + o) + 0.5; the rows are then
+    px = fma(hz, a02, fma(hx, a00, hy a01)) + t0 (the first product of
+    the sum contracted, as LLVM does with two single-use products), and
+    u = fma(px / zc, fx, cx), zc = pz where |pz| > 1e-9 else 1e-9. Every
+    FMA through `numerics.fma`."""
+    dev = bkeys.device
+    bx, by, bz = vhash.unpack_xyz(bkeys)
+    ox, oy, oz = _voxel_off_xyz(dev)
+    h = [((b[:, None] * BLOCK + o[None, :]).to(torch.float32) + 0.5)
+         for b, o in ((bx, ox), (by, oy), (bz, oz))]
+    a = R * numerics.constant((_f32(vsz),), torch.float32, dev)[0]
+    hx, hz = h[0].double(), h[2].double()   # converted once for the rows
+    p = [fma(hz, a[i, 2], fma(hx, a[i, 0], h[1] * a[i, 1])) + t[i]
+         for i in range(3)]
+    pz = p[2]
+    zc = torch.where(pz.abs() > 1e-9, pz, torch.full_like(pz, 1e-9))
+    f32 = (torch.float32, dev)
+    k = numerics.constant((_f32(intr.fx), _f32(intr.cx), _f32(intr.fy),
+                           _f32(intr.cy)), *f32)
+    u = fma(p[0] / zc, k[0], k[1])
+    v = fma(p[1] / zc, k[2], k[3])
+    return u, v, pz
+
+
+def fusion_geometry(bkeys: torch.Tensor, R: torch.Tensor, t: torch.Tensor,
+                    vsz: float, intr: Intrinsics):
+    """(u, v, z), each (V, 512), of the blocks `bkeys` (V,) int32 under
+    (R (3, 3), t (3,)) = T_cw, in jitted XLA:CPU's order
+    (`fusion_geometry_plain`): kernel PJ (csrc/fusion_geometry.cu) for
+    CUDA tensors, one launch; the plain version for CPU ones."""
+    if bkeys.device.type == "cpu":
+        # a row is a function of its key alone, and the rows past the
+        # visible set all repeat one key: each distinct key once
+        uniq, inv = torch.unique(bkeys, return_inverse=True)
+        return tuple(x[inv] for x in fusion_geometry_plain(uniq, R, t, vsz,
+                                                            intr))
+    n = bkeys.shape[0]
+    dev = bkeys.device
+    kernels.check_tensor(bkeys, "bkeys", torch.int32, (n,))
+    kernels.check_tensor(R, "R", torch.float32, (3, 3), dev)
+    kernels.check_tensor(t, "t", torch.float32, (3,), dev)
+    u, v, z = torch.empty((3, n, BLOCK_VOL), dtype=torch.float32,
+                          device=dev).unbind(0)
+    if n:
+        kernels.launch("fusion_geometry", dev, bkeys, R, t, u, v, z, n,
+                       _f32(vsz), _f32(intr.fx), _f32(intr.fy),
+                       _f32(intr.cx), _f32(intr.cy))
+    return u, v, z
+
+
 def _fusion_geometry(m: MapState, visible_slots, visible_mask, T_wc,
                      intr: Intrinsics, cfg: TsdfConfig):
     """Camera-frame voxel positions for the visible set, SoA: returns
     (u, v, z) each (V, 512) and the safe slot index per row."""
-    vsz = cfg.voxel_size_m
     T_cw = lie.inv_T(T_wc)
-    R = T_cw[:3, :3]
-    t = T_cw[:3, 3]
     safe = torch.where(visible_mask, visible_slots,
                        torch.zeros_like(visible_slots))
     bkeys = m.table.keys[safe.long()]
-    bx, by, bz = vhash.unpack_xyz(bkeys)
-    ox, oy, oz = _voxel_off_xyz(bkeys.device)
-    wx = ((bx[:, None] * BLOCK + ox[None, :]).to(torch.float32) + 0.5) * vsz
-    wy = ((by[:, None] * BLOCK + oy[None, :]).to(torch.float32) + 0.5) * vsz
-    wz = ((bz[:, None] * BLOCK + oz[None, :]).to(torch.float32) + 0.5) * vsz
-    px = R[0, 0] * wx + R[0, 1] * wy + R[0, 2] * wz + t[0]
-    py = R[1, 0] * wx + R[1, 1] * wy + R[1, 2] * wz + t[1]
-    pz = R[2, 0] * wx + R[2, 1] * wy + R[2, 2] * wz + t[2]
-    zc = torch.where(pz.abs() > 1e-9, pz, torch.full_like(pz, 1e-9))
-    u = px / zc * intr.fx + intr.cx
-    v = py / zc * intr.fy + intr.cy
-    return u, v, pz, safe
+    u, v, z = fusion_geometry(bkeys.contiguous(), T_cw[:3, :3].contiguous(),
+                              T_cw[:3, 3].contiguous(), cfg.voxel_size_m,
+                              intr)
+    return u, v, z, safe
 
 
 def _depth_mm(depth: torch.Tensor) -> torch.Tensor:
@@ -293,8 +345,12 @@ def _bilinear_soA(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     p01 = flat[base + 1]
     p10 = flat[base + w]
     p11 = flat[base + w + 1]
-    val = (p00 * (1 - du) * (1 - dv) + p01 * du * (1 - dv)
-           + p10 * (1 - du) * dv + p11 * du * dv)
+    # the sum of the four weighted corners as jitted XLA:CPU contracts it:
+    # each "+ a * b" an FMA over the rounded first factor, the first two
+    # terms fma(p00 (1 - du), 1 - dv, p01 du (1 - dv))
+    val = fma(p00 * (1 - du), 1 - dv, p01 * du * (1 - dv))
+    val = fma(p10 * (1 - du), dv, val)
+    val = fma(p11 * du, dv, val)
     cmin = torch.minimum(torch.minimum(p00, p01), torch.minimum(p10, p11))
     cmax = torch.maximum(torch.maximum(p00, p01), torch.maximum(p10, p11))
     return val, inb, p00, cmin, cmax
@@ -394,12 +450,15 @@ def integrate(m: MapState, visible_slots, visible_mask, depth,
     sdf = d_samp - z
     upd = (visible_mask[:, None] & d_valid & (z > 1e-3)
            & (sdf > -mu) & (d_samp > cfg.min_depth_m))
-    eta = torch.clamp(true_div(sdf, mu), -1.0, 1.0)
+    # jitted XLA:CPU turns a division by a constant into a multiply by its
+    # float32 reciprocal (`numerics.recip`)
+    eta = torch.clamp(sdf * numerics.recip(mu), -1.0, 1.0)
 
     zero = torch.zeros_like(sdf)
     if cfg.weights.depth_weighting:
         wp = cfg.weights
-        dist = torch.clamp(true_div(d_samp, wp.max_distance), 0.0, 1.0)
+        dist = torch.clamp(d_samp * numerics.recip(wp.max_distance), 0.0,
+                           1.0)
         w_new = torch.clamp(wp.max_new_w * (1.0 - dist), min=1.0)
     else:
         w_new = torch.ones_like(sdf)
@@ -409,14 +468,18 @@ def integrate(m: MapState, visible_slots, visible_mask, depth,
     old_t = m.tsdf[safe_l].to(torch.float32)
     old_w = m.weight[safe_l].to(torch.float32)
 
+    # the running averages' numerators as jitted XLA:CPU contracts them:
+    # old * old_w + sample * w is fma(old, old_w, sample * w) (of two
+    # products LLVM folds the first, or the one of fewer uses: the colour
+    # channels share one sample product); `numerics.fma` on every device
     if sign > 0:
         new_w = torch.clamp(old_w + w_new, max=cfg.max_weight)
-        num = old_t * old_w + eta * w_new
+        num = fma(old_t, old_w, eta * w_new)
         new_t = torch.where(new_w > 0, num / torch.clamp(new_w, min=1e-6),
                             torch.ones_like(num))
     else:
         new_w = torch.clamp(old_w - w_new, min=0.0)
-        num = old_t * old_w - eta * w_new
+        num = fma(old_t, old_w, -(eta * w_new))
         new_t = torch.where(new_w > 1e-6, num / torch.clamp(new_w, min=1e-6),
                             torch.ones_like(num))
 
@@ -432,9 +495,9 @@ def integrate(m: MapState, visible_slots, visible_mask, depth,
         cw = torch.where(c_upd, w_new, zero)
         orr, og, ob = unpack_rgb(m.color[safe_l])
         tot = torch.clamp(old_w + cw, min=1e-6)
-        nr = (orr * old_w + cr * cw) / tot
-        ng = (og * old_w + cg * cw) / tot
-        nb = (ob * old_w + cb * cw) / tot
+        old_c = torch.stack([orr, og, ob])
+        new_c = torch.stack([cr, cg, cb]) * cw
+        nr, ng, nb = (fma(old_c, old_w, new_c) / tot).unbind(0)
         vhash.masked_set_(m.color, visible_slots, pack_rgb(nr, ng, nb),
                           visible_mask)
     return m

@@ -57,7 +57,8 @@ TRACED = (
     ("matching", "estimate_gain"),
     ("features", "describe"), ("matching", "_zssd"),
     ("ransac", "_gn_jacobian"), ("ransac", "_reproject_residuals"),
-    ("ransac", "_gn_refine"), ("ransac", "solve_spd6"),
+    ("ransac", "_gn_refine"), ("ransac", "gn_normal"),
+    ("ransac", "gn_update"),
 )
 # the ops that used to part (ROADMAP.md Queue C): the three of C 4, then
 # the reprojection's transform and the Gauss-Newton's sums of C 1

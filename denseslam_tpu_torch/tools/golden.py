@@ -41,35 +41,38 @@ import numpy as np
 EMPTY_KEY = 2 ** 30          # ops/hash.py: a free slot
 BLOCK_VOL = 512
 
-# the gates (tests/test_torch_stereo_path.py's tolerances)
-POSE_T_M = 1e-4              # translation, m
-POSE_R = 1e-5                # rotation entries
+# the gates: the poses' walk over the flagship chunk on the card (below),
+# 4.58e-5 m and 1.43e-6 in the rotation entries, with some room (1e-4
+# and 1e-5 before kernels GN and GU)
+POSE_T_M = 5e-5              # translation, m
+POSE_R = 2e-6                # rotation entries
 TSDF_SUM = BLOCK_VOL * 5e-5  # a block's tsdf sum: 5e-5 a voxel
 # Blocks within the per-block tolerances (weight sum equal, tsdf sum
-# within TSDF_SUM), two documented tie tolerances in place of 99.9%:
+# within TSDF_SUM), two documented tie tolerances in place of 100%:
 #
-# The replay (the run's keyframe depths fused at the golden's poses):
-# jitted XLA contracts the voxel projection into FMAs (u = fma(px / z, fx,
-# cx) over FMA chains of the rotation rows, in an order that moves with
-# the fused program), where the port rounds every op. From the same
-# inputs the projections part in their last bits on 24-70% of voxels, and
-# a voxel whose projection lies within that of a pixel edge rounds to the
-# other pixel (6 voxels of keyframe 60 of the flagship chunk), or one
-# within it of the truncation edge (sdf = -mu) is fused on one side only.
-# Each fails its block: 99.491% of the chunk's blocks are within on the
-# card (weights equal on 99.797%); all of them at 160x120. The replay's
-# block keys, slots and stamps all equal the golden's.
-REPLAY_BLOCK_SHARE = 0.99
-# The drive's own map: its poses also part from JAX's in the last bits
-# from frame 1 (the VO's Gauss-Newton normal equations, ops/ransac.py
-# `_gn_refine`, are summed exactly in float64 where jitted XLA sums them
-# in FMA chains), by up to 6.7e-5 m after the flagship chunk's 64 frames,
-# inside POSE_T_M; each voxel's projection moves by that, and the same
-# near-ties part many more voxels: 94.447% of the blocks are within on
-# the card (weights equal on 96.918%); 99.66% at 160x120 over 8 frames.
-# A block whose voxels' back-projections lie that close to a block edge
-# is allocated on one side only: one block of 9832 in the flagship chunk.
-DRIVE_BLOCK_SHARE = 0.9
+# The replay (the run's keyframe depths fused at the golden's poses): the
+# port projects and averages in the scan's FMA order (kernel PJ,
+# ops/tsdf.py `fusion_geometry_plain`; eta a multiply by the reciprocal of
+# mu), and at 160x120 (the gather sampler) the replay equals the golden
+# bit for bit. At full width (the tile sampler) 99.908% of the flagship
+# chunk's blocks are within on the card (99.776% equal by sha256, weights
+# equal on 99.949%; 99.491% before kernel PJ): a voxel whose projection
+# lies within the last bits of a pixel edge still samples the other pixel
+# in a few blocks, from an op of the full-width program not yet traced.
+# The replay's block keys, slots and stamps all equal the golden's.
+REPLAY_BLOCK_SHARE = 0.999
+# The drive's own map: its poses equal JAX's bit for bit at 160x120 over
+# 8 frames (the VO's solver in jitted XLA's order: `numerics.gn_normal`,
+# the solve, glibc's sin and cos, the shared-pose product); at full width
+# they part from frame 1 (6.7e-8 m), from an op not yet known (no
+# committed probe localises it), and walk to 4.6e-5 m after the flagship
+# chunk's 64 frames (6.7e-5 m before kernel GN), inside POSE_T_M; each
+# voxel's projection moves by that, and the same near-ties part more
+# voxels: 97.132% of the blocks are within on the card (weights equal on
+# 98.250%; 94.447% within before). A block whose voxels' back-projections
+# lie that close to a block edge is allocated on one side only: 1 block
+# of the 9831 in the flagship chunk.
+DRIVE_BLOCK_SHARE = 0.967
 DRIVE_KEY_SHARE = 0.999
 
 

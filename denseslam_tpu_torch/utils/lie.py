@@ -7,7 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .numerics import fma_dot, fma_twice, sqrt, true_div
+from .numerics import (fma, fma_dot_exact, fma_twice, sincosf, sqrt,
+                       true_div)
 
 _EPS = 1e-8
 # below theta^2 = 1e-4 the closed forms cancel in float32; the Taylor
@@ -97,31 +98,41 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     return make_T(R, t)
 
 
-def se3_exp_apply(xi: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
+def se3_exp_apply(xi: torch.Tensor, T: torch.Tensor,
+                  shared: bool = False) -> torch.Tensor:
     """se3_exp(xi) @ T for (..., 6) xi and (..., 4, 4) T in se3_exp's
     arithmetic, every sum in one fixed order so that every device rounds
-    it alike: each small product a chain of FMAs from 0 (`fma_dot`, jitted
-    XLA:CPU's order; a matmul goes to cuBLAS on the card), the root
-    correctly rounded (`sqrt`), sin and cos rounded once from float64 (the
-    CPU's float32 ones are not correctly rounded)."""
+    it alike: each small product a chain of FMAs from 0 (`fma_dot_exact`,
+    jitted XLA:CPU's order; a matmul goes to cuBLAS on the card), the root
+    correctly rounded (`sqrt`), sin and cos those of glibc that jitted
+    XLA:CPU calls (`numerics.sincosf`), and each
+    `eye + a W + b W2` two FMAs, as XLA contracts it (`fma`).
+    `shared`: T is one pose for the whole batch of xi (see below)."""
     v, w = xi[..., :3], xi[..., 3:]
-    theta2 = fma_dot(w, w)[..., None, None]
+    theta2 = fma_dot_exact(w, w)[..., None, None]
     theta = sqrt(torch.clamp(theta2, min=_EPS * _EPS))
     W = hat(w)
-    W2 = fma_dot(W[..., :, :, None], W[..., None, :, :], dim=-2)
+    W2 = fma_dot_exact(W[..., :, :, None], W[..., None, :, :], dim=-2)
     small = theta2 < _SMALL2
-    t64 = theta.double()
-    sin, cos = torch.sin(t64).to(xi.dtype), torch.cos(t64).to(xi.dtype)
+    sin, cos = sincosf(theta)
     a = torch.where(small, 1.0 - true_div(theta2, 6.0), sin / theta)
     b = torch.where(small, 0.5 - true_div(theta2, 24.0),
                     (1.0 - cos) / theta2)
     c = torch.where(small, 1.0 / 6.0 - true_div(theta2, 120.0),
                     (theta - sin) / (theta2 * theta))
     eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(W.shape)
-    R = eye + a * W + b * W2
-    V = eye + b * W + c * W2
-    E = make_T(R, fma_dot(V, v[..., None, :], dim=-1))
-    return fma_dot(E[..., :, :, None], T[..., None, :, :], dim=-2)
+    # eye + a W + b W2, contracted by jitted XLA:CPU into two FMAs
+    R = fma(b, W2, fma(a, W, eye))
+    V = fma(c, W2, fma(b, W, eye))
+    E = make_T(R, fma_dot_exact(V, v[..., None, :], dim=-1))
+    if shared:
+        # one T (4, 4) for a batch of xi (the hypotheses' first step, JAX's
+        # T0 unbatched under vmap): XLA makes one (B * 4, 4) x (4, 4) dot
+        # of it, which runs in Eigen: the 4 products rounded, added
+        # (p0 + p1) + (p2 + p3)
+        p = E[..., :, :, None] * T[..., None, :, :]
+        return (p[..., 0, :] + p[..., 1, :]) + (p[..., 2, :] + p[..., 3, :])
+    return fma_dot_exact(E[..., :, :, None], T[..., None, :, :], dim=-2)
 
 
 def se3_log(T: torch.Tensor) -> torch.Tensor:
@@ -223,7 +234,9 @@ def se3_exp_np(xi) -> np.ndarray:
 
 def make_T(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Assemble (..., 4, 4) from (..., 3, 3) rotation and (..., 3) translation."""
-    batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
+    # numpy's rule, without torch's symbolic-shape machinery (about 2 ms a
+    # call on the host, and make_T runs in every Gauss-Newton step)
+    batch = np.broadcast_shapes(tuple(R.shape[:-2]), tuple(t.shape[:-1]))
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)

@@ -2,6 +2,7 @@
 
     JAX_PLATFORMS=cpu python tests/_torch_golden.py           # 1226x370, 64 frames
     JAX_PLATFORMS=cpu python tests/_torch_golden.py --tiny    # 160x120, 8 frames
+    JAX_PLATFORMS=cpu python tests/_torch_golden.py [--tiny] --dump DIR
 
 A helper script, not a test module (it imports both packages, as only
 files under tests/ may). It
@@ -22,6 +23,19 @@ files under tests/ may). It
      per-frame poses and counts) with its meta: the configuration, the
      dataset's arguments, the jax version, the commit and the files that
      make the golden where the working tree differs from it.
+
+--dump DIR makes no record: it compiles the golden's own program (the
+jitted `process_sequence` of step 3, at the same shapes, nothing run)
+with XLA's dump into DIR (`--xla_dump_to`, `--xla_dump_hlo_as_text`):
+the optimized HLO (`*.cpu_after_optimizations.txt`), the LLVM IR of each
+fused kernel (`*.ir-with-opt.ll`) and its object code (`obj-file.*.o`,
+read with `objdump -d`: LLVM contracts a multiply and an add into
+`vfmadd*` when it selects instructions, so the FMAs show there and not
+in the IR). A dot with no kernel module of its own runs in the runtime's
+library (Eigen). DIR also gets `host.json`, the facts that pick those
+orders (`host_facts`). The orders the port copies were read from these
+dumps (denseslam_tpu_torch/utils/numerics.py `gn_normal`, ops/tsdf.py
+`_fusion_geometry`).
 
 --tiny makes the same record at 160x120 over 8 frames with the small
 variant of the configuration (the script's --cpu shrink) into
@@ -105,6 +119,31 @@ def jax_drive_config(small: bool = False):
     return cfg
 
 
+def host_facts() -> dict:
+    """The facts of this host that pick jitted XLA:CPU's orders: the CPU
+    model, its vector ISA flags, the core count, the jax version. The
+    golden's meta holds them; the port copies the orders of the host that
+    made the golden as a fixed rule and never reads its own."""
+    import platform
+
+    import jax
+    model, flags = platform.processor(), []
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                k, _, v = line.partition(":")
+                if k.strip() == "model name":
+                    model = v.strip()
+                elif k.strip() == "flags":
+                    flags = sorted(x for x in v.split() if x.startswith(
+                        ("avx", "fma", "sse", "f16c", "amx")))
+                    break
+    except OSError:
+        pass
+    return dict(cpu_model=model, isa_flags=flags, cpu_count=os.cpu_count(),
+                machine=platform.machine(), jax_version=jax.__version__)
+
+
 def write_sequence(out: str, tiny: bool = False) -> str:
     """The KITTI sequence, rendered on the CPU by the port's make_dataset."""
     from denseslam_tpu_torch.io.make_dataset import make_dataset
@@ -142,6 +181,37 @@ def run_jax(cfg, lefts, rights):
             [np.asarray(x) for x in jax.tree.leaves(db)])
 
 
+def dump_program(out_dir: str, tiny: bool = False) -> list:
+    """Compile the golden's program (run_jax's jitted process_sequence at
+    the golden's shapes and configuration; nothing runs) with XLA's dump
+    into `out_dir`, which the caller named in XLA_FLAGS before jax made
+    its backend. Returns the dumped files' names."""
+    import json
+
+    import jax
+    import jax.numpy as jnp
+
+    from denseslam_tpu.models import dense_slam as jd
+    from denseslam_tpu.models import frontend as jfe
+    from denseslam_tpu.ops import tsdf as jt
+
+    cfg = jax_drive_config(small=tiny)
+    n = TINY["frames"] if tiny else 64
+    hw = (cfg.rig.intr.height, cfg.rig.intr.width)
+    imgs = jax.ShapeDtypeStruct((n,) + hw, jnp.float32)
+
+    def process_sequence_golden(st, m, db, l, r, f):
+        return jd.process_sequence(st, m, db, l, r, f, cfg)
+
+    jax.jit(process_sequence_golden).lower(
+        jfe.init_frontend(cfg, seed=0), jt.make_map(cfg.tsdf),
+        jd.make_fusion_db(cfg), imgs, imgs,
+        jax.ShapeDtypeStruct((n,), jnp.int32)).compile()
+    with open(os.path.join(out_dir, "host.json"), "w") as f:
+        json.dump(dict(host_facts(), tiny=tiny, frames=n), f, indent=1)
+    return sorted(os.listdir(out_dir))
+
+
 def make_golden(out: str, tiny: bool = False, workdir: str | None = None):
     """Write the golden record into `out`; returns (record, meta)."""
     import jax
@@ -161,7 +231,7 @@ def make_golden(out: str, tiny: bool = False, workdir: str | None = None):
                   "denseslam_tpu_torch/io", "tests/_torch_golden.py",
                   "chip_smoke.py").splitlines()
     meta = dict(config=golden.config_json(cfg), kitti_args=kitti_args(tiny),
-                tiny=tiny, jax_version=jax.__version__,
+                tiny=tiny, jax_version=jax.__version__, host=host_facts(),
                 commit=git("rev-parse", "HEAD").strip() or None,
                 changed_from_commit=sorted(changed),
                 frames=int(lefts.shape[0]))
@@ -179,12 +249,27 @@ def main(argv=None) -> int:
     ap.add_argument("--workdir", default=None,
                     help="where the PNG sequence is written for the run "
                     "(a temporary directory inside it)")
+    ap.add_argument("--dump", default=None, metavar="DIR",
+                    help="compile the golden's program with XLA's dump "
+                    "into DIR instead of making the record")
     args = ap.parse_args(argv)
+    if args.dump:
+        os.makedirs(args.dump, exist_ok=True)
+        # read by jax when it makes its CPU backend, below
+        os.environ["XLA_FLAGS"] = " ".join(
+            [os.environ.get("XLA_FLAGS", ""),
+             f"--xla_dump_to={os.path.abspath(args.dump)}",
+             "--xla_dump_hlo_as_text",
+             "--xla_dump_hlo_module_re=process_sequence_golden"]).strip()
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_threefry_partitionable", True)
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
+    if args.dump:
+        files = dump_program(args.dump, args.tiny)
+        print(dict(dump=args.dump, files=len(files)))
+        return 0
     out = args.out or (GOLDEN_TINY if args.tiny else GOLDEN)
     rec, meta = make_golden(out, args.tiny, args.workdir)
     print(dict(out=out, bytes=os.path.getsize(out), frames=meta["frames"],

@@ -172,11 +172,14 @@ def test_gn_jacobian_equals_jitted_jax():
 
 def test_zssd_equals_jitted_jax():
     """The patch means (a left-to-right sum times 1/S^2) and the sum of
-    squares (a chain of FMAs) at the refinement's 9x9 patches, for every
-    shift of a leg at once as the port batches them."""
+    squares (a chain of FMAs) at 7x7 patches (`refine_patch` 7), for every
+    shift of a leg at once as the port batches them. At the default 9x9
+    the port sums the squares in `process_sequence`'s row order, which
+    `_zssd` jitted alone does not take; the 160x120 golden holds that one
+    (tests/test_torch_golden.py)."""
     rng = np.random.default_rng(9)
-    anchor = rng.uniform(0, 255, (300, 9, 9)).astype(np.float32)
-    wins = rng.uniform(0, 255, (5, 5, 300, 9, 9)).astype(np.float32)
+    anchor = rng.uniform(0, 255, (300, 7, 7)).astype(np.float32)
+    wins = rng.uniform(0, 255, (5, 5, 300, 7, 7)).astype(np.float32)
     zssd = jax.jit(jmatch._zssd)
     want = np.stack([[np.asarray(zssd(anchor, w)) for w in row]
                      for row in wins])

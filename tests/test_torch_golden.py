@@ -16,9 +16,9 @@ tests/_torch_golden.py) and the port's digests and check
       over the same 8 frames written by io/make_dataset.py and decoded by
       the port's reader, with the RANSAC draws from the frontend's key:
       every gate of `check`, the replay at the golden's poses included.
-      At this size the drive's own map keeps 99.66% of its blocks within
-      the per-block tolerances (its poses part from JAX's by 2.0e-6 m by
-      the last keyframe) and the replay all of them.
+      At this size the port computes what jitted JAX computed, bit for
+      bit: every pose, the drive's own map and the replay (every block's
+      voxels by their sha256).
 """
 
 import copy
@@ -167,6 +167,9 @@ def test_port_meets_the_tiny_golden(tmp_path):
         convert.map_state_to_numpy(replay)).items()})
     rep = golden.check(g, run)
     assert rep["inputs_equal"] and rep["keyframes"] == 2
-    assert rep["max_pose_diff_m"] <= golden.POSE_T_M
+    assert rep["max_pose_diff_m"] == 0.0
+    assert rep["poses_bit_equal_frames"] == len(g["T_wc"])
+    assert rep["map_blocks_equal_by_sha_share"] == 1.0
     assert rep["replay_map_blocks_within_share"] == 1.0
+    assert rep["replay_map_blocks_equal_by_sha_share"] == 1.0
     assert rep["map_blocks"] > 1000

@@ -11,6 +11,16 @@ from denseslam_tpu.ops import hash as jh
 from denseslam_tpu_torch.ops import hash as ph
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _keys(coords):
     c = np.asarray(coords, np.int32)
     return np.array(jh.pack_xyz(jnp.asarray(c[:, 0]), jnp.asarray(c[:, 1]),

@@ -30,6 +30,16 @@ from denseslam_tpu_torch.ops import matching as pm
 W, H = 160, 120
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     cfg = tiny_test_config(width=W, height=H, baseline_m=0.537)

@@ -16,8 +16,9 @@ draws. Tolerances, and why:
     frames where both estimators pick the same non-degenerate hypothesis
     (`_frame_held`), and over the sequence until the first frame where
     they do not.
-  * the map: bit for bit JAX's fusion, op by op, of the frames the port
-    fused at the poses it estimated.
+  * the map: bit for bit JAX's fusion (jitted `integrate`, the program
+    whose order the port copies) of the frames the port fused at the
+    poses it estimated.
 """
 
 import dataclasses
@@ -267,14 +268,16 @@ def test_process_sequence_mono_matches_jax(ref, port_run):
 
 def test_process_sequence_mono_fusion_is_exact(ref, port_run):
     """The port's map equals the JAX fusion of the frames it fused, at the
-    poses it estimated, bit for bit (fuse_keyframe's steps with integrate
-    run op by op, as tests/test_torch_rgbd.py does); its virtual right
+    poses it estimated, bit for bit (fuse_keyframe's steps, each jitted on
+    its own, as tests/test_torch_rgbd.py does); its virtual right
     features equal JAX's disparity formula on its features and the
     supplied depth."""
     _, m, _, stats = port_run
     cfg = ref["cfg"]
     intr, tc = cfg.rig.intr, cfg.tsdf
     alloc = jax.jit(lambda m, d, T: jt.allocate_for_frame(m, d, T, intr, tc))
+    integ = jax.jit(lambda m, s, k, d, c, T: jt.integrate(
+        m, s, k, d, c, T, intr, tc))
     tail = jax.jit(lambda m: jt.advance_frame(jt.decay_and_slide(
         m, cfg.decay.max_decay_weight, cfg.decay.min_decay_age,
         cfg.slide_window.max_age)))
@@ -284,7 +287,7 @@ def test_process_sequence_mono_fusion_is_exact(ref, port_run):
         T = jnp.asarray(stats["T_wc"][i].numpy())
         col = jt.pack_gray(jnp.asarray(ref["grays"][i]))
         mj, s, k = alloc(mj, d, T)
-        mj = tail(jt.integrate(mj, s, k, d, col, T, intr, tc))
+        mj = tail(integ(mj, s, k, d, col, T))
     for name, a, b in zip(MAP_LEAVES, jax.tree.leaves(mj),
                           convert.map_state_to_numpy(m)):
         np.testing.assert_array_equal(np.asarray(a), b, name)

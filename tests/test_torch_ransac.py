@@ -101,6 +101,17 @@ def _quads(rng, cfg, T_delta, n=200, n_bad=40):
     return [idx, idx, idx, idx, uv_lc, uv_rc, uv_lp, uv_rp, valid]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores (the exact FMAs' float64 passes are memory
+    bound)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def motion():
     """The configuration and the JAX solver, jitted once for the module."""

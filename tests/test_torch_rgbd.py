@@ -19,8 +19,9 @@ the same draws. Tolerances, and why:
     boundary samples the neighbouring pixel: weights and colours differ
     on at most 1e-4 of voxels, and elsewhere tsdf by at most 5e-5 (a few
     ulps of the voxel's camera depth over the 0.2 m truncation). Replayed
-    op by op with the port's own poses, the JAX fusion equals the port's
-    map bit for bit, every leaf.
+    with the port's own poses through JAX's jitted `integrate` (the
+    program whose projection and running averages the port copies), the
+    JAX fusion equals the port's map bit for bit, every leaf.
 
 The JAX drive is process_sequence_rgbd on 1-frame chunks (one compile),
 so that the per-frame states are at hand; the port runs the 4 frames in
@@ -80,6 +81,17 @@ def _frames(cfg, rng):
     d = np.where(holes | (d <= 0) | (d > cfg.tsdf.max_depth_m), 0.0,
                  dn).astype(np.float32)
     return poses, g, d
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores (the exact FMAs' float64 passes are memory
+    bound)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -238,13 +250,15 @@ def test_process_sequence_rgbd_matches_jax(ref, port_run):
 
 def test_process_sequence_rgbd_fusion_is_exact(ref, port_run):
     """The port's map equals the JAX fusion of the frames it fused at the
-    poses it estimated, bit for bit: fuse_keyframe's steps with integrate
-    run op by op (allocation and the decay / slide tail hold under jit:
-    they round no multiply-add)."""
+    poses it estimated, bit for bit: fuse_keyframe's steps, each jitted
+    on its own (allocation, `integrate` in the order the port copies, and
+    the decay / slide tail)."""
     _, m, _, stats = port_run
     cfg = ref["cfg"]
     intr, tc = cfg.rig.intr, cfg.tsdf
     alloc = jax.jit(lambda m, d, T: jt.allocate_for_frame(m, d, T, intr, tc))
+    integ = jax.jit(lambda m, s, k, d, c, T: jt.integrate(
+        m, s, k, d, c, T, intr, tc))
     tail = jax.jit(lambda m: jt.advance_frame(jt.decay_and_slide(
         m, cfg.decay.max_decay_weight, cfg.decay.min_decay_age,
         cfg.slide_window.max_age)))
@@ -254,7 +268,7 @@ def test_process_sequence_rgbd_fusion_is_exact(ref, port_run):
         T = jnp.asarray(stats["T_wc"][i].numpy())
         col = jt.pack_gray(jnp.asarray(ref["grays"][i]))
         mj, s, k = alloc(mj, d, T)
-        mj = tail(jt.integrate(mj, s, k, d, col, T, intr, tc))
+        mj = tail(integ(mj, s, k, d, col, T))
     for name, a, b in zip(MAP_LEAVES, jax.tree.leaves(mj),
                           convert.map_state_to_numpy(m)):
         np.testing.assert_array_equal(np.asarray(a), b, name)

@@ -13,6 +13,16 @@ from denseslam_tpu.ops import sampling as jsm
 from denseslam_tpu_torch.ops import sampling as psm
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_post_fallback(combo, u, v, z, w, h, cap):
     """The JAX integrate's sampler composition, verbatim."""
     c, uj, vj, zj = map(jnp.asarray, (combo, u, v, z))

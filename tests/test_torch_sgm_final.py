@@ -48,6 +48,16 @@ W_REAL = WP - 2
 P1, P2 = 10.0, 120.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _load_probe(name):
     """Import a probe script as a module; the probes point jax's compilation
     cache at a fixed directory and extend sys.path when imported, and both

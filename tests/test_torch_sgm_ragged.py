@@ -26,6 +26,16 @@ from denseslam_tpu_torch.ops import sgm as psg
 from denseslam_tpu_torch.ops import stereo as pst
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _edge_volume(shape, seed):
     h, w, d = shape
     rng = np.random.default_rng(seed)

@@ -31,6 +31,16 @@ from denseslam_tpu_torch.ops import tsdf as pt
 N = 3
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     cfg = tiny_test_config(width=96, height=64, baseline_m=0.25)

@@ -17,6 +17,17 @@ from denseslam_tpu_torch.io import convert
 from denseslam_tpu_torch.ops import stereo as pst
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores (the exact FMAs' float64 passes are memory
+    bound)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pair():
     cfg = tiny_test_config(width=80, height=48, baseline_m=0.25)

@@ -13,6 +13,16 @@ from denseslam_tpu.ops import stereo as jst
 from denseslam_tpu_torch.ops import sgm as psg
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _sgm_pair(cost, backend, dtype):
     c = jnp.asarray(cost)
     if dtype == "bfloat16":

@@ -109,6 +109,17 @@ def _snapshot(system, out, jax_side):
         map=m)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores (the exact FMAs' float64 passes are memory
+    bound)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def runs():
     cfg = _config()

@@ -3,12 +3,17 @@ allocate_for_frame -> integrate -> decay_and_slide -> advance_frame, for
 both samplers and both storage dtypes, true-RGB and bilinear fusion
 (de-integration and the passes alone: tests/test_torch_tsdf_passes.py).
 
-The JAX functions run eagerly (op by op), as tests/test_sampling.py runs
-them, so no XLA fusion contracts their multiply-adds; the port then
-reproduces every leaf of the map BIT FOR BIT — keys, tsdf, weight, color,
-stamps and counters (tolerance: none)."""
+JAX's `integrate` and `deintegrate` run jitted, one program per
+configuration (`_integrate`): the programs whose voxel projection and
+running averages XLA:CPU contracts into FMAs, in the order the port copies
+(ops/tsdf.py `fusion_geometry_plain`; the same order as
+`process_sequence`'s scan, tests/test_torch_gn_normal.py); allocation and
+the decay / slide tail run as before. The port then reproduces every leaf
+of the map BIT FOR BIT — keys, tsdf, weight, color, stamps and counters
+(tolerance: none)."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,12 +28,31 @@ from denseslam_tpu_torch.io import convert
 from denseslam_tpu_torch.ops import tsdf as pt
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores (the exact FMAs' float64 passes are memory
+    bound)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def frames():
     cfg = tiny_test_config(width=96, height=72)
     poses = js.make_trajectory(3, step_m=0.1, yaw_rate=0.02)
     grays, depths = js.render_trajectory(poses, cfg.rig.intr)
     return cfg, poses, np.asarray(grays), np.asarray(depths)
+
+
+@functools.lru_cache(maxsize=None)
+def _integrate(intr, tc, sign=1):
+    """JAX's `integrate` (sign 1) or `deintegrate` (sign -1), jitted for
+    one configuration, every array an argument."""
+    fn = jt.integrate if sign > 0 else jt.deintegrate
+    return jax.jit(lambda m, s, k, d, c, T: fn(m, s, k, d, c, T, intr, tc))
 
 
 def _leaves(m_jax):
@@ -61,7 +85,7 @@ def test_fusion_tail_matches_jax_bit_for_bit(frames, sampler, storage):
     for f in range(2):
         T, d, g = jnp.asarray(poses[f + 1]), jnp.asarray(depths[f]), grays[f]
         m, s, k = jt.allocate_for_frame(m, d, T, intr, tc)
-        m = jt.integrate(m, s, k, d, jt.pack_gray(jnp.asarray(g)), T, intr, tc)
+        m = _integrate(intr, tc)(m, s, k, d, jt.pack_gray(jnp.asarray(g)), T)
         m = jt.decay_and_slide(m, 2, 1, 1)
         m = jt.advance_frame(m)
 
@@ -81,7 +105,7 @@ def test_true_rgb_fusion_matches_jax_bit_for_bit(frames, sampler):
     """gray_color_fusion=False: the pallas sampler runs kernel B2's plain
     version with its cap rule (a cap of 2 so the fallback colour gather
     runs), the gather sampler samples raw depth and gathers colour apart.
-    Every leaf of the map equals the op-by-op JAX fusion, on 2 frames of a
+    Every leaf of the map equals the jitted JAX fusion, on 2 frames of a
     random RGB image, and de-integration restores tsdf and weight."""
     cfg, poses, grays, depths = frames
     cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
@@ -97,7 +121,7 @@ def test_true_rgb_fusion_matches_jax_bit_for_bit(frames, sampler):
     for f in range(2):
         T, d = jnp.asarray(poses[f + 1]), jnp.asarray(depths[f])
         m, s, k = jt.allocate_for_frame(m, d, T, intr, tc)
-        m = jt.integrate(m, s, k, d, col, T, intr, tc)
+        m = _integrate(intr, tc)(m, s, k, d, col, T)
         Tp, dp = torch.tensor(poses[f + 1]), torch.tensor(depths[f])
         mp, sp, kp = pt.allocate_for_frame(mp, dp, Tp, pcfg.rig.intr, pcfg.tsdf)
         mp = pt.integrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
@@ -108,7 +132,7 @@ def test_true_rgb_fusion_matches_jax_bit_for_bit(frames, sampler):
         assert int(mp.overflow) == int(m.overflow)
     w0 = mp.weight.clone()
     mp = pt.deintegrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
-    _assert_maps_equal(jt.deintegrate(m, s, k, d, col, T, intr, tc), mp)
+    _assert_maps_equal(_integrate(intr, tc, -1)(m, s, k, d, col, T), mp)
     assert (mp.weight < w0).any()
 
 
@@ -120,7 +144,7 @@ def test_bilinear_fusion_matches_jax_bit_for_bit(frames, sampler, gray,
     nearest-pixel colour gather, under either sampler (the tile sampler
     B1 / B2 is bypassed, as in the JAX version, so it must not be called),
     with luminance or true-RGB colour, on 2 frames and a de-integration:
-    every leaf of the map equals the op-by-op JAX fusion."""
+    every leaf of the map equals the jitted JAX fusion."""
     cfg, poses, grays, depths = frames
     cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(
         cfg.tsdf, sampler=sampler, bilinear_fusion=True,
@@ -141,7 +165,7 @@ def test_bilinear_fusion_matches_jax_bit_for_bit(frames, sampler, gray,
         col = (jt.pack_gray(jnp.asarray(grays[f])) if gray else
                jt.pack_rgb(*(jnp.asarray(c, jnp.float32) for c in rgb)))
         m, s, k = jt.allocate_for_frame(m, d, T, intr, tc)
-        m = jt.integrate(m, s, k, d, col, T, intr, tc)
+        m = _integrate(intr, tc)(m, s, k, d, col, T)
         Tp, dp = torch.tensor(poses[f + 1]), torch.tensor(depths[f])
         colp = torch.tensor(np.asarray(col))
         mp, sp, kp = pt.allocate_for_frame(mp, dp, Tp, pcfg.rig.intr,
@@ -150,6 +174,6 @@ def test_bilinear_fusion_matches_jax_bit_for_bit(frames, sampler, gray,
         _assert_maps_equal(m, mp)
     assert (mp.weight > 0).sum() > 1000
     mp = pt.deintegrate(mp, sp, kp, dp, colp, Tp, pcfg.rig.intr, pcfg.tsdf)
-    _assert_maps_equal(jt.deintegrate(m, s, k, d, col, T, intr, tc), mp)
+    _assert_maps_equal(_integrate(intr, tc, -1)(m, s, k, d, col, T), mp)
 
 

@@ -4,7 +4,8 @@ renders once more): integrate then deintegrate for both samplers, the
 decay and sliding-window passes on their own, the memory accounting, the
 sequence-end decay catch-up and reset.
 
-The JAX functions run eagerly (op by op), as in tests/test_torch_tsdf.py;
+JAX's `integrate` and `deintegrate` run jitted (`_integrate`, the
+programs whose order the port copies), as in tests/test_torch_tsdf.py;
 the port reproduces every leaf of the map BIT FOR BIT (tolerance: none)."""
 
 import dataclasses
@@ -18,7 +19,8 @@ import torch
 from denseslam_tpu.ops import tsdf as jt
 from denseslam_tpu_torch.io import convert
 from denseslam_tpu_torch.ops import tsdf as pt
-from test_torch_tsdf import _assert_maps_equal, frames  # noqa: F401
+from test_torch_tsdf import (_assert_maps_equal, _integrate,  # noqa: F401
+                             frames, one_torch_thread)
 
 
 @pytest.mark.parametrize("sampler", ["gather", "pallas"])
@@ -33,8 +35,8 @@ def test_integrate_then_deintegrate_restores_the_map(frames, sampler):
     T, d = jnp.asarray(poses[0]), jnp.asarray(depths[0])
     col = jt.pack_gray(jnp.asarray(grays[0]))
     m0, s, k = jt.allocate_for_frame(jt.make_map(tc), d, T, intr, tc)
-    m1 = jt.integrate(m0, s, k, d, col, T, intr, tc)
-    m2 = jt.deintegrate(m1, s, k, d, col, T, intr, tc)
+    m1 = _integrate(intr, tc)(m0, s, k, d, col, T)
+    m2 = _integrate(intr, tc, -1)(m1, s, k, d, col, T)
 
     Tp, dp = torch.tensor(poses[0]), torch.tensor(depths[0])
     colp = pt.pack_gray(torch.tensor(grays[0]))
@@ -57,7 +59,7 @@ def test_decay_and_slide_window_passes_match_jax(frames):
     intr, tc = cfg.rig.intr, cfg.tsdf
     T, d = jnp.asarray(poses[0]), jnp.asarray(depths[0])
     m, s, k = jt.allocate_for_frame(jt.make_map(tc), d, T, intr, tc)
-    m = jt.integrate(m, s, k, d, None, T, intr, tc)
+    m = _integrate(intr, tc)(m, s, k, d, None, T)
     m = m._replace(frame=jnp.int32(5),
                    weight=m.weight * jnp.asarray(
                        np.random.default_rng(1).integers(1, 4, (1, 512)),
@@ -79,7 +81,7 @@ def test_used_memory_decay_catchup_and_reset_match_jax(frames):
     intr, tc = cfg.rig.intr, cfg.tsdf
     T, d = jnp.asarray(poses[0]), jnp.asarray(depths[0])
     m, s, k = jt.allocate_for_frame(jt.make_map(tc), d, T, intr, tc)
-    m = jt.integrate(m, s, k, d, None, T, intr, tc)
+    m = _integrate(intr, tc)(m, s, k, d, None, T)
     m = m._replace(frame=jnp.int32(1),
                    weight=m.weight * jnp.asarray(
                        np.random.default_rng(2).integers(1, 4, (1, 512)),

@@ -66,6 +66,17 @@ def stereo_frames(cfg, n, rng):
     return poses, nuisance(lefts), nuisance(rights)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One thread each spares the other test processes of a parallel run
+    the oversubscribed cores (the exact FMAs' float64 passes are memory
+    bound)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ref():
     cfg = _config()
@@ -187,6 +198,30 @@ def test_refine_quad_subpix_agrees(ref, mode):
     stereo_moved = (np.abs(got.uv_rc.numpy() - qj[5]).max(axis=1)
                     > 1e-3).sum()
     assert (stereo_moved > 10) == (mode == "full")
+
+
+def test_refine_quad_subpix_at_patch_7(ref):
+    """refine_patch 7, a size the JAX probes run (the port's `_zssd` keeps
+    its row order to 9x9 patches and sums 7x7 ones in one chain), refines
+    as JAX does, within the tolerance of refine_quad_subpix above."""
+    cfg = ref["cfg"]
+    fc = dataclasses.replace(cfg.frontend, refine_mode="full",
+                             refine_patch=7)
+    pfc = dataclasses.replace(ref["pcfg"].frontend, refine_mode="full",
+                              refine_patch=7)
+    qj, _ = _quads(ref, False)
+    imgs = (ref["lefts"][0], ref["rights"][0], ref["lefts"][1],
+            ref["rights"][1])
+    want = jax.jit(lambda q, a, b, c, d: jm.refine_quad_subpix(
+        q, a, b, c, d, fc))(jm.QuadMatches(*map(jnp.asarray, qj)),
+                            *map(jnp.asarray, imgs))
+    got = pm.refine_quad_subpix(pm.QuadMatches(*map(torch.tensor, qj)),
+                                *map(torch.tensor, imgs), pfc)
+    for name in ("uv_lc", "uv_rc", "uv_lp", "uv_rp"):
+        a, b = np.asarray(getattr(want, name)), getattr(got, name).numpy()
+        np.testing.assert_allclose(b, a, rtol=0, atol=1e-3, err_msg=name)
+    moved = np.abs(got.uv_lc.numpy() - qj[4]).max(axis=1) > 1e-3
+    assert moved.sum() > 10
 
 
 @pytest.fixture(scope="module")
